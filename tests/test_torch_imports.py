@@ -1,0 +1,80 @@
+"""The PyTorch port imports nothing of JAX and nothing of the JAX package."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "pmp_vvc_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+# Shared by the subprocess below and by test_blocker_spares_the_port.
+_BLOCKER = '''
+import sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "pmp_vvc_tpu")
+
+def blocked(name):
+    return name.split(".")[0] in BLOCKED
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ModuleNotFoundError(f"blocked import: {name}")
+        return None
+'''
+
+_IMPORT_ALL = _BLOCKER + '''
+sys.meta_path.insert(0, Blocker())
+import importlib, pkgutil
+import pmp_vvc_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pmp_vvc_tpu_torch.__path__,
+                                               "pmp_vvc_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules if blocked(m))
+assert not leaked, leaked
+print(len(names))
+'''
+
+
+def _blocker_namespace():
+    ns = {}
+    exec(_BLOCKER, ns)
+    return ns
+
+
+def test_blocker_spares_the_port():
+    blocked = _blocker_namespace()["blocked"]
+    assert blocked("pmp_vvc_tpu") and blocked("pmp_vvc_tpu.models.qbd")
+    assert blocked("jax.numpy") and blocked("flax") and blocked("optax")
+    assert not blocked("pmp_vvc_tpu_torch")
+    assert not blocked("pmp_vvc_tpu_torch.pmp.structural")
+
+
+def test_port_imports_every_module_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    # data, models, pmp and their modules, _build, _device
+    assert int(proc.stdout.split()[-1]) >= 14
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_source_names_no_blocked_module(path):
+    blocked = _blocker_namespace()["blocked"]
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert not [n for n in names if blocked(n)]
