@@ -17,12 +17,33 @@ Phases, each of which fails the run on error (nothing is caught):
 5. One Luma ``predict`` of the main path's CTUs under torch.profiler: device
    time by kernel and the device's idle share.
 
+6. The encode kernels K1 (reference gather), K2 (intra RMD / DM), K4
+   (transform-quantisation) and K7 (wave-step scatter) against their plain
+   PyTorch versions on the card, exactly, on seeded inputs: every CU size
+   of both tile classes, luma and chroma, all 67 modes on every CU size
+   through the chroma DM predictor, frame edges and partly coded
+   neighbourhoods, QP 0, 22, 37, full-swing residuals; timed at the main
+   path's batch shapes.
+7. The encode main path: 1920x1080 x 2 frames of natural content, maps
+   predicted on the card by the Luma and Chroma QP22 predictors, encoded
+   with the dual-tree DCT-2 + deblocking + SAO configuration at QP 22
+   through ``WavefrontEncoder.encode_frames`` (cold, then warm); stage
+   times, wave steps, launches of every kernel, hash SEI against an MD5 of
+   the returned recon, luma PSNR.
+8. The same kernels against their plain versions on the real schedule rows
+   of the main path's first wave steps.
+9. 416x240 x 2 frames encoded with ``device="cpu"`` (plain versions) and on
+   the card: the bitstreams must be byte-identical.
+10. One warm frame's wave scan under torch.profiler: device time by kernel
+    and the device's idle share.
+
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA.
 """
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import pathlib
@@ -35,8 +56,14 @@ import numpy as np
 import torch
 
 from pmp_vvc_tpu_torch import _build
+from pmp_vvc_tpu_torch.codec import wavefront as wf
+from pmp_vvc_tpu_torch.codec.headers import VVCConfig
 from pmp_vvc_tpu_torch.data.synthcontent import natural_sequence
 from pmp_vvc_tpu_torch.data.yuv import blocks_for_sequence, write_yuv420
+from pmp_vvc_tpu_torch.ops.intra_generic import (
+    intra_rmd, intra_rmd_reference, ref_gather, ref_gather_reference)
+from pmp_vvc_tpu_torch.ops.tq_generic import tq, tq_reference
+from pmp_vvc_tpu_torch.pmp.map2partition import blocks_to_frame_partition
 from pmp_vvc_tpu_torch.pmp.pipeline import predict_sequence
 from pmp_vvc_tpu_torch.pmp.predict import CompPredictor
 from pmp_vvc_tpu_torch.pmp.structural import (
@@ -296,6 +323,412 @@ def phase_profile(preds: dict, blocks) -> None:
         log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {name[:110]}")
 
 
+# ---------------------------------------------------------------------------
+# The encode path: kernels K1, K2, K4, K7 and the map-driven wave encode
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"
+ENC_W, ENC_H, ENC_FRAMES, ENC_QP = 1920, 1080, 2, 22   # JVET CTC class B
+SMALL_W, SMALL_H = 416, 240                              # class D
+BD = 10
+ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
+    "ref_gather": (ref_gather, "pmp_vvc_tpu_torch/csrc/ref_gather.cu",
+                   "pmp_vvc_tpu/codec/wavefront.py:97"),
+    "intra_rmd": (intra_rmd, "pmp_vvc_tpu_torch/csrc/intra_rmd.cu",
+                  "pmp_vvc_tpu/ops/intra_generic.py:142"),
+    "tq": (tq, "pmp_vvc_tpu_torch/csrc/tq.cu",
+           "pmp_vvc_tpu/ops/tq_generic.py:96"),
+    "wave_scatter": (wf.wave_scatter, "pmp_vvc_tpu_torch/csrc/wave_scatter.cu",
+                     "pmp_vvc_tpu/codec/wavefront.py:655"),
+}
+# Scalar integer operations per sample, counted from the kernels' inner
+# loops: an angular / planar sample of K2 (4 taps, rounding, clip, PDPC);
+# one sample's share of K2's 8x8 Hadamard SATD (6 butterfly stages, abs,
+# sum); K4's per-coefficient quantise / RD zeroing / dequantise, and its
+# per-sample residual, SSE and rate work. Bounded against the float32 rate
+# outside the tensor cores, which the int32 rate does not exceed.
+OPS_PRED, OPS_SATD, OPS_QUANT, OPS_SAMPLE = 12, 8, 30, 10
+
+
+def enc_cfg(w: int, h: int) -> VVCConfig:
+    """The slice's configuration: dual tree, map-driven MTT at L3, the
+    bench's chroma QP table, deblocking and SAO; every other tool off."""
+    return VVCConfig(width=w, height=h, qp=ENC_QP, dual_tree=True, sao=True,
+                     deblocking_disabled=False, chroma_qp_start_minus26=-9,
+                     chroma_qp_points=((9, 12), (4, 5), (11, 7)),
+                     log2_min_cb=2, max_mtt_depth_intra=3, max_bt_intra=32,
+                     max_tt_intra=32)
+
+
+def kernel_rows(pad: int, scale: int, seed: int, width: int, height: int):
+    """(B, 8) int32 rows: every CU size of the pad class (luma units), each
+    in its own cell of a shuffled grid (CUs of one step never overlap),
+    flush with the cell's top-left or bottom-right corner so that frame
+    edges are met; random order ids; then two padding rows."""
+    rng = np.random.RandomState(seed)
+    big = pad * scale
+    sides = [s for s in (4, 8, 16, 32, 64, 128) if s <= big]
+    sizes = [(w, h) for w, h in itertools.product(sides, sides)
+             if big == 32 or max(w, h) > big // 2]
+    cells = rng.permutation((width // big) * (height // big))
+    rows = []
+    for i, (w, h) in enumerate(sizes):
+        cy, cx = divmod(int(cells[i]), width // big)
+        corner = i % 2
+        x, y = cx * big + corner * (big - w), cy * big + corner * (big - h)
+        rows.append((rng.randint(2), x, y, w, h, rng.randint(0, 400), 1, 0))
+    rows += [(0, 0, 0, 0, 0, 0, 0, 0)] * 2
+    return np.array(rows, np.int32)
+
+
+def kernel_planes(seed: int, width: int, height: int, scale: int):
+    """Recon and original planes (2 frames) and a partly coded order grid;
+    the first CU's region holds a full-swing checkerboard original."""
+    rng = np.random.RandomState(seed)
+    H, W = height // scale, width // scale
+    yy, xx = np.mgrid[0:H, 0:W]
+    rec = np.stack([np.clip(512 + 300 * np.sin(xx / (7 + f)) * np.cos(yy / 11)
+                            + rng.randn(H, W) * 20, 0, 1023) for f in range(2)])
+    org = np.clip(rec + rng.randn(2, H, W) * rng.choice([2, 40, 300]), 0, 1023)
+    org[:, :8, :8] = 1023 * (np.add.outer(np.arange(8), np.arange(8)) % 2)
+    og = rng.randint(-1, 400, (2, height // 4, width // 4))
+    og[1, :, ::3] = -1
+    return (rec.astype(np.int32), org.astype(np.int32), og.astype(np.int32))
+
+
+def _cmp(name: str, got, want, errs: dict) -> None:
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    for g, w in zip(got, want):
+        err = float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
+        errs[name] = max(errs.get(name, 0.0), err)
+        check(torch.equal(g, w), f"{name} differs from its plain version (max {err})")
+
+
+def scatter_both(rows, pad, scale, planes, rec, lev, grid, code, errs):
+    """K7 on ``planes`` (in place) against its plain version on copies."""
+    ref_planes = [(a.clone(), b.clone()) for a, b in planes]
+    ref_grid = grid.clone() if grid is not None else None
+    wf.wave_scatter(rows, pad, scale, planes, rec, lev, grid, code)
+    wf.wave_scatter_reference(rows, pad, scale, ref_planes, rec, lev, ref_grid, code)
+    _cmp("wave_scatter", [t for p in planes for t in p],
+         [t for p in ref_planes for t in p], errs)
+    if grid is not None:
+        _cmp("wave_scatter", grid, ref_grid, errs)
+
+
+def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
+    """``_Scan.step`` with each kernel held against its plain version on
+    the same inputs; the kernels' results carry the state forward."""
+    ry, ru, rv, cY, cU, cV, mg = scan.state[:7]
+    bd = scan.bd
+    if kind != "chroma":
+        refs = ref_gather([ry], scan.og4, row, P, 1, bd)
+        _cmp("ref_gather", refs, ref_gather_reference([ry], scan.og4, row, P, 1, bd), errs)
+        best, pred = intra_rmd(refs, scan.oy, mg, row, P, True, bd)
+        _cmp("intra_rmd", [best, pred],
+             list(intra_rmd_reference(refs, scan.oy, mg, row, P, True, bd)), errs)
+        lev, rec = tq([scan.oy], pred, row, P, 1, scan.qp_y, bd, scan.rd_quant, scan.lam)
+        _cmp("tq", [lev, rec], list(tq_reference([scan.oy], pred, row, P, 1, scan.qp_y, bd,
+                                                 scan.rd_quant, scan.lam)), errs)
+        scatter_both(row, P, 1, [(ry, cY)], rec, lev, mg, best, errs)
+        if kind == "luma":
+            return
+    Pc = P // 2
+    refs = ref_gather([ru, rv], scan.og4c, row, Pc, 2, bd)
+    _cmp("ref_gather", refs, ref_gather_reference([ru, rv], scan.og4c, row, Pc, 2, bd), errs)
+    modes, pred = intra_rmd(refs, None, mg, row, Pc, False, bd)
+    _cmp("intra_rmd", [modes, pred],
+         list(intra_rmd_reference(refs, None, mg, row, Pc, False, bd)), errs)
+    args = ([scan.ou, scan.ov], pred, row, Pc, 2, scan.qp_c, bd, scan.rd_quant,
+            scan.lam, scan.dw_c)
+    lev, rec = tq(*args)
+    _cmp("tq", [lev, rec], list(tq_reference(*args)), errs)
+    scatter_both(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev, None, None, errs)
+
+
+def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
+                  modes=None) -> tuple[float, str, int, int]:
+    """(bound ms, bound_by, bytes, ops) of one call on these rows."""
+    live = rows[rows[:, 6] > 0]
+    w, h = live[:, 3] // scale, live[:, 4] // scale
+    B, pad_rows = len(rows), len(rows) - len(live)
+    L = 2 * P + 3
+    if name == "ref_gather":
+        nbytes = n * (len(live) * (4 * P + 1) * 8 + B * 4 * L * 4) + B * 32
+        ops = n * len(live) * (4 * P + 1) * 6
+    elif name == "intra_rmd":
+        nbytes = n * B * (4 * L * 4 + P * P * 4) + B * 32 + \
+            (int((w * h).sum()) * 4 if modes is not None else 0)
+        if modes is not None:           # luma RMD
+            cands = 35 + 2 * (modes[rows[:, 6] > 0] >= 2) + 1
+            ops = int((cands * w * h).sum()) * OPS_PRED + \
+                int(((cands - 1) * w * h).sum()) * OPS_SATD
+        else:
+            ops = n * int((w * h).sum()) * OPS_PRED
+    elif name == "tq":
+        kw, kh = np.minimum(w, 32), np.minimum(h, 32)
+        macs = h * kw * w + kh * kw * h + h * kw * kh + h * w * kw
+        ops = n * int((2 * macs + OPS_QUANT * kw * kh + OPS_SAMPLE * w * h).sum())
+        nbytes = n * (int((w * h).sum()) * 4 + B * P * P * 4 * 3) + B * 32
+    else:                               # wave_scatter
+        ops = 0
+        nbytes = n * int((w * h).sum()) * (8 + 6) + B * 32 + \
+            (int((w // 4 * h // 4).sum()) + len(live) * 4 if scale == 1 else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def phase_encode_kernels() -> tuple[dict, dict]:
+    """K1/K2/K4/K7 against their plain versions on seeded inputs, then
+    their times at the main path's batch shape (16 CUs, 32-pad luma)."""
+    errs: dict = {}
+    max_level = 0
+    width, height = 256, 192
+    for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
+        rows_np = kernel_rows(P, scale, seed=P + qp, width=width, height=height)
+        rec, org, og = kernel_planes(P + scale + qp, width, height, scale)
+        dev = lambda a: torch.from_numpy(a).to(DEVICE)
+        rows, og_t = dev(rows_np), dev(og)
+        n = 1 if scale == 1 else 2
+        recs = [dev(rec), dev(rec[::-1].copy())][:n]
+        orgs = [dev(org), dev(org[::-1].copy())][:n]
+        mg = torch.from_numpy(np.random.RandomState(qp).randint(
+            0, 67, (2, height // 4, width // 4)).astype(np.uint8)).to(DEVICE)
+        refs = ref_gather(recs, og_t, rows, P, scale, BD)
+        _cmp("ref_gather", refs, ref_gather_reference(recs, og_t, rows, P, scale, BD), errs)
+        luma = scale == 1
+        modes, pred = intra_rmd(refs, orgs[0] if luma else None, mg, rows, P, luma, BD)
+        _cmp("intra_rmd", [modes, pred], list(intra_rmd_reference(
+            refs, orgs[0] if luma else None, mg, rows, P, luma, BD)), errs)
+        if not luma:
+            # every mode through the DM predictor on every CU size: the rows
+            # repeated once per mode, row copy m reading mode grid frame m
+            rows67 = np.tile(rows_np, (67, 1))
+            rows67[:, 0] = np.repeat(np.arange(67), len(rows_np))
+            rows67 = dev(rows67)
+            mg67 = torch.arange(67, dtype=torch.uint8, device=DEVICE)[:, None, None] \
+                .expand(67, height // 4, width // 4).contiguous()
+            refs67 = refs.repeat(1, 1, 67, 1).contiguous()
+            got = intra_rmd(refs67, None, mg67, rows67, P, False, BD)
+            _cmp("intra_rmd", list(got), list(intra_rmd_reference(
+                refs67, None, mg67, rows67, P, False, BD)), errs)
+            check(set(got[0][rows67[:, 6] > 0].tolist()) == set(range(67)),
+                  "the DM sweep did not reach every mode")
+        noise = np.random.RandomState(qp).randint(-300, 301, tuple(pred.shape))
+        noisy = (pred + torch.from_numpy(noise.astype(np.int32)).to(DEVICE)).clamp(0, 1023)
+        # the predictions, noisy ones, and full-swing residuals (original
+        # 1023 against a zero prediction) for the largest levels
+        flat = [torch.full_like(o, 1023) for o in orgs]
+        for o, p in ((orgs, pred), (orgs, noisy.contiguous()), (flat, torch.zeros_like(pred))):
+            args = (o, p, rows, P, scale, qp + 12, BD, True, 0.57 * 2 ** ((qp - 12) / 3),
+                    None if luma else 1.2599)
+            lev, rc = tq(*args)
+            _cmp("tq", [lev, rc], list(tq_reference(*args)), errs)
+            max_level = max(max_level, int(lev.abs().max()))
+        state = [(torch.zeros_like(r), torch.zeros(r.shape, dtype=torch.int16, device=DEVICE))
+                 for r in recs]
+        grid = torch.zeros_like(mg) if luma else None
+        scatter_both(rows, P, scale, state, rc, lev, grid, modes if luma else None, errs)
+    log(f"[encode-kernels] K1/K2/K4/K7 equal to their plain versions on every CU "
+        f"size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
+        f"largest |level| {max_level}")
+
+    # timing at the main path's batch shapes: each tile class at its batch
+    # (DEFAULT_BATCH); the JSON line carries the 32-pad luma class, whose
+    # steps are the most numerous
+    times = {}
+    for P, scale, B in ((32, 1, 16), (64, 1, 8), (16, 2, 16), (32, 2, 8)):
+        luma = scale == 1
+        rows_np = kernel_rows(P, scale, seed=1, width=width, height=height)[:B]
+        rec, org, og = kernel_planes(1, width, height, scale)
+        n = 1 if luma else 2
+        rows, og_t = torch.from_numpy(rows_np).to(DEVICE), torch.from_numpy(og).to(DEVICE)
+        recs = [torch.from_numpy(rec).to(DEVICE) for _ in range(n)]
+        orgs = [torch.from_numpy(org).to(DEVICE) for _ in range(n)]
+        levs = [torch.zeros(r.shape, dtype=torch.int16, device=DEVICE) for r in recs]
+        mg = torch.from_numpy(np.random.RandomState(2).randint(
+            0, 67, (2, height // 4, width // 4)).astype(np.uint8)).to(DEVICE)
+        org0 = orgs[0] if luma else None
+        refs = ref_gather(recs, og_t, rows, P, scale, BD)
+        modes, pred = intra_rmd(refs, org0, mg, rows, P, luma, BD)
+        lam = 0.57 * 2 ** ((ENC_QP - 12) / 3)
+        tq_args = (orgs, pred, rows, P, scale, ENC_QP + 12, BD, True, lam,
+                   None if luma else 1.2599)
+        lev, rc = tq(*tq_args)
+        grid, code = (mg, modes) if luma else (None, None)
+        planes = list(zip(recs, levs))
+        calls = {
+            "ref_gather": (lambda: ref_gather(recs, og_t, rows, P, scale, BD),
+                           lambda: ref_gather_reference(recs, og_t, rows, P, scale, BD)),
+            "intra_rmd": (lambda: intra_rmd(refs, org0, mg, rows, P, luma, BD),
+                          lambda: intra_rmd_reference(refs, org0, mg, rows, P, luma, BD)),
+            "tq": (lambda: tq(*tq_args), lambda: tq_reference(*tq_args)),
+            "wave_scatter": (
+                lambda: wf.wave_scatter(rows, P, scale, planes, rc, lev, grid, code),
+                lambda: wf.wave_scatter_reference(rows, P, scale, planes, rc, lev,
+                                                  grid, code)),
+        }
+        modes_np = modes.cpu().numpy() if luma else None
+        for name, (kernel, plain) in calls.items():
+            bound, by, nbytes, ops = kernel_bounds(name, rows_np, P, scale, n,
+                                                   modes_np if name == "intra_rmd" else None)
+            ms, call = graph_ms(kernel), call_ms(kernel, 500)
+            plain_ms = call_ms(plain, 20)
+            if (P, scale) == (32, 1):
+                times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            log(f"[encode-kernels] {name}: {B} CUs, {P}-pad {'luma' if luma else 'chroma'}: "
+                f"device time per call (CUDA graph) {ms:.6f} ms; called from Python "
+                f"{call:.6f} ms; plain version from Python {plain_ms:.6f} ms; bound "
+                f"{bound:.6f} ms by {by} ({nbytes} B, {ops} ops)")
+    return errs, times
+
+
+def frame_maps(preds: dict, frames, w: int, h: int):
+    """Per-frame (luma maps, chroma maps) from the port's Luma and Chroma
+    QP22 predictors on the >>2 8-bit planes, as bench.py's _frame_maps."""
+    y8, u8, v8 = (np.stack([(f[i] >> 2).astype(np.uint8) for f in frames])
+                  for i in range(3))
+    lin, cin = blocks_for_sequence(y8, u8, v8)
+    nblk = lin.shape[0] // len(frames)
+    out = {}
+    for comp, blocks in (("Luma", lin), ("Chroma", cin)):
+        out[comp] = []
+        for i in range(len(frames)):
+            qt, bt, dire = preds[(comp, ENC_QP)].predict(blocks[i * nblk:(i + 1) * nblk])
+            out[comp].append(blocks_to_frame_partition(qt, bt, dire, w, h, comp == "Luma"))
+    return out["Luma"], out["Chroma"]
+
+
+def sei_md5s(bitstream: bytes) -> list[bytes]:
+    """The three MD5 digests of each decoded-picture-hash suffix SEI."""
+    digests = []
+    for nal in bitstream.split(b"\x00\x00\x00\x01")[1:]:
+        if (nal[1] >> 3) & 0x1F != 24:        # suffix SEI
+            continue
+        rbsp = nal[2:].replace(b"\x00\x00\x03", b"\x00\x00")
+        check(rbsp[0] == 132 and rbsp[2] == 0, "SEI is not an MD5 picture hash")
+        digests.append([rbsp[3 + 16 * i:19 + 16 * i] for i in range(3)])
+    return digests
+
+
+def reset_counts() -> None:
+    for fn, _, _ in ENC_KERNELS.values():
+        fn.launches = 0
+
+
+def phase_encode(preds: dict):
+    """The map-driven encode at 1920x1080: cold run, then the warm run that
+    is measured, with every kernel's launches counted."""
+    frames = natural_sequence(ENC_W, ENC_H, ENC_FRAMES, seed0=7, bit_depth=BD)
+    t0 = time.perf_counter()
+    maps_l, maps_c = frame_maps(preds, frames, ENC_W, ENC_H)
+    log(f"[encode] maps for {ENC_FRAMES} frames in {time.perf_counter() - t0:.3f} s")
+    enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=3, device=DEVICE)
+    t0 = time.perf_counter()
+    enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+    log(f"[encode] cold run {time.perf_counter() - t0:.3f} s")
+    enc.timings = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, (fn, _, _) in ENC_KERNELS.items()}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the encode path")
+    log(f"[encode] {ENC_W}x{ENC_H} x {ENC_FRAMES} frames, QP {ENC_QP}, dual tree: "
+        f"warm run {wall:.3f} s = {ENC_FRAMES / wall:.4f} frames/s; "
+        f"{enc.steps} wave steps; launches {launches}")
+    for stage, sec in enc.timings.items():
+        log(f"[encode]   {stage:12s} {sec:9.3f} s")
+    nbytes = 0
+    for f, (bs, recon) in enumerate(outs):
+        nbytes += len(bs)
+        want = [hashlib.md5(p.astype("<u2").tobytes()).digest() for p in recon]
+        check(sei_md5s(bs) == [want], f"frame {f}: hash SEI differs from the recon's MD5")
+        err = (recon[0].astype(np.int64) - frames[f][0]) ** 2
+        psnr = 10 * np.log10(1023 * 1023 / err.mean())
+        check(psnr > 30, f"frame {f}: luma PSNR {psnr:.2f} dB")
+        log(f"[encode] frame {f}: {len(bs)} bytes, luma PSNR {psnr:.3f} dB, "
+            f"hash SEI equal to the recon's MD5")
+    log(f"[encode] {nbytes * 8 / ENC_FRAMES / 1e6:.4f} Mbit per frame")
+    return enc, frames, maps_l, maps_c, launches
+
+
+def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48) -> dict:
+    """Every kernel against its plain version on the real schedule rows of
+    the main path's first wave steps, the kernels' results carrying the
+    state from step to step."""
+    enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=3, device=DEVICE)
+    leaves = [enc._collect_all(None, maps_l[f], maps_c[f]) for f in range(len(frames))]
+    active, step_arr, ogs, ogcs = wf._pack_schedule(leaves, ENC_W, ENC_H, enc.batch)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)
+    F, H, W = len(frames), ENC_H, ENC_W
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=DEVICE)
+    state = [z((F, H, W), torch.int32), z((F, H // 2, W // 2), torch.int32),
+             z((F, H // 2, W // 2), torch.int32), z((F, H, W), torch.int16),
+             z((F, H // 2, W // 2), torch.int16), z((F, H // 2, W // 2), torch.int16)] + \
+        [z((F, H // 4, W // 4), torch.uint8) for _ in range(5)]
+    qp_y, qp_c = enc._qps()
+    scan = wf._Scan(state, *(up(np.stack([fr[i] for fr in frames])) for i in range(3)),
+                    up(ogs), up(ogcs), qp_y, qp_c, BD, float(enc.lam), float(enc.dw_c), True)
+    errs: dict = {}
+    rows = 0
+    for t in range(min(n_steps, next(iter(step_arr.values())).shape[0])):
+        for kind, P in active:
+            arr = step_arr[(kind, P)][t]
+            if arr[:, 6].any():
+                checked_step(scan, kind, P, up(arr), errs)
+                rows += int(arr[:, 6].sum())
+    log(f"[first-steps] {n_steps} wave steps of the main path ({rows} CU rows): every "
+        f"kernel equal to its plain version (max_abs_err {errs})")
+    return errs
+
+
+def phase_encode_cpu_vs_card(preds: dict) -> None:
+    frames = natural_sequence(SMALL_W, SMALL_H, 2, seed0=7, bit_depth=BD)
+    maps_l, maps_c = frame_maps(preds, frames, SMALL_W, SMALL_H)
+    out = {}
+    for device in ("cpu", DEVICE):
+        enc = wf.WavefrontEncoder(enc_cfg(SMALL_W, SMALL_H), accel_level=3, device=device)
+        t0 = time.perf_counter()
+        out[device] = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+        log(f"[encode-cpu-vs-card] {SMALL_W}x{SMALL_H} x 2 on {device}: "
+            f"{time.perf_counter() - t0:.3f} s, {enc.steps} wave steps")
+    for f in range(2):
+        check(out["cpu"][f][0] == out[DEVICE][f][0],
+              f"frame {f}: CPU and card bitstreams differ")
+    log(f"[encode-cpu-vs-card] bitstreams byte-identical "
+        f"({[len(o[0]) for o in out[DEVICE]]} bytes)")
+
+
+def phase_encode_profile(frames, maps_l, maps_c) -> None:
+    """One warm frame's wave scan under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=3, device=DEVICE)
+    leaves, cleaves = enc._collect_all(None, maps_l[0], maps_c[0])
+    fr = [(leaves, cleaves, *frames[0])]
+    enc._batched_pass(fr)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        enc._batched_pass(fr)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    if not rows:
+        log("[encode-profile] the profiler recorded no device time: not measured")
+        return
+    busy = sum(r[0] for r in rows)
+    log(f"[encode-profile] one 1920x1080 frame's wave scan ({enc.steps} steps): wall "
+        f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
+    for ms, count, name in rows[:10]:
+        log(f"[encode-profile]   {ms:9.3f} ms  x{count:<6d} {name[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -304,10 +737,15 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     phase_build()
     vote = phase_vote()
+    enc_errs, enc_times = phase_encode_kernels()
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_") as tmp:
         preds, blocks, launches = phase_main_path(pathlib.Path(tmp))
     phase_cpu_vs_card(preds, blocks)
     phase_profile(preds, blocks)
+    _, frames, maps_l, maps_c, enc_launches = phase_encode(preds)
+    step_errs = phase_encode_first_steps(frames, maps_l, maps_c)
+    phase_encode_cpu_vs_card(preds)
+    phase_encode_profile(frames, maps_l, maps_c)
 
     kernels = [{
         "name": "structural_vote", "route": "cuda",
@@ -316,6 +754,16 @@ def main() -> int:
         "launches": launches, "max_abs_err": vote["max_abs_err"],
         **vote[BATCH], "library_ms": None,
     }]
+    # library_ms is null: no single PyTorch call computes any of these
+    # functions (the reference substitution, the 67-mode predictor with its
+    # SATD argmin, the integer transform-quantisation round trip, or the
+    # step's masked scatters with their index arithmetic).
+    for name, (_, source, replaces) in ENC_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": enc_launches[name],
+            "max_abs_err": max(enc_errs[name], step_errs[name]),
+            **enc_times[name], "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,6 +6,8 @@ is built when a module is imported: ``library(name)`` builds at first use
 into ``build/kernels/`` at the root of the checkout, keyed by a hash of the
 source and the flags, so an unchanged source is not compiled twice.
 ``build_all()`` compiles every source at once, one ``nvcc`` process each.
+``check_cuda``, ``stream`` and ``count_launch`` are what every kernel
+wrapper does around its call.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import pathlib
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -67,3 +71,23 @@ def build_all() -> dict[str, str]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built first if needed."""
     return ctypes.CDLL(str(build(name)[0]))
+
+
+def check_cuda(name: str, *tensors) -> None:
+    """Every tensor given (None skipped) must be contiguous on the card."""
+    for t in tensors:
+        if t is not None and (t.device.type != "cuda" or not t.is_contiguous()):
+            raise ValueError(f"{name} takes contiguous tensors on the card, "
+                             f"got one on {t.device}")
+
+
+def stream(t) -> int:
+    """The handle of the current CUDA stream of ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def count_launch(wrapper, err: int) -> None:
+    """Raise on a launch's CUDA error, else count it on ``wrapper.launches``."""
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1

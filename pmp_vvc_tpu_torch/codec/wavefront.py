@@ -1,0 +1,737 @@
+"""Batched wavefront frame encoder — the card's execution path.
+
+Replaces the reference's sequential CTU raster + CU recursion with a
+dependency-levelled batched schedule. The partition maps fix the whole CU
+tree before coding starts, so every leaf CU of the frame is known up front
+(``_collect_leaves``); each leaf gets a wave level (``_schedule_waves``),
+and levels of all frames are packed greedily into steps of at most
+``batch[pad]`` CUs per tile class (``_batched_pass``).
+
+The wave scan (``_wave_scan``) is a host loop over the steps. Schedules,
+originals, order grids and the state planes are uploaded once; each step
+launches, for each tile class with live rows, the wave-step kernels:
+
+  K1 ``ref_gather``   reference rows with coding-order availability;
+  K2 ``intra_rmd``    luma RMD + prediction, or chroma DM prediction;
+  K4 ``tq``           transform / quant / RD zeroing / inverse, coded vs zero;
+  K7 ``wave_scatter`` masked writes into the recon, level and mode planes.
+
+The state planes are updated in place (the JAX version's scan carries new
+arrays); nothing is read back inside the loop, and the results come back in
+one fetch. The host then replays the decisions through the CABAC writer and
+the frame tail of ``FrameEncoder``.
+
+The JAX module's ``_refs_generic``, ``_avail_from_order`` and
+``_gather_plane`` live in ``ops/intra_generic.py`` (``ref_gather_reference``,
+``avail_from_order``, ``gather_plane``) and its ``_bits_proxy`` in
+``ops/tq_generic.py`` (``bits_proxy``), beside the kernels that use them.
+
+Supported: single or dual tree, map- or QT-driven partitioning, DCT-2 TU
+coding with scalar quantisation and RDOQ-lite zeroing, deblocking and SAO.
+Every other tool raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import time
+
+import numpy as np
+import torch
+
+from .. import _build
+from .._device import resolve_device
+from ..ops.intra_generic import intra_rmd, ref_gather
+from ..ops.rows import check_rows
+from ..ops.tq_generic import tq
+from .encoder import RDO, CuInfo, FrameEncoder
+from .mtt import Split, SplitState, get_implicit_split
+from .residual import ctx
+
+DEFAULT_BATCH = {32: 16, 64: 8}   # CUs per step of the 32- and 64-pad classes
+# Tools whose device kernels are not ported yet (MIP K3, MTS/LFNST/TS/SDH
+# K5, CCLM/JCCR/LMCS K6, ALF/CC-ALF on the host), and the sequential-only
+# tools the wave path never supported.
+UNPORTED_TOOLS = ("mts_intra", "mip", "cclm", "lfnst", "sign_hiding",
+                  "joint_cbcr", "lmcs", "transform_skip", "alf", "ccalf")
+UNSUPPORTED_TOOLS = ("mrl", "isp", "dep_quant")
+
+
+# ---------------------------------------------------------------------------
+# K7: masked scatter of one step's results into the state planes
+# ---------------------------------------------------------------------------
+
+def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grid=None,
+                           code=None):
+    """Plain version of K7.  ``planes``: one or two (recon int32, levels
+    int16) (F, H, W) plane pairs, written in place over each live CU's
+    (h, w) region from rec/lev (n, B, pad, pad) int32; with ``grid``, the
+    uint8 (F, H_luma/4, W_luma/4) grid takes ``code`` (B,) over the CU's
+    4-sample cells.  Writes outside a plane are dropped."""
+    fi, xs, ys, ws, hs, okv = (rows[:, k] for k in (0, 1, 2, 3, 4, 6))
+    ok = okv > 0
+    d = torch.arange(pad, device=rows.device, dtype=torch.int32)
+    pr = ys[:, None, None] // scale + d[None, :, None]
+    pc = xs[:, None, None] // scale + d[None, None, :]
+    inside = (d[None, :, None] < (hs // scale)[:, None, None]) & \
+        (d[None, None, :] < (ws // scale)[:, None, None])
+    H, W = planes[0][0].shape[1], planes[0][0].shape[2]
+    m = ok[:, None, None] & inside & (pr < H) & (pc < W)
+    f3, pr, pc = (t.expand_as(m) for t in (fi[:, None, None], pr, pc))
+    idx = (f3[m].long(), pr[m].long(), pc[m].long())
+    for i, (rp, lp) in enumerate(planes):
+        rp.index_put_(idx, rec[i][m])
+        lp.index_put_(idx, lev[i][m].to(lp.dtype))
+    if grid is not None:
+        g = torch.arange(pad // 4, device=rows.device, dtype=torch.int32)
+        gr = ys[:, None, None] // 4 + g[None, :, None]
+        gc = xs[:, None, None] // 4 + g[None, None, :]
+        gm = ok[:, None, None] & (g[None, :, None] < (hs // 4)[:, None, None]) & \
+            (g[None, None, :] < (ws // 4)[:, None, None]) & \
+            (gr < grid.shape[1]) & (gc < grid.shape[2])
+        gf, gr, gc, vals = (t.expand_as(gm) for t in
+                            (fi[:, None, None], gr, gc, code[:, None, None]))
+        grid.index_put_((gf[gm].long(), gr[gm].long(), gc[gm].long()),
+                        vals[gm].to(grid.dtype))
+
+
+@functools.cache
+def _k7():
+    fn = _build.library("wave_scatter").pmp_wave_scatter
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wave_scatter(rows, pad, scale, planes, rec, lev, grid=None, code=None):
+    """K7: see ``wave_scatter_reference``; CPU tensors take it, CUDA
+    tensors launch ``csrc/wave_scatter.cu``."""
+    check_rows(rows)
+    if len(planes) not in (1, 2) or rec.shape[0] != len(planes):
+        raise ValueError("wave_scatter takes one or two plane pairs")
+    if rows.device.type == "cpu":
+        return wave_scatter_reference(rows, pad, scale, planes, rec, lev,
+                                      grid, code)
+    _build.check_cuda("wave_scatter", rows, rec, lev,
+                      *(t for p in planes for t in p), grid, code)
+    for rp, lp in planes:
+        if rp.dtype != torch.int32 or lp.dtype != torch.int16:
+            raise TypeError("wave_scatter writes int32 recon and int16 level planes")
+    if rec.dtype != torch.int32 or lev.dtype != torch.int32 or rec.shape[2:] != (pad, pad):
+        raise ValueError("rec and lev must be (n, B, pad, pad) int32")
+    if grid is not None and (grid.dtype != torch.uint8 or code.dtype != torch.int32):
+        raise TypeError("wave_scatter takes a uint8 grid and int32 codes")
+    B = rows.shape[0]
+    _, H, W = planes[0][0].shape
+    p1 = planes[1] if len(planes) == 2 else (None, None)
+    err = _k7()(rows.data_ptr(), B, pad, scale, len(planes), H, W,
+                planes[0][0].data_ptr(), planes[0][1].data_ptr(),
+                p1[0].data_ptr() if p1[0] is not None else None,
+                p1[1].data_ptr() if p1[1] is not None else None,
+                rec.data_ptr(), lev.data_ptr(),
+                grid.data_ptr() if grid is not None else None,
+                code.data_ptr() if grid is not None else None,
+                grid.shape[1] if grid is not None else 0,
+                grid.shape[2] if grid is not None else 0,
+                _build.stream(rows))
+    _build.count_launch(wave_scatter, err)
+
+
+wave_scatter.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# device-side wave step
+# ---------------------------------------------------------------------------
+
+class _Scan:
+    """What the steps of one ``_wave_scan`` share: the state planes
+    (updated in place), originals, order grids and the coding parameters."""
+
+    def __init__(self, state, oy, ou, ov, og4, og4c, qp_y, qp_c, bd, lam,
+                 dw_c, rd_quant):
+        self.state = state
+        self.oy, self.ou, self.ov = oy, ou, ov
+        self.og4, self.og4c = og4, og4c
+        self.qp_y, self.qp_c, self.bd = qp_y, qp_c, bd
+        self.lam, self.dw_c, self.rd_quant = lam, dw_c, rd_quant
+
+    def step(self, kind, P, row):
+        """Wave-segment body for the P-pad tile class (``kind``: "st"
+        single tree — luma RMD + TQ, then chroma DM + TQ of the co-located
+        half-res block; "luma" the dual-tree luma pass; "chroma" the
+        dual-tree chroma pass, its DM mode read from the mode grid at the
+        CU centre, with the chroma tree's own order grid)."""
+        ry, ru, rv, cY, cU, cV, mg = self.state[:7]
+        bd = self.bd
+        if kind != "chroma":
+            refs = ref_gather([ry], self.og4, row, P, 1, bd)
+            best, pred = intra_rmd(refs, self.oy, mg, row, P, True, bd)
+            lev, rec = tq([self.oy], pred, row, P, 1, self.qp_y, bd,
+                          self.rd_quant, self.lam)
+            # the MTS, MIP and LFNST grids keep their zeros: those tools
+            # are off, so every CU's code there is 0
+            wave_scatter(row, P, 1, [(ry, cY)], rec, lev, mg, best)
+            if kind == "luma":
+                return
+        # chroma DM at half resolution, availability from the chroma
+        # tree's order grid (the luma one for single tree); the CCLM/JCCR
+        # code grid keeps its zeros (both tools off)
+        Pc = P // 2
+        refs = ref_gather([ru, rv], self.og4c, row, Pc, 2, bd)
+        _, pred = intra_rmd(refs, None, mg, row, Pc, False, bd)
+        lev, rec = tq([self.ou, self.ov], pred, row, Pc, 2, self.qp_c, bd,
+                      self.rd_quant, self.lam, self.dw_c)
+        wave_scatter(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev)
+
+
+def _collect_leaves_chroma(enc, decide, decide_luma=None):
+    """Dual-tree CHROMA leaf collection (luma-unit coords) — mirrors
+    FrameEncoder._encode_tree_ch's chroma walk incl. the implicit-BV
+    chroma-width-4 ban.  Each leaf carries its checkCCLMAllowed flag
+    (Unit.cpp:378-443), derived from the chroma split path and the
+    co-located 64x64 luma node's split (re-derived from the luma
+    decider)."""
+    cfg = enc.cfg
+    leaves = []
+    luma_root = {"split": Split.NONE}
+
+    def walk(x, y, w, h, state, depth64=0, path=(None, None)):
+        if x >= cfg.width or y >= cfg.height:
+            return
+        implicit = get_implicit_split(x, y, w, h, state, cfg, True)
+        if implicit != Split.NONE:
+            split = implicit
+            if split == Split.BT_V and w // 2 == 4:
+                split = Split.QT
+        else:
+            split = decide(x, y, w, h, state)
+        if split is RDO:
+            raise NotImplementedError(
+                "RDO fallback inside the wavefront path")
+        if split != Split.NONE:
+            npath = (split if depth64 == 0 else path[0],
+                     split if depth64 == 1 else path[1])
+            imp_bt = state.implicit_bt_depth + (
+                1 if split == implicit
+                and split in (Split.BT_H, Split.BT_V) else 0)
+            for i, (cx, cy, cw, chh) in enumerate(
+                    enc._children(x, y, w, h, split)):
+                cstate = SplitState(
+                    last_split=split, part_idx=i,
+                    qt_depth=state.qt_depth
+                    + (1 if split == Split.QT else 0),
+                    mtt_depth=state.mtt_depth
+                    + (0 if split == Split.QT else 1),
+                    implicit_bt_depth=imp_bt)
+                walk(cx, cy, cw, chh, cstate, depth64 + 1, npath)
+            return
+        npath = (path[0] if depth64 > 0 else None,
+                 path[1] if depth64 > 1 else None)
+        enc._luma_root_split = luma_root["split"]
+        enc._luma_root_isp = False
+        cok = 1 if (cfg.cclm and enc._cclm_allowed_dual(npath)) else 0
+        leaves.append((x, y, w, h, state.qt_depth, cok))
+
+    n_ctu_x = (cfg.width + 127) // 128
+    n_ctu_y = (cfg.height + 127) // 128
+    for cty in range(n_ctu_y):
+        for ctx_i in range(n_ctu_x):
+            for (qx, qy, qw, qh) in enc._children(
+                    ctx_i * 128, cty * 128, 128, 128, Split.QT):
+                if qx >= cfg.width or qy >= cfg.height:
+                    continue
+                st = SplitState(last_split=Split.QT, qt_depth=1)
+                if decide_luma is not None:
+                    imp = get_implicit_split(qx, qy, qw, qh, st, cfg)
+                    luma_root["split"] = imp if imp != Split.NONE \
+                        else decide_luma(qx, qy, qw, qh, st)
+                walk(qx, qy, qw, qh, st)
+    return leaves
+
+
+# ---------------------------------------------------------------------------
+# host-side scheduling
+# ---------------------------------------------------------------------------
+
+def _order_grid(leaves, width, height):
+    """(H/4, W/4) grid of each unit's leaf index in coding order."""
+    g = np.full((height // 4, width // 4), -1, np.int32)
+    for i, leaf in enumerate(leaves):
+        x, y, w, h = leaf[:4]
+        g[y // 4:(y + h) // 4, x // 4:(x + w) // 4] = i
+    return g
+
+
+def _schedule_waves(leaves, order, width, height, vpdu_dep=False):
+    """Wave level per leaf: 1 + max level over earlier-coding-order
+    leaves intersecting the intra reference template (above row
+    x-1..x+2w-1, left column y..y+2h-1).  ``vpdu_dep``: additionally
+    wait for the leaf's 64x64 VPDU's above-row/left-column neighbours
+    (the LMCS chroma-residual scale averages them)."""
+    r4, c4 = order.shape
+    wave = np.zeros(len(leaves), np.int32)
+    for i, leaf in enumerate(leaves):
+        x, y, w, h = leaf[:4]
+        lvl = 0
+        if y > 0:
+            c0 = max(0, (x - 4) // 4)
+            c1 = min(c4, (x + 2 * w + 3) // 4)
+            row = order[(y - 4) // 4, c0:c1]
+            m = row[(row >= 0) & (row < i)]
+            if m.size:
+                lvl = int(wave[m].max()) + 1
+        if x > 0:
+            r0 = y // 4
+            r1 = min(r4, (y + 2 * h + 3) // 4)
+            col = order[r0:r1, (x - 4) // 4]
+            m = col[(col >= 0) & (col < i)]
+            if m.size:
+                lvl = max(lvl, int(wave[m].max()) + 1)
+        if vpdu_dep:
+            vx, vy = (x // 64) * 64, (y // 64) * 64
+            if vx > 0:
+                col = order[vy // 4:min(r4, (vy + 64) // 4), (vx - 4) // 4]
+                m = col[(col >= 0) & (col < i)]
+                if m.size:
+                    lvl = max(lvl, int(wave[m].max()) + 1)
+            if vy > 0:
+                row = order[(vy - 4) // 4, vx // 4:min(c4, (vx + 64) // 4)]
+                m = row[(row >= 0) & (row < i)]
+                if m.size:
+                    lvl = max(lvl, int(wave[m].max()) + 1)
+        wave[i] = lvl
+    return wave
+
+
+def _pack_schedule(frames, width, height, batch, cclm=False):
+    """Greedy cross-frame packing of the frames' wave levels.
+
+    frames: list of (leaves_luma, leaves_chroma_or_None).  Dual tree
+    appends the chroma tree's levels after the frame's luma levels (DM
+    reads the luma mode grid).  CUs only depend on earlier levels of their
+    OWN frame, so a step mixes frame A's level 3 with frame B's level 7; a
+    frame's next level becomes schedulable the step after its current one
+    finishes.  Returns (active classes, {class: (S, B, 8) int32}, order
+    grids, chroma order grids); a row is (frame, x, y, w, h, order id,
+    live, flags)."""
+    ogs, ogcs, per_frame = [], [], []
+    for f, (leaves, cleaves) in enumerate(frames):
+        order = _order_grid(leaves, width, height)
+        wave = _schedule_waves(leaves, order, width, height)
+        ogs.append(order)
+        by_lvl = collections.defaultdict(list)
+        kind = "st" if cleaves is None else "luma"
+        st_cclm = 1 if (cleaves is None and cclm) else 0
+        for i, (x, y, w, h, _) in enumerate(leaves):
+            p = 32 if max(w, h) <= 32 else 64
+            by_lvl[int(wave[i])].append(
+                ((kind, p), f, x, y, w, h, i, st_cclm))
+        q = collections.deque(
+            collections.deque(by_lvl[lv]) for lv in sorted(by_lvl))
+        if cleaves is None:
+            ogcs.append(order)       # single tree: shared order
+        else:
+            orderc = _order_grid(cleaves, width, height)
+            wavec = _schedule_waves(cleaves, orderc, width, height)
+            ogcs.append(orderc)
+            by_lvl_c = collections.defaultdict(list)
+            for i, (x, y, w, h, _, cok) in enumerate(cleaves):
+                p = 32 if max(w, h) <= 32 else 64
+                by_lvl_c[int(wavec[i])].append(
+                    (("chroma", p), f, x, y, w, h, i, cok))
+            q.extend(collections.deque(by_lvl_c[lv])
+                     for lv in sorted(by_lvl_c))
+        per_frame.append(q)
+
+    F = len(frames)
+    ready = [0] * F
+    steps = []
+    while any(per_frame):
+        t = len(steps)
+        step = collections.defaultdict(list)
+        for f in range(F):
+            q = per_frame[f]
+            while q and ready[f] <= t:
+                ents = q[0]
+                while ents and len(step[ents[0][0]]) < batch[ents[0][0][1]]:
+                    step[ents[0][0]].append(ents.popleft())
+                if ents:
+                    break              # class slots full this step
+                q.popleft()
+                ready[f] = t + 1       # next level waits a step
+        steps.append(step)
+
+    active = tuple(sorted({k2 for st in steps for k2 in st if st[k2]}))
+    S = max(len(steps), 1)
+    step_arr = {k2: np.zeros((S, batch[k2[1]], 8), np.int32) for k2 in active}
+    for t, st in enumerate(steps):
+        for k2, ents in st.items():
+            for k, (_c, f, x, y, w, h, i, flg) in enumerate(ents):
+                step_arr[k2][t, k] = (f, x, y, w, h, i, 1, flg)
+    return active, step_arr, np.stack(ogs), np.stack(ogcs)
+
+
+class WavefrontEncoder(FrameEncoder):
+    """FrameEncoder with the CU compute on the card as batched
+    wavefronts.  ``device=None`` means CUDA (and raises without it);
+    ``device="cpu"`` runs the kernels' plain versions.  Streams are
+    byte-identical to the JAX package's ``WavefrontEncoder`` for the same
+    frames, maps and configuration."""
+
+    def __init__(self, cfg, *, batch=None, device=None, **kw):
+        super().__init__(cfg, **kw)
+        bad = [f for f in UNPORTED_TOOLS + UNSUPPORTED_TOOLS if getattr(cfg, f)]
+        if bad:
+            raise NotImplementedError(
+                f"the port's wavefront path does not support: {bad}")
+        if self.rdo_fallback:
+            raise NotImplementedError(
+                "rdo_fallback needs the device RDO, which is not ported")
+        self.device = resolve_device(device)
+        self.batch = dict(DEFAULT_BATCH)
+        if batch:
+            self.batch.update(batch)
+        self.steps = 0              # wave steps of the last pass
+
+    # ---- phase A: leaf collection (geometry only) ----------------------
+
+    def _collect_leaves(self, decide):
+        cfg = self.cfg
+        leaves = []
+
+        def walk(x, y, w, h, state):
+            if x >= cfg.width or y >= cfg.height:
+                return
+            implicit = get_implicit_split(x, y, w, h, state, cfg)
+            split = implicit if implicit != Split.NONE \
+                else decide(x, y, w, h, state)
+            if split is RDO:
+                raise NotImplementedError(
+                    "RDO fallback inside the wavefront path")
+            if (not cfg.dual_tree and split != Split.NONE
+                    and self._scipu_cond(w, h, split)):
+                # single tree: refuse SCIPU-triggering splits — must
+                # mirror _encode_tree's guard or the replay tree would
+                # diverge from the collected leaves
+                if split == implicit:
+                    raise NotImplementedError(
+                        "implicit boundary split triggers SCIPU")
+                split = Split.NONE
+            if split != Split.NONE:
+                imp_bt = state.implicit_bt_depth + (
+                    1 if split == implicit
+                    and split in (Split.BT_H, Split.BT_V) else 0)
+                for i, (cx, cy, cw, chh) in enumerate(
+                        self._children(x, y, w, h, split)):
+                    cstate = SplitState(
+                        last_split=split, part_idx=i,
+                        qt_depth=state.qt_depth
+                        + (1 if split == Split.QT else 0),
+                        mtt_depth=state.mtt_depth
+                        + (0 if split == Split.QT else 1),
+                        implicit_bt_depth=imp_bt)
+                    walk(cx, cy, cw, chh, cstate)
+                return
+            leaves.append((x, y, w, h, state.qt_depth))
+
+        n_ctu_x = (cfg.width + 127) // 128
+        n_ctu_y = (cfg.height + 127) // 128
+        for cty in range(n_ctu_y):
+            for ctx_i in range(n_ctu_x):
+                walk(ctx_i * 128, cty * 128, 128, 128, SplitState())
+        return leaves
+
+    # ---- phase B: batched device waves ----------------------------------
+
+    def _qps(self):
+        cfg = self.cfg
+        qp_y = cfg.qp + self.qp_bd_offset
+        qpi = max(-self.qp_bd_offset, min(63, cfg.qp))
+        qp_c = int(self.qp_table[qpi + self.qp_bd_offset]) \
+            + cfg.chroma_qp_offset
+        qp_c = max(-self.qp_bd_offset, min(63, qp_c)) + self.qp_bd_offset
+        return qp_y, qp_c
+
+    def _batched_pass(self, frames, fetch=True):
+        """frames: list of (leaves_luma, leaves_chroma_or_None, y, u, v).
+        Encodes all frames' waves together; returns the 11 result planes
+        (recon as uint16, levels as int16, the mode/mts/mip/cclm-jccr/lfnst
+        grids as uint8), each (F, ...).  ``fetch=False`` returns them still
+        on the device, the scan possibly still running there."""
+        cfg = self.cfg
+        F, H, W = len(frames), cfg.height, cfg.width
+        dev = self.device
+        t0 = time.perf_counter()
+        active, step_arr, ogs, ogcs = _pack_schedule(
+            [fr[:2] for fr in frames], W, H, self.batch, cfg.cclm)
+        self.steps = next(iter(step_arr.values())).shape[0] if step_arr else 0
+        self._time("schedule", t0)
+
+        t0 = time.perf_counter()
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+        oy = up(np.stack([fr[2] for fr in frames]))
+        ou = up(np.stack([fr[3] for fr in frames]))
+        ov = up(np.stack([fr[4] for fr in frames]))
+        og4, og4c = up(ogs), up(ogcs)
+        scheds = [up(step_arr[k2]) for k2 in active]
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+        state = [z((F, H, W), torch.int32), z((F, H // 2, W // 2), torch.int32),
+                 z((F, H // 2, W // 2), torch.int32), z((F, H, W), torch.int16),
+                 z((F, H // 2, W // 2), torch.int16),
+                 z((F, H // 2, W // 2), torch.int16)] + \
+            [z((F, H // 4, W // 4), torch.uint8) for _ in range(5)]
+        qp_y, qp_c = self._qps()
+        scan = _Scan(state, oy, ou, ov, og4, og4c, qp_y, qp_c, cfg.bit_depth,
+                     float(self.lam), float(self.dw_c), bool(cfg.rd_quant))
+        self._time("upload", t0)
+
+        t0 = time.perf_counter()
+        events = None
+        if dev.type == "cuda":
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+        self._wave_scan(scan, active, step_arr, scheds)
+        if events is not None:
+            events[1].record()
+        self._time("scan", t0)
+        ry, ru, rv = (p.to(torch.int16) for p in state[:3])
+        packed = [ry, ru, rv] + state[3:]
+        if not fetch:
+            return packed, events
+        return self._fetch(packed, events)
+
+    def _wave_scan(self, scan, active, step_arr, scheds):
+        """Every wave step of a frame batch: for each step, each tile
+        class with live rows runs its step body (the host knows from the
+        schedule which rows are live)."""
+        live = [step_arr[k2][:, :, 6].any(axis=1) for k2 in active]
+        S = len(live[0]) if live else 0
+        for t in range(S):
+            for ci, (kind, P) in enumerate(active):
+                if live[ci][t]:
+                    scan.step(kind, P, scheds[ci][t])
+
+    def _fetch(self, packed, events=None):
+        """One device-to-host copy of all result planes."""
+        t0 = time.perf_counter()
+        flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in packed])
+        host = flat.cpu().numpy()
+        if events is not None:
+            self.timings["scan_device"] = self.timings.get("scan_device", 0.0) \
+                + events[0].elapsed_time(events[1]) / 1e3
+        out, off = [], 0
+        dtypes = [np.uint16] * 3 + [np.int16] * 3 + [np.uint8] * 5
+        for p, dt in zip(packed, dtypes):
+            n = p.numel() * p.element_size()
+            out.append(host[off:off + n].view(dt).reshape(tuple(p.shape)))
+            off += n
+        self._time("fetch", t0)
+        return tuple(out)
+
+    # ---- phase C: CABAC replay ------------------------------------------
+
+    def _encode_cu(self, enc, rc, org_y, org_u, org_v, cu: CuInfo):
+        x, y, w, h = cu.x, cu.y, cu.w, cu.h
+        f = self._cur_frame
+        ry, ru, rv, cY, cU, cV, mg, tg, pg, cg, lg = self._dev_result
+        cu.mode = int(mg[f, y // 4, x // 4])
+        mts_idx = int(tg[f, y // 4, x // 4])
+        lfnst_idx = int(lg[f, y // 4, x // 4])
+        lev_y = cY[f, y:y + h, x:x + w].astype(np.int32)
+        cx, cy, cw, chh = x // 2, y // 2, w // 2, h // 2
+        lev_u = cU[f, cy:cy + chh, cx:cx + cw].astype(np.int32)
+        lev_v = cV[f, cy:cy + chh, cx:cx + cw].astype(np.int32)
+        cbf_y = bool(lev_y.any())
+        cbf_u = bool(lev_u.any())
+        cbf_v = bool(lev_v.any())
+
+        self._write_intra_luma_mode(enc, cu)
+        self._write_intra_chroma_mode(enc, lm_symbol=0)
+        enc.encode_bin(1 if cbf_u else 0, ctx("QtCbf1", 0))
+        enc.encode_bin(1 if cbf_v else 0,
+                       ctx("QtCbf2", 1 if cbf_u else 0))
+        enc.encode_bin(1 if cbf_y else 0, ctx("QtCbf0", 0))
+        last_pos_y, violates = -1, False
+        if cbf_y:
+            last_pos_y, violates = self._write_resid(rc, lev_y, w, h, True)
+        if cbf_u:
+            self._write_resid(rc, lev_u, cw, chh, False)
+        if cbf_v:
+            self._write_resid(rc, lev_v, cw, chh, False)
+        comps = [(w, h, lev_y)] if cbf_y else []
+        comps += ([(cw, chh, lev_u)] if cbf_u else [])
+        comps += ([(cw, chh, lev_v)] if cbf_v else [])
+        if not cbf_y:
+            lfnst_idx = 0
+        self._write_lfnst_idx(enc, cu, lfnst_idx, comps, False)
+        if lfnst_idx == 0:
+            self._write_mts_idx(enc, mts_idx, w, h, cbf_y, last_pos_y,
+                                violates)
+
+        self.recon_y[y:y + h, x:x + w] = ry[f, y:y + h, x:x + w]
+        self.recon_u[cy:cy + chh, cx:cx + cw] = ru[f, cy:cy + chh, cx:cx + cw]
+        self.recon_v[cy:cy + chh, cx:cx + cw] = rv[f, cy:cy + chh, cx:cx + cw]
+        r, c = y // 4, x // 4
+        self.coded[r:r + h // 4, c:c + w // 4] = True
+        self.unit_mode[r:r + h // 4, c:c + w // 4] = cu.mode
+        self.unit_w[r:r + h // 4, c:c + w // 4] = w
+        self.unit_h[r:r + h // 4, c:c + w // 4] = h
+        self.unit_qt[r:r + h // 4, c:c + w // 4] = cu.qt_depth
+        self.leaf_l.append((x, y, w, h))
+        self.leaf_c.append((cx, cy, cw, chh))
+
+    def _encode_luma_cu(self, enc, rc, org_y, cu: CuInfo):
+        """Dual-tree luma CU replay from device results."""
+        x, y, w, h = cu.x, cu.y, cu.w, cu.h
+        f = self._cur_frame
+        ry, ru, rv, cY, cU, cV, mg, tg, pg, cg, lg = self._dev_result
+        cu.mode = int(mg[f, y // 4, x // 4])
+        mts_idx = int(tg[f, y // 4, x // 4])
+        lfnst_idx = int(lg[f, y // 4, x // 4])
+        lev_y = cY[f, y:y + h, x:x + w].astype(np.int32)
+        cbf_y = bool(lev_y.any())
+        self._write_intra_luma_mode(enc, cu)
+        enc.encode_bin(1 if cbf_y else 0, ctx("QtCbf0", 0))
+        last_pos_y, violates = -1, False
+        if cbf_y:
+            last_pos_y, violates = self._write_resid(rc, lev_y, w, h, True)
+        if not cbf_y:
+            lfnst_idx = 0
+        self._write_lfnst_idx(enc, cu, lfnst_idx,
+                              [(w, h, lev_y)] if cbf_y else [], True)
+        if lfnst_idx == 0:
+            self._write_mts_idx(enc, mts_idx, w, h, cbf_y, last_pos_y,
+                                violates)
+        self.recon_y[y:y + h, x:x + w] = ry[f, y:y + h, x:x + w]
+        r, c = y // 4, x // 4
+        self.coded[r:r + h // 4, c:c + w // 4] = True
+        self.unit_mode[r:r + h // 4, c:c + w // 4] = cu.mode
+        self.unit_w[r:r + h // 4, c:c + w // 4] = w
+        self.unit_h[r:r + h // 4, c:c + w // 4] = h
+        self.unit_qt[r:r + h // 4, c:c + w // 4] = cu.qt_depth
+        self.leaf_l.append((x, y, w, h))
+
+    def _encode_chroma_cu(self, enc, rc, org_u, org_v, cu: CuInfo,
+                          split_path=(None, None)):
+        """Dual-tree chroma CU replay from device results (DM mode)."""
+        x, y, w, h = cu.x, cu.y, cu.w, cu.h
+        cx, cy, cw, chh = x // 2, y // 2, w // 2, h // 2
+        f = self._cur_frame
+        ry, ru, rv, cY, cU, cV, mg, tg, pg, cg, lg = self._dev_result
+        cu.mode = int(self.unit_mode[(y + h // 2) // 4, (x + w // 2) // 4])
+        lev_u = cU[f, cy:cy + chh, cx:cx + cw].astype(np.int32)
+        lev_v = cV[f, cy:cy + chh, cx:cx + cw].astype(np.int32)
+        cbf_u = bool(lev_u.any())
+        cbf_v = bool(lev_v.any())
+        self._write_intra_chroma_mode(enc, cclm_allowed=False, lm_symbol=0,
+                                      luma_mode=cu.mode)
+        enc.encode_bin(1 if cbf_u else 0, ctx("QtCbf1", 0))
+        enc.encode_bin(1 if cbf_v else 0, ctx("QtCbf2", 1 if cbf_u else 0))
+        if cbf_u:
+            self._write_resid(rc, lev_u, cw, chh, False)
+        if cbf_v:
+            self._write_resid(rc, lev_v, cw, chh, False)
+        if min(cw, chh) >= 4:
+            comps = ([(cw, chh, lev_u)] if cbf_u else []) \
+                + ([(cw, chh, lev_v)] if cbf_v else [])
+            self._write_lfnst_idx(enc, cu, 0, comps, True)
+        self.recon_u[cy:cy + chh, cx:cx + cw] = ru[f, cy:cy + chh, cx:cx + cw]
+        self.recon_v[cy:cy + chh, cx:cx + cw] = rv[f, cy:cy + chh, cx:cx + cw]
+        r, c = y // 4, x // 4
+        self.coded_c[r:r + h // 4, c:c + w // 4] = True
+        self.unit_w_c[r:r + h // 4, c:c + w // 4] = w
+        self.unit_h_c[r:r + h // 4, c:c + w // 4] = h
+        self.unit_qt_c[r:r + h // 4, c:c + w // 4] = cu.qt_depth
+        self.leaf_c.append((cx, cy, cw, chh))
+
+    # ---- entry points ----------------------------------------------------
+
+    def _decider(self, qt_map, maps):
+        if maps is not None:
+            return self._apply_ablations(self._map_decider(*maps))
+        qm = qt_map if qt_map is not None else \
+            np.ones((self.cfg.height // 8, self.cfg.width // 8), np.int32)
+        return self._apply_ablations(self._qt_map_decider(qm))
+
+    def _decider_chroma(self, qt_map, maps, chroma_maps):
+        """Chroma-tree decider (mirror of FrameEncoder.encode_frame's
+        decide_c construction)."""
+        cfg = self.cfg
+        cmaps = chroma_maps or maps
+        if cmaps is not None:
+            return self._map_decider(*cmaps, chroma=True)
+        cqt = qt_map if qt_map is not None else \
+            np.ones((cfg.height // 8, cfg.width // 8), np.int32)
+
+        def decide_c(x, yy, w, h, state, _q=cqt):
+            if w > 64:
+                return Split.QT
+            if state.mtt_depth == 0 and w == h \
+                    and w > cfg.chroma_min_qt:
+                pred = int(_q[min(yy, cfg.height - 1) // 8,
+                              min(x, cfg.width - 1) // 8]) + 1
+                if state.qt_depth < pred:
+                    return Split.QT
+            return Split.NONE
+        return decide_c
+
+    def _collect_all(self, qt_map, maps, chroma_maps):
+        decide = self._decider(qt_map, maps)
+        leaves = self._collect_leaves(decide)
+        cleaves = None
+        if self.cfg.dual_tree:
+            decide_c = self._decider_chroma(qt_map, maps, chroma_maps)
+            cleaves = _collect_leaves_chroma(self, decide_c, decide_luma=decide)
+        return leaves, cleaves
+
+    def encode_frames(self, frames, qt_map=None, maps=None,
+                      chroma_maps=None, poc0: int = 0,
+                      pipeline_chunk: int | None = None):
+        """Encode a batch of (y, u, v) frames in one device pass.
+
+        Returns a list of (bitstream_bytes, recon) — one per frame; the
+        caller concatenates payloads after the parameter sets.  ``maps``
+        or ``chroma_maps`` may be per-frame lists.
+
+        ``pipeline_chunk``: split the frame set into chunks of this size,
+        enqueue every chunk's wave scan first, then fetch and replay chunk
+        k while later chunks may still run on the card.  The outputs do not
+        depend on it."""
+        F = len(frames)
+        t0 = time.perf_counter()
+        per_frame_maps = isinstance(maps, list) or isinstance(chroma_maps, list)
+        if not per_frame_maps:
+            leaves, cleaves = self._collect_all(qt_map, maps, chroma_maps)
+            maps_l, cmaps_l = [maps] * F, [chroma_maps] * F
+            packed = [(leaves, cleaves, y, u, v) for (y, u, v) in frames]
+        else:
+            maps_l = maps if isinstance(maps, list) else [maps] * F
+            cmaps_l = chroma_maps if isinstance(chroma_maps, list) \
+                else [chroma_maps] * F
+            packed = [(*self._collect_all(qt_map, maps_l[f], cmaps_l[f]), y, u, v)
+                      for f, (y, u, v) in enumerate(frames)]
+        self._time("collect", t0)
+        chunk = pipeline_chunk or F
+        passes = [(c0, self._batched_pass(packed[c0:c0 + chunk], fetch=False))
+                  for c0 in range(0, F, chunk)]
+        out = []
+        for c0, (dev, events) in passes:
+            self._dev_result = self._fetch(dev, events)
+            for k in range(c0, min(c0 + chunk, F)):
+                self._cur_frame = k - c0
+                y, u, v = frames[k]
+                out.append(super().encode_frame(
+                    y, u, v, qt_map=qt_map, maps=maps_l[k],
+                    chroma_maps=cmaps_l[k], poc=poc0 + k))
+        return out
+
+    def encode_frame(self, y, u, v, qt_map=None, maps=None,
+                     chroma_maps=None, poc: int = 0, rdo: bool = False):
+        if rdo:
+            raise NotImplementedError(
+                "rdo=True needs the device RDO, which is not ported")
+        return self.encode_frames([(y, u, v)], qt_map=qt_map, maps=maps,
+                                  chroma_maps=chroma_maps, poc0=poc)[0]

@@ -1,0 +1,325 @@
+"""Size-generic transform / quant / distortion — CU size as data — and the
+wave path's transform-quantisation kernel (K4).
+
+Plain PyTorch versions of the JAX package's ``ops/tq_generic.py``: one
+function covers every CU shape on a square padded tile, with the per-CU
+width/height as tensors.
+
+- DCT-II of any size via the nesting property of the VVC cores: the
+  N-point DCT-2 matrix rows are the (64/N)-strided rows of the 64-point
+  matrix, so per-CU matrices are a gather from one constant.
+- forward/inverse shifts, quantiser qBits/scale and dequant shift follow
+  TrQuant.cpp:806-893 and Quant.cpp:954-1031 with log2 sizes as tensors.
+- SATD uses 8x8 Hadamard tiles when min(w,h) >= 8, else 4x4, masked to the
+  (h, w) region.
+
+The plain versions run their small matrix products in float64, which holds
+every partial sum of these integers exactly (|x| < 2^31), so they give the
+JAX package's int32 results on the CPU and on the card alike.
+
+**K4** ``tq`` (``csrc/tq.cu``) is the fused per-CU round trip of the wave
+step: forward DCT-2, dead-zone quantisation, RDOQ-lite zeroing, dequant,
+inverse, the rate proxy and the coded-vs-zero TU decision
+(``wavefront.py:_tq_luma_mts`` with DCT-2 only, and ``_tq_generic``).
+Cost sums are exact: SSE in int64 and each coefficient group's 16 gains in
+float64, each rounded once to float32, then the costs in float32 in the
+JAX package's operation order.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import _build
+from .distortion import hadamard
+from .quant import INV_QUANT_SCALES, IQUANT_SHIFT, QUANT_SCALES, QUANT_SHIFT
+from .rows import check_rows, unpack_rows
+from .transforms import COEFF_MAX, COEFF_MIN, MATRIX_SHIFT, core_matrix
+
+MAX_LOG2_DYN_RANGE = 15
+
+
+def _log2(v):
+    """log2 for powers of two in 1..128, as data."""
+    return ((v > 1).int() + (v > 2).int() + (v > 4).int() + (v > 8).int()
+            + (v > 16).int() + (v > 32).int() + (v > 64).int())
+
+
+def _rshift_v(x, s):
+    """Round-shift with per-CU (broadcastable) non-negative shift."""
+    return (x + (torch.ones_like(s) << torch.clamp(s - 1, min=0)) * (s > 0)) >> s
+
+
+@functools.cache
+def _dct2_64(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(core_matrix(0, 64).astype(np.int32)).to(device)
+
+
+def dct2_matrices(n, pad):
+    """(B, pad, pad) int32 DCT-2 matrices for per-CU sizes ``n`` (data),
+    rows >= zero-out limit and columns >= n zeroed."""
+    ln = _log2(n)
+    d = _dct2_64(n.device)[:, :pad]                           # (64, pad)
+    i = torch.arange(pad, device=n.device, dtype=torch.int32)
+    rows = i[None, :] << (6 - ln)[:, None]                    # (B, pad)
+    t = d[rows.clamp(0, 63).long()]                           # (B, pad, pad)
+    keep = torch.clamp(n, max=32)                              # zero-out rule
+    mask = (i[None, :, None] < keep[:, None, None]) & \
+        (i[None, None, :] < n[:, None, None])
+    return torch.where(mask, t, 0)
+
+
+@functools.cache
+def _mts_table(kind):
+    """(4, 32, 32) int32 padded DST-7 / DCT-8 cores for sizes 4..32."""
+    out = np.zeros((4, 32, 32), np.int32)
+    for i, n in enumerate((4, 8, 16, 32)):
+        out[i, :n, :n] = core_matrix(kind, n)
+    return out
+
+
+def tr_matrices(kind, n, pad):
+    """(B, pad, pad) transform matrices of static ``kind``
+    (transforms.py order: 0 DCT2, 1 DCT8, 2 DST7) for per-CU sizes
+    ``n``; MTS zero-out keeps 16 coefficients (TrQuant.cpp:777).  Only
+    DCT-2 is on the wave path so far; DST-7/DCT-8 wait for MTS."""
+    if kind == 0:
+        return dct2_matrices(n, pad)
+    ln = _log2(n)
+    t = torch.from_numpy(_mts_table(kind)).to(n.device)[(ln - 2).clamp(0, 3).long()]
+    if pad > 32:
+        t = torch.nn.functional.pad(t, (0, pad - 32, 0, pad - 32))
+    elif pad < 32:
+        t = t[:, :pad, :pad]
+    i = torch.arange(pad, device=n.device)
+    mask = (i[None, :, None] < torch.clamp(n, max=16)[:, None, None]) & \
+        (i[None, None, :] < n[:, None, None])
+    return torch.where(mask, t, 0)
+
+
+def _bmm(a, b):
+    """Exact integer batched product (float64 holds every partial sum)."""
+    return torch.bmm(a.double(), b.double()).round().long()
+
+
+def forward_transform_generic(x, w, h, *, bit_depth: int = 10,
+                              kind_w: int = 0, kind_h: int = 0):
+    """(B, P, P) int32 residual -> coeffs; w/h: (B,) data.  Input columns
+    >= w and rows >= h may hold garbage (masked by the matrices)."""
+    tw = tr_matrices(kind_w, w, x.shape[-1])
+    th_ = tr_matrices(kind_h, h, x.shape[-1])
+    lw, lh = _log2(w), _log2(h)
+    s1 = (lw + bit_depth + MATRIX_SHIFT - MAX_LOG2_DYN_RANGE)[:, None, None].long()
+    s2 = (lh + MATRIX_SHIFT)[:, None, None].long()
+    t1 = _rshift_v(_bmm(x, tw.transpose(1, 2)), s1)               # (B, y, i)
+    t2 = _rshift_v(_bmm(th_, t1), s2)                             # (B, k, i)
+    return t2.int()
+
+
+def inverse_transform_generic(c, w, h, *, bit_depth: int = 10,
+                              kind_w: int = 0, kind_h: int = 0):
+    """(B, P, P) coeffs -> residual (clipped to the 16-bit range)."""
+    tw = tr_matrices(kind_w, w, c.shape[-1])
+    th_ = tr_matrices(kind_h, h, c.shape[-1])
+    s1 = torch.tensor(MATRIX_SHIFT + 1, device=c.device)
+    s2 = torch.tensor(MATRIX_SHIFT + MAX_LOG2_DYN_RANGE - 1 - bit_depth,
+                      device=c.device)
+    e = _rshift_v(_bmm(th_.transpose(1, 2), c), s1).clamp(COEFF_MIN, COEFF_MAX)
+    r = _rshift_v(_bmm(e, tw), s2)
+    return r.clamp(COEFF_MIN, COEFF_MAX).int()
+
+
+def _geom_v(w, h, bit_depth):
+    lw, lh = _log2(w), _log2(h)
+    t_shift = MAX_LOG2_DYN_RANGE - bit_depth - ((lw + lh) >> 1)
+    sqrt2 = (lw + lh) & 1
+    return t_shift, sqrt2
+
+
+def quantize_generic(coef, w, h, qp: int, *, bit_depth: int = 10):
+    """Dead-zone (171, IRAP) scalar quantisation, size as data."""
+    t_shift, sqrt2 = _geom_v(w, h, bit_depth)
+    scale = torch.from_numpy(QUANT_SCALES[:, qp % 6].copy()).to(coef.device)[sqrt2.long()]
+    q_bits = QUANT_SHIFT + qp // 6 + (t_shift - sqrt2)
+    add = 171 << (q_bits - 9)
+    mag = coef.abs()
+    level = (mag * scale[:, None, None] + add[:, None, None]) >> q_bits[:, None, None]
+    signed = torch.where(coef < 0, -level, level)
+    return signed.clamp(COEFF_MIN, COEFF_MAX)
+
+
+def _dequant_unclipped(lvl, w, h, qp, bit_depth):
+    t_shift, sqrt2 = _geom_v(w, h, bit_depth)
+    scale = torch.from_numpy(INV_QUANT_SCALES[:, qp % 6].copy()).to(lvl.device)
+    scale = scale[sqrt2.long()][:, None, None]
+    rs = (IQUANT_SHIFT - ((t_shift - sqrt2) + qp // 6))[:, None, None]
+    pos = (lvl * scale + (torch.ones_like(rs) << torch.clamp(rs - 1, min=0)) * (rs > 0)) \
+        >> torch.clamp(rs, min=0)
+    # lvl * scale << -rs, written as a product (no shift of a negative value)
+    neg = lvl * scale * (torch.ones_like(rs) << torch.clamp(-rs, min=0))
+    return torch.where(rs > 0, pos, neg)
+
+
+def dequantize_generic(level, w, h, qp: int, *, bit_depth: int = 10):
+    lvl = level.clamp(COEFF_MIN, COEFF_MAX)
+    return _dequant_unclipped(lvl, w, h, qp, bit_depth).clamp(COEFF_MIN, COEFF_MAX)
+
+
+def satd_generic(org, pred, w, h):
+    """(B, M, P, P) SATD with per-CU sizes; diffs outside (h, w) are
+    masked to zero so padded tiles contribute nothing.  CU sides are >= 4."""
+    P = org.shape[-1]
+    i = torch.arange(P, device=org.device)
+    inside = (i[None, :, None] < h[:, None, None]) & \
+        (i[None, None, :] < w[:, None, None])
+    d = (org - pred) * inside[:, None, :, :]
+
+    def tiles(ts):
+        nt = P // ts
+        hh = torch.from_numpy(hadamard(ts)).double().to(org.device)
+        lead = d.shape[:-2]
+        v = d.reshape(*lead, nt, ts, nt, ts).transpose(-3, -2).double()
+        coef = (hh @ v @ hh.T).round().long().abs()          # (..., nt, nt, ts, ts)
+        s = coef.sum((-2, -1))
+        dc = coef[..., 0, 0]
+        t = s - dc + (dc >> 2)
+        t = (t + 2) >> 2 if ts == 8 else (t + 1) >> 1
+        return t.sum((-2, -1))
+
+    mn = torch.minimum(w, h)[:, None]
+    out = torch.where(mn >= 8, tiles(8), tiles(4)) if P >= 8 else tiles(4)
+    return out.int()
+
+
+def rd_cleanup_generic(lev, coef, w, h, qp: int, lam: float,
+                       *, bit_depth: int = 10):
+    """RDOQ-lite zeroing on 4x4 coding groups, size as data (mirrors
+    residual.rd_quant_cleanup's rate model; skipped for dims < 4 where
+    the CG geometry differs).  Each gain is float32 as in the JAX
+    package; a group's 16 gains are summed in float64 and rounded once."""
+    P = lev.shape[-1]
+    t_shift, sqrt2 = _geom_v(w, h, bit_depth)
+    divisor = torch.exp2(2.0 * t_shift.float() - sqrt2.float())
+    fc = coef.float()
+    e = fc - _dequant_unclipped(lev, w, h, qp, bit_depth).float()
+    gain = (fc * fc - e * e) / divisor[:, None, None]
+    g = gain.double().reshape(-1, P // 4, 4, P // 4, 4).sum((2, 4)).float()
+    k = (lev != 0).reshape(-1, P // 4, 4, P // 4, 4).sum((2, 4)).float()
+    lam32 = torch.tensor(lam, dtype=torch.float32)
+    kill_cg = g < lam32 * (3.0 * k + 1.5)
+    kill_cg = kill_cg.repeat_interleave(4, 1).repeat_interleave(4, 2)
+    out = torch.where(kill_cg, 0, lev)
+    lam3 = torch.tensor(np.float32(lam * 3.0))
+    out = torch.where((out.abs() == 1) & (gain < lam3), 0, out)
+    ok = (torch.minimum(w, h) >= 4)[:, None, None]
+    return torch.where(ok, out, lev)
+
+
+def bits_proxy(lev):
+    """Order-independent residual-rate proxy (bits) for the zero-TU
+    decision (``wavefront.py:_bits_proxy``): 8 + nz + sum(2*bitlen|l|+1).
+    ``2*ceil(log2(a+1))`` equals ``2*bitlen(a)`` for 0 < a < 65536."""
+    a = lev.abs()
+    bitlen = torch.frexp(a.double())[1]
+    mag = torch.where(a > 0, 2 * bitlen + 1, 0)
+    nz = (a > 0).sum((-1, -2))
+    return (8 + mag.sum((-1, -2)) + nz).float()
+
+
+# ---------------------------------------------------------------------------
+# K4: fused per-CU transform-quantisation round trip
+# ---------------------------------------------------------------------------
+
+def _tq_one(org, pred, rows, P, scale, qp, bd, rd_quant, lam, dw):
+    fi, xs, ys, ws, hs, _, ok = unpack_rows(rows, scale)
+    d = torch.arange(P, device=rows.device, dtype=torch.int32)
+    rr_, cc_ = ys[:, None, None] + d[None, :, None], xs[:, None, None] + d[None, None, :]
+    orgs = org[fi[:, None, None].long(), rr_.clamp(0, org.shape[1] - 1).long(),
+               cc_.clamp(0, org.shape[2] - 1).long()]
+    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
+    resid = (orgs - pred) * inside
+    coef = forward_transform_generic(resid, ws, hs, bit_depth=bd)
+    lev = quantize_generic(coef, ws, hs, qp, bit_depth=bd)
+    if rd_quant:
+        lev = rd_cleanup_generic(lev, coef, ws, hs, qp, lam, bit_depth=bd)
+    deq = dequantize_generic(lev, ws, hs, qp, bit_depth=bd)
+    rr = inverse_transform_generic(deq, ws, hs, bit_depth=bd)
+    err = ((rr - resid) * inside).long()
+    sse = (err * err).sum((-1, -2)).float()
+    rz = resid.long()
+    sse0 = (rz * rz).sum((-1, -2)).float()
+    lam32 = torch.tensor(lam, dtype=torch.float32)
+    lam2 = torch.tensor(np.float32(lam * 2.0))
+    bits = bits_proxy(lev)
+    if dw is None:      # luma: SSE + lam * (bits + DCT-2's mts bin)
+        cost_code = sse + lam32 * (bits + 1.0)
+        cost_zero = sse0 + lam2
+    else:
+        dw32 = torch.tensor(dw, dtype=torch.float32)
+        cost_code = dw32 * sse + lam32 * bits
+        cost_zero = dw32 * sse0 + lam2
+    coded = (cost_zero > cost_code)[:, None, None] & inside & ok[:, None, None]
+    lev = torch.where(coded, lev, 0)
+    rec = (pred + torch.where(coded, rr, 0)).clamp(0, (1 << bd) - 1)
+    return lev, torch.where(inside & ok[:, None, None], rec, 0)
+
+
+def tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam,
+                 dw=None):
+    """Plain version of K4.
+
+    orgs: one or two (F, H, W) int32 original planes (luma, or U and V);
+    pred: (n, B, P, P) int32 predictions from K2; rows: (B, 8) int32
+    schedule rows (luma units; ``scale`` 2 for chroma). ``qp`` is the
+    internal QP, ``lam`` the slice lambda; ``dw`` None selects the luma
+    cost ``SSE + lam*(bits + 1)``, else the chroma cost
+    ``dw*SSE + lam*bits``; the zero TU costs ``dw*SSE0 + lam*2``.
+    Returns lev and rec, (n, B, P, P) int32, zero outside each CU."""
+    outs = [_tq_one(o, pred[i], rows, pad, scale, qp, bit_depth, rd_quant,
+                    lam, dw) for i, o in enumerate(orgs)]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+@functools.cache
+def _k4():
+    fn = _build.library("tq").pmp_tq
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
+        ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw=None):
+    """K4: see ``tq_reference``; CPU tensors take it, CUDA tensors launch
+    ``csrc/tq.cu``."""
+    check_rows(rows)
+    if len(orgs) != pred.shape[0] or len(orgs) not in (1, 2):
+        raise ValueError("tq takes one or two planes, one prediction each")
+    if rows.device.type == "cpu":
+        return tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth,
+                            rd_quant, lam, dw)
+    _build.check_cuda("tq", *orgs, pred, rows)
+    if any(t.dtype != torch.int32 for t in (*orgs, pred)):
+        raise TypeError("tq takes int32 planes and predictions")
+    n, B = pred.shape[0], pred.shape[1]
+    if pred.shape[2:] != (pad, pad):
+        raise ValueError(f"prediction tiles {tuple(pred.shape)} do not fit pad {pad}")
+    _, H, W = orgs[0].shape
+    lev = torch.empty_like(pred)
+    rec = torch.empty_like(pred)
+    o1 = orgs[1].data_ptr() if n == 2 else None
+    err = _k4()(orgs[0].data_ptr(), o1, pred.data_ptr(), rows.data_ptr(),
+                _dct2_64(rows.device).data_ptr(),
+                n, B, pad, scale, qp, bit_depth, int(rd_quant),
+                int(dw is None), H, W,
+                *(float(np.float32(v)) for v in
+                  (lam, lam * 2.0, lam * 3.0, 1.0 if dw is None else dw)),
+                lev.data_ptr(), rec.data_ptr(), _build.stream(rows))
+    _build.count_launch(tq, err)
+    return lev, rec
+
+
+tq.launches = 0

@@ -1,0 +1,414 @@
+"""The wave path's plain kernels (K1, K2, K4) against the JAX functions.
+
+K1 ``ref_gather_reference`` against ``wavefront.py:_refs_generic``, K2's
+predictor ``predict_generic`` and RMD against the JAX predictor and SATD,
+and K4 ``tq_reference`` against ``_tq_luma_mts`` (DCT-2 only) and
+``_tq_generic``: exactly, over every CU size 4..64 on pads 32 and 64, all
+67 modes, luma and chroma, random availability, QP 22/27/32/37. Before K4
+is compared, every float decision on the inputs (coefficient-group and
+single-coefficient zeroing, coded vs zero TU) is asserted to keep a
+relative margin above ``MARGIN``: the JAX package sums those costs in
+float32 in an order of its own, and its ``exp2`` divisor is not exactly a
+power of two, so a decision closer than that could round either way.
+
+Also: ``_bits_proxy``, the copied tables, and the C CABAC finalizer against
+the Python ``BinEncoder``. The CUDA kernels themselves run only on the card;
+chip_smoke.py holds them against these plain versions there.
+"""
+import itertools
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pmp_vvc_tpu.codec import wavefront as jwf
+from pmp_vvc_tpu.ops import intra_generic as jig
+from pmp_vvc_tpu.ops import tq_generic as jtq
+from pmp_vvc_tpu_torch.codec.cabac import ContextStore
+from pmp_vvc_tpu_torch.native import cabac_finalize, python_finalize
+from pmp_vvc_tpu_torch.ops import intra_generic as tig
+from pmp_vvc_tpu_torch.ops import tq_generic as ttq
+from pmp_vvc_tpu_torch.ops.quant import INV_QUANT_SCALES, IQUANT_SHIFT
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+BD = 10
+QPS = (22, 27, 32, 37)
+MARGIN = 1e-6
+SIZES = (4, 8, 16, 32, 64)
+
+
+# jitted once per shape: the JAX functions run op by op otherwise
+_jpredict = jax.jit(jig.predict_generic, static_argnames=("pad", "is_luma", "bit_depth"))
+_jsatd = jax.jit(jtq.satd_generic)
+_jrefs = jax.jit(jwf._refs_generic, static_argnums=(8, 9, 10))
+_jtq_luma = jax.jit(jwf._tq_luma_mts, static_argnums=(4, 5, 6, 7, 9))
+_jtq_chroma = jax.jit(jwf._tq_generic, static_argnums=(4, 5, 6, 7, 8))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _j(a):
+    return jnp.asarray(np.asarray(a))
+
+
+def size_rows(pad, scale=1, seed=0, width=256, height=192, extra_pad_rows=2):
+    """(B, 8) int32 schedule rows: every (w, h) of the pad class (luma
+    units; chroma rows carry luma sizes 4..2*pad), at random positions that
+    include the frame edges, random order ids, and a few padding rows."""
+    rng = np.random.RandomState(seed)
+    sides = [s for s in (4, 8, 16, 32, 64, 128) if s <= pad * scale]
+    big = pad * scale
+    sizes = [(w, h) for w, h in itertools.product(sides, sides)
+             if max(w, h) <= big and (pad == 32 or max(w, h) > big // 2)]
+    rows = []
+    for i, (w, h) in enumerate(sizes):
+        x = [0, width - w, rng.randint(0, (width - w) // 8 + 1) * 8][i % 3]
+        y = [rng.randint(0, (height - h) // 8 + 1) * 8, 0, height - h][i % 3]
+        rows.append((rng.randint(2), x, y, w, h, rng.randint(0, 400), 1, 0))
+    rows += [(0, 0, 0, 0, 0, 0, 0, 0)] * extra_pad_rows
+    return np.array(rows, np.int32)
+
+
+def planes(seed=0, F=2, width=256, height=192, scale=1):
+    """Smooth content plus noise, a random coding-order grid (-1 = not
+    coded) and the same frame's originals."""
+    rng = np.random.RandomState(seed)
+    H, W = height // scale, width // scale
+    yy, xx = np.mgrid[0:H, 0:W]
+    rec = np.stack([np.clip(512 + 300 * np.sin(xx / (7 + f)) * np.cos(yy / 11)
+                            + rng.randn(H, W) * 20, 0, 1023) for f in range(F)])
+    org = np.clip(rec + rng.randn(F, H, W) * 40, 0, 1023)
+    og = rng.randint(-1, 400, (F, height // 4, width // 4))
+    return rec.astype(np.int32), org.astype(np.int32), og.astype(np.int32)
+
+
+def _unpack(rows, scale):
+    r = rows.astype(np.int32)
+    return (r[:, 0], r[:, 1] // scale, r[:, 2] // scale, r[:, 3] // scale,
+            r[:, 4] // scale, r[:, 5], r[:, 6] > 0)
+
+
+def jax_refs(plane, og, rows, pad, scale):
+    fi, xs, ys, ws, hs, oi, ok = _unpack(rows, scale)
+    out = _jrefs(_j(plane), _j(og), _j(fi), _j(oi), _j(xs), _j(ys),
+                            _j(ws), _j(hs), pad, scale, BD)
+    return np.stack([np.asarray(o) for o in out]), ok
+
+
+# ---------------------------------------------------------------------------
+# tables, rate proxy, CABAC finalizer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["transform_cores.npz", "ctx_init.npz",
+                                  "ctx_sets.json"])
+def test_copied_tables_are_byte_equal(name):
+    a = (REPO / "pmp_vvc_tpu" / "codec" / "data" / name).read_bytes()
+    b = (REPO / "pmp_vvc_tpu_torch" / "codec" / "data" / name).read_bytes()
+    assert a == b
+
+
+def test_bits_proxy_matches_jax():
+    rng = np.random.RandomState(0)
+    lev = rng.randint(-40, 41, (64, 16, 16)) * (rng.rand(64, 16, 16) < 0.3)
+    lev[0, :4, :4] = [[32767, -32768, 65535 // 2, 1], [2, 3, 4, 7],
+                      [8, 15, 16, 255], [256, 1023, 1024, 4095]]
+    want = np.asarray(jwf._bits_proxy(_j(lev.astype(np.int32))))
+    got = ttq.bits_proxy(_t(lev.astype(np.int32))).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_native_cabac_matches_python_bin_encoder(seed):
+    rng = np.random.RandomState(seed)
+    n_ctx = len(ContextStore.standard_init(32, 2).state0)
+    ops = []
+    for _ in range(5000):
+        t = rng.randint(4)
+        if t == 0:
+            ops.append(("b", int(rng.randint(2)), int(rng.randint(n_ctx))))
+        elif t == 1:
+            ops.append(("ep", int(rng.randint(2))))
+        elif t == 2:
+            n = int(rng.randint(1, 20))
+            ops.append(("eps", int(rng.randint(1 << n)), n))
+        else:
+            ops.append(("rem", int(rng.randint(5000)), int(rng.randint(4)), 5, 15))
+    for qp in (22, 37):
+        assert cabac_finalize(ops, ContextStore.standard_init(qp, 2)) == \
+            python_finalize(ops, ContextStore.standard_init(qp, 2))
+
+
+# ---------------------------------------------------------------------------
+# K1: reference gather
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pad,scale", [(32, 1), (64, 1), (16, 2), (32, 2)])
+def test_ref_gather_matches_jax(pad, scale):
+    rows = size_rows(pad, scale, seed=pad + scale)
+    rec, _, og = planes(seed=pad, scale=scale)
+    # all-uncoded grid rows and fully coded ones besides the random grid
+    og[1, :, :] = np.where(np.arange(og.shape[2]) % 3 == 0, -1, og[1])
+    want, ok = jax_refs(rec, og, rows, pad, scale)
+    got = tig.ref_gather_reference([_t(rec)], _t(og), _t(rows), pad, scale, BD)
+    got = got[0].numpy()
+    np.testing.assert_array_equal(got[:, ok], want[:, ok])
+    assert not got[:, ~ok].any()
+    two = tig.ref_gather_reference([_t(rec), _t(rec[::-1].copy())], _t(og),
+                                   _t(rows), pad, scale, BD).numpy()
+    np.testing.assert_array_equal(two[0], got)
+
+
+# ---------------------------------------------------------------------------
+# K2: predictor and RMD
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pad,is_luma", [(32, True), (64, True), (16, False),
+                                         (32, False)])
+def test_predict_generic_matches_jax_on_every_size_and_mode(pad, is_luma):
+    scale = 1 if is_luma else 2
+    rows = size_rows(pad, scale, seed=7, extra_pad_rows=0)
+    rec, _, og = planes(seed=3, scale=scale)
+    refs, _ = jax_refs(rec, og, rows, pad, scale)
+    _, _, _, ws, hs, _, _ = _unpack(rows, scale)
+    modes = np.broadcast_to(np.arange(67, dtype=np.int32), (len(rows), 67))
+    want = np.asarray(_jpredict(*(_j(r) for r in refs), _j(modes),
+                                          _j(ws), _j(hs), pad=pad,
+                                          is_luma=is_luma, bit_depth=BD))
+    got = tig.predict_generic(*(_t(r) for r in refs), _t(modes), _t(ws),
+                              _t(hs), pad=pad, is_luma=is_luma,
+                              bit_depth=BD).numpy()
+    for b, (w, h) in enumerate(zip(ws, hs)):
+        np.testing.assert_array_equal(got[b, :, :h, :w], want[b, :, :h, :w],
+                                      err_msg=f"{w}x{h}")
+
+
+def jax_rmd(refs, org, rows, pad):
+    """The RMD of wavefront.py:_make_class_apply (373-401) with the JAX
+    functions."""
+    fi, xs, ys, ws, hs, _, _ = _unpack(rows, 1)
+    dy = np.arange(pad)
+    orgs = jwf._gather_plane(_j(org), _j(fi)[:, None, None],
+                             _j(ys)[:, None, None] + dy[None, :, None],
+                             _j(xs)[:, None, None] + dy[None, None, :])
+    rmd = np.array([0, 1] + list(range(2, 67, 2)), np.int32)
+    jr = [_j(r) for r in refs]
+    W, H = _j(ws), _j(hs)
+    preds = _jpredict(*jr, _j(np.broadcast_to(rmd, (len(rows), 35))),
+                                W, H, pad=pad, is_luma=True, bit_depth=BD)
+    costs = _jsatd(orgs[:, None], preds, W, H)
+    bi = jnp.argmin(costs, axis=1)
+    m_a = jnp.take(jnp.asarray(rmd), bi)
+    ang = m_a >= 2
+    modes_ref = jnp.stack([jnp.where(ang, jnp.clip(m_a - 1, 2, 66), m_a),
+                           jnp.where(ang, jnp.clip(m_a + 1, 2, 66), m_a)], axis=1)
+    preds_r = _jpredict(*jr, modes_ref, W, H, pad=pad, is_luma=True,
+                                  bit_depth=BD)
+    costs_r = _jsatd(orgs[:, None], preds_r, W, H)
+    cand_c = jnp.concatenate([jnp.take_along_axis(costs, bi[:, None], axis=1),
+                              costs_r], axis=1)
+    cand_p = jnp.concatenate([jnp.take_along_axis(preds, bi[:, None, None, None],
+                                                  axis=1), preds_r], axis=1)
+    cand_m = jnp.concatenate([m_a[:, None], modes_ref], axis=1)
+    k = jnp.argmin(cand_c, axis=1)
+    best = jnp.take_along_axis(cand_m, k[:, None], axis=1)[:, 0]
+    pred = jnp.take_along_axis(cand_p, k[:, None, None, None], axis=1)[:, 0]
+    return np.asarray(best), np.asarray(pred)
+
+
+@pytest.mark.parametrize("pad", [32, 64])
+def test_rmd_matches_jax(pad):
+    rows = size_rows(pad, 1, seed=11)
+    rec, org, og = planes(seed=5)
+    refs, ok = jax_refs(rec, og, rows, pad, 1)
+    want_m, want_p = jax_rmd(refs, org, rows, pad)
+    mg = torch.zeros((2, 48, 64), dtype=torch.uint8)
+    got_m, got_p = tig.intra_rmd_reference(_t(refs[None]), _t(org), mg, _t(rows),
+                                           pad, True, BD)
+    np.testing.assert_array_equal(got_m.numpy()[ok], want_m[ok])
+    _, _, _, ws, hs, _, _ = _unpack(rows, 1)
+    for b in np.flatnonzero(ok):
+        np.testing.assert_array_equal(got_p[0, b, :hs[b], :ws[b]].numpy(),
+                                      want_p[b, :hs[b], :ws[b]])
+    assert not got_p[0, ~torch.from_numpy(ok)].any() and not got_m[~torch.from_numpy(ok)].any()
+
+
+def test_chroma_dm_reads_the_mode_grid_at_the_cu_centre():
+    pad = 32
+    rows = size_rows(pad, 2, seed=13)
+    rec, _, og = planes(seed=6, scale=2)
+    refs, ok = jax_refs(rec, og, rows, pad, 2)
+    mg = np.random.RandomState(0).randint(0, 67, (2, 48, 64)).astype(np.uint8)
+    modes, pred = tig.intra_rmd_reference(_t(np.stack([refs, refs])), None,
+                                          _t(mg), _t(rows), pad, False, BD)
+    fi, xs, ys, ws, hs = (rows[:, k] for k in range(5))
+    want_m = mg[fi, (ys + hs // 2) // 4, (xs + ws // 2) // 4].astype(np.int32)
+    np.testing.assert_array_equal(modes.numpy()[ok], want_m[ok])
+    jp = np.asarray(_jpredict(*(_j(r) for r in refs), _j(want_m[:, None]),
+                                        _j(ws // 2), _j(hs // 2), pad=pad,
+                                        is_luma=False, bit_depth=BD))[:, 0]
+    for b in np.flatnonzero(ok):
+        h, w = hs[b] // 2, ws[b] // 2
+        np.testing.assert_array_equal(pred[0, b, :h, :w].numpy(), jp[b, :h, :w])
+        np.testing.assert_array_equal(pred[1, b].numpy(), pred[0, b].numpy())
+
+
+# ---------------------------------------------------------------------------
+# K4: transform-quantisation round trip
+# ---------------------------------------------------------------------------
+
+def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None):
+    """The smallest relative margin of K4's float decisions on these
+    inputs, recomputed with the port's plain pieces: each coefficient
+    group's gain sum against lam*(3k+1.5), each remaining +-1 level's gain
+    against 3*lam, and the coded TU's cost against the zero TU's."""
+    fi, xs, ys, ws, hs, _, ok = (torch.from_numpy(a) for a in _unpack(rows, scale))
+    d = torch.arange(pad, dtype=torch.int32)
+    orgs = org[fi[:, None, None].long(),
+               (ys[:, None, None] + d[None, :, None]).clamp(0, org.shape[1] - 1).long(),
+               (xs[:, None, None] + d[None, None, :]).clamp(0, org.shape[2] - 1).long()]
+    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
+    resid = (orgs - pred) * inside
+    coef = ttq.forward_transform_generic(resid, ws, hs, bit_depth=BD)
+    lev = ttq.quantize_generic(coef, ws, hs, qp, bit_depth=BD)
+    margins = []
+    big = (torch.minimum(ws, hs) >= 4) & ok
+    lw, lh = ttq._log2(ws), ttq._log2(hs)
+    t_shift = 15 - BD - ((lw + lh) >> 1)
+    sqrt2 = (lw + lh) & 1
+    divisor = torch.tensor([2.0 ** int(e) for e in 2 * t_shift - sqrt2],
+                           dtype=torch.float32)
+    fc = coef.float()
+    e = fc - ttq._dequant_unclipped(lev, ws, hs, qp, BD).float()
+    gain = (fc * fc - e * e) / divisor[:, None, None]
+    g = gain.double().reshape(-1, pad // 4, 4, pad // 4, 4).sum((2, 4))
+    k = (lev != 0).reshape(-1, pad // 4, 4, pad // 4, 4).sum((2, 4)).double()
+    thr = float(np.float32(lam)) * (3 * k + 1.5)
+    live = (k > 0) & big[:, None, None]
+    margins.append(((g - thr).abs() / thr)[live])
+    lam3 = float(np.float32(lam * 3.0))
+    one = (lev.abs() == 1) & big[:, None, None]
+    margins.append(((gain.double() - lam3).abs() / lam3)[one])
+    lev2 = ttq.rd_cleanup_generic(lev, coef, ws, hs, qp, lam, bit_depth=BD)
+    rr = ttq.inverse_transform_generic(
+        ttq.dequantize_generic(lev2, ws, hs, qp, bit_depth=BD), ws, hs, bit_depth=BD)
+    sse = (((rr - resid) * inside).double() ** 2).sum((-1, -2))
+    sse0 = (resid.double() ** 2).sum((-1, -2))
+    bits = ttq.bits_proxy(lev2).double()
+    lam32 = float(np.float32(lam))
+    if dw is None:
+        cc, cz = sse + lam32 * (bits + 1), sse0 + 2 * lam32
+    else:
+        dw32 = float(np.float32(dw))
+        cc, cz = dw32 * sse + lam32 * bits, dw32 * sse0 + 2 * lam32
+    margins.append(((cc - cz).abs() / torch.maximum(cc, cz))[ok])
+    return min(float(m.min()) if m.numel() else np.inf for m in margins)
+
+
+def tq_inputs(pad, scale, seed):
+    rows = size_rows(pad, scale, seed=seed)
+    _, org, _ = planes(seed=seed, scale=scale)
+    rng = np.random.RandomState(seed)
+    B = len(rows)
+    fi, xs, ys, ws, hs, _, _ = _unpack(rows, scale)
+    d = np.arange(pad)
+    tile = org[fi[:, None, None], np.clip(ys[:, None, None] + d[None, :, None], 0, org.shape[1] - 1),
+               np.clip(xs[:, None, None] + d[None, None, :], 0, org.shape[2] - 1)]
+    noise = rng.randn(B, pad, pad) * rng.choice([2, 10, 60, 400], B)[:, None, None]
+    pred = np.clip(tile + noise, 0, 1023)
+    # extreme residuals: a full-swing checkerboard against a flat prediction
+    pred[0] = 0
+    org[fi[0], ys[0]:ys[0] + hs[0], xs[0]:xs[0] + ws[0]] = \
+        1023 * ((np.add.outer(np.arange(hs[0]), np.arange(ws[0]))) % 2)
+    return rows, org.astype(np.int32), pred.astype(np.int32)
+
+
+@pytest.mark.parametrize("qp", QPS)
+@pytest.mark.parametrize("pad,scale", [(32, 1), (64, 1), (16, 2), (32, 2)])
+def test_tq_matches_jax(pad, scale, qp):
+    from pmp_vvc_tpu_torch.codec.encoder import FrameEncoder
+    from pmp_vvc_tpu_torch.codec.headers import VVCConfig
+    enc = FrameEncoder(VVCConfig(width=256, height=192, qp=qp, dual_tree=True,
+                                 chroma_qp_start_minus26=-9,
+                                 chroma_qp_points=((9, 12), (4, 5), (11, 7))))
+    lam, dw = enc.lam, (None if scale == 1 else enc.dw_c)
+    qpi = qp + 12 if scale == 1 else \
+        int(enc.qp_table[qp + enc.qp_bd_offset]) + enc.qp_bd_offset
+    rows, org, pred = tq_inputs(pad, scale, seed=qp + pad + scale)
+    margin = tq_margin(_t(org), _t(pred), rows, pad, scale, qpi, lam, dw)
+    assert margin > MARGIN, margin
+    fi, xs, ys, ws, hs, _, ok = _unpack(rows, scale)
+    d = np.arange(pad)
+    orgs = jwf._gather_plane(_j(org), _j(fi)[:, None, None],
+                             _j(ys)[:, None, None] + d[None, :, None],
+                             _j(xs)[:, None, None] + d[None, None, :])
+    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
+    if dw is None:
+        want_l, want_r, _, _ = _jtq_luma(orgs, _j(pred), _j(ws), _j(hs), qpi,
+                                                BD, lam, True, _j(inside), False)
+    else:
+        want_l, want_r = _jtq_chroma(orgs, _j(pred), _j(ws), _j(hs), qpi, BD,
+                                         lam, dw, True, _j(inside))
+    got_l, got_r = ttq.tq_reference([_t(org)], _t(pred[None]), _t(rows), pad,
+                                    scale, qpi, BD, True, lam, dw)
+    want_l, want_r = np.asarray(want_l), np.asarray(want_r)
+    m = inside & ok[:, None, None]
+    np.testing.assert_array_equal(got_l[0].numpy()[m], want_l[m])
+    np.testing.assert_array_equal(got_r[0].numpy()[m], want_r[m])
+    assert not got_l[0].numpy()[~m].any() and not got_r[0].numpy()[~m].any()
+    assert (want_l[m] != 0).any() and (want_l[m] == 0).any()
+
+
+def test_jax_exp2_divisor_stays_within_the_margin():
+    """rd_cleanup_generic divides the gains by jnp.exp2(2*tShift - sqrt2),
+    which XLA need not compute exactly at integers; the port divides by the
+    exact power of two. Over the exponents 10-bit CU sizes 2..64 give, the
+    JAX divisor stays within MARGIN / 2 of it, so a decision that keeps a
+    margin above MARGIN rounds alike in both."""
+    exps = np.arange(-3, 9, dtype=np.int32)
+    got = np.asarray(jax.jit(lambda e: jnp.exp2(e.astype(jnp.float32)))(_j(exps)))
+    rel = np.abs(got.astype(np.float64) / np.ldexp(1.0, exps) - 1)
+    assert rel.max() < MARGIN / 2, rel
+
+
+@pytest.mark.parametrize("qp", [12, 34, 49])
+def test_transform_and_quant_stages_match_jax(qp):
+    rng = np.random.RandomState(qp)
+    sizes = np.array([(w, h) for w in SIZES for h in SIZES], np.int32)
+    ws, hs = sizes[:, 0], sizes[:, 1]
+    x = rng.randint(-1023, 1024, (len(sizes), 64, 64)).astype(np.int32)
+    x *= (np.arange(64)[None, :, None] < hs[:, None, None]) & \
+        (np.arange(64)[None, None, :] < ws[:, None, None])
+    c_j = jtq.forward_transform_generic(_j(x), _j(ws), _j(hs), bit_depth=BD)
+    c_t = ttq.forward_transform_generic(_t(x), _t(ws), _t(hs), bit_depth=BD)
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+    l_j = jtq.quantize_generic(c_j, _j(ws), _j(hs), qp, bit_depth=BD)
+    l_t = ttq.quantize_generic(c_t, _t(ws), _t(hs), qp, bit_depth=BD)
+    np.testing.assert_array_equal(l_t.numpy(), np.asarray(l_j))
+    big = np.clip(rng.randint(-40000, 40000, x.shape), -32768, 32767).astype(np.int32)
+    for lev in (np.asarray(l_j), big):
+        d_j = jtq.dequantize_generic(_j(lev), _j(ws), _j(hs), qp, bit_depth=BD)
+        d_t = ttq.dequantize_generic(_t(lev), _t(ws), _t(hs), qp, bit_depth=BD)
+        np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+        r_j = jtq.inverse_transform_generic(d_j, _j(ws), _j(hs), bit_depth=BD)
+        r_t = ttq.inverse_transform_generic(d_t, _t(ws), _t(hs), bit_depth=BD)
+        np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_j))
+    s_j = jtq.satd_generic(_j(x[:, None]), _j(np.zeros_like(x)[:, None]), _j(ws), _j(hs))
+    s_t = ttq.satd_generic(_t(x[:, None]), _t(np.zeros_like(x)[:, None]), _t(ws), _t(hs))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    assert INV_QUANT_SCALES.shape == (2, 6) and IQUANT_SHIFT == 6
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2])
+def test_tr_matrices_match_jax(kind):
+    n = np.array([4, 8, 16, 32] + ([64] if kind == 0 else []), np.int32)
+    for pad in (32, 64):
+        want = np.asarray(jtq.tr_matrices(kind, _j(n), pad))
+        np.testing.assert_array_equal(ttq.tr_matrices(kind, _t(n), pad).numpy(), want)

@@ -1,0 +1,193 @@
+"""The port's wave path against the JAX package's, piece by piece, on the CPU.
+
+1. Host geometry: leaves, order grids, wave levels and the packed (S, B, 8)
+   schedules, single and dual tree, with MTT maps on two frames.
+2. One wave step of each kind ("st", "luma", "chroma") on a real schedule
+   row against ``_make_class_apply``: the 11 state planes must be equal.
+3. The whole scan against ``_batched_pass`` (``_wave_scan``), and the
+   port's scan with other batch sizes: the same planes.
+
+Every coded-vs-zero and zeroing decision of the port's K4 calls is first
+held to a relative margin above ``MARGIN`` (see test_torch_codec_ops.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pmp_vvc_tpu.codec import wavefront as jwf
+from pmp_vvc_tpu.codec.headers import VVCConfig as JaxConfig
+from pmp_vvc_tpu_torch.codec import wavefront as twf
+from pmp_vvc_tpu_torch.codec.headers import VVCConfig
+from test_torch_codec_ops import MARGIN, tq_margin
+from test_wavefront import _mtt_maps, _synth
+
+torch.set_num_threads(2)
+
+W, H = 192, 128
+MTT = dict(max_mtt_depth_intra=3, max_bt_intra=32, max_tt_intra=32, log2_min_cb=2)
+SLICE = dict(MTT, dual_tree=True, sao=True, deblocking_disabled=False,
+             chroma_qp_start_minus26=-9, chroma_qp_points=((9, 12), (4, 5), (11, 7)))
+CONFIGS = {"single": dict(MTT, qp=27), "dual": dict(SLICE, qp=22)}
+
+
+@pytest.fixture
+def margins(monkeypatch):
+    """Wraps the port's K4 on the wave path: every call's float decisions
+    must keep a relative margin above MARGIN."""
+    seen = []
+    real = twf.tq
+
+    def guarded(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw=None):
+        for i, org in enumerate(orgs):
+            seen.append(tq_margin(org, pred[i], rows.numpy(), pad, scale, qp, lam, dw))
+        return real(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw)
+
+    monkeypatch.setattr(twf, "tq", guarded)
+    yield seen
+    assert seen and min(seen) > MARGIN, min(seen)
+
+
+def _encoders(name):
+    kw = dict(width=W, height=H, **CONFIGS[name])
+    return jwf.WavefrontEncoder(JaxConfig(**kw)), \
+        twf.WavefrontEncoder(VVCConfig(**kw), device="cpu")
+
+
+def _frames(name):
+    """Two frames with their own maps: (y, u, v, maps, chroma maps)."""
+    out = []
+    for f in range(2):
+        y, u, v = _synth(W, H, seed=7 + f)
+        maps = _mtt_maps(W, H, seed0=3 * f)
+        cmaps = _mtt_maps(W, H, chroma_factor=2, seed0=5 + 3 * f) \
+            if name == "dual" else None
+        out.append((y, u, v, maps, cmaps))
+    return out
+
+
+def _leaves(enc, maps, cmaps, chroma_walk):
+    decide = enc._decider(None, maps)
+    leaves = enc._collect_leaves(decide)
+    cleaves = None
+    if enc.cfg.dual_tree:
+        cleaves = chroma_walk(enc, enc._decider_chroma(None, maps, cmaps),
+                              decide_luma=decide)
+    return leaves, cleaves
+
+
+def jax_schedules(enc, packed):
+    """The (S, B, 8) schedules ``_batched_pass`` hands to ``_wave_scan``
+    (the scan itself is not run)."""
+    got = {}
+    real = jwf._wave_scan
+
+    def capture(classes, bszs, *a, **k):
+        def run(*args):
+            got.update(zip(classes, (np.asarray(s) for s in args[16:])))
+            return args[:11]
+        return run
+
+    jwf._wave_scan = capture
+    try:
+        enc._batched_pass(packed)
+    finally:
+        jwf._wave_scan = real
+    return got
+
+
+@pytest.mark.parametrize("name", ["single", "dual"])
+def test_host_geometry_matches_jax(name):
+    jenc, tenc = _encoders(name)
+    frames = _frames(name)
+    packed_j, packed_t = [], []
+    for y, u, v, maps, cmaps in frames:
+        lj = _leaves(jenc, maps, cmaps, jwf._collect_leaves_chroma)
+        lt = _leaves(tenc, maps, cmaps, twf._collect_leaves_chroma)
+        assert lj == lt
+        for leaves in (lj[0], lj[1]) if lj[1] is not None else (lj[0],):
+            order = jwf._order_grid(leaves, W, H)
+            np.testing.assert_array_equal(twf._order_grid(leaves, W, H), order)
+            np.testing.assert_array_equal(twf._schedule_waves(leaves, order, W, H),
+                                          jwf._schedule_waves(leaves, order, W, H))
+        packed_j.append((*lj, y, u, v))
+        packed_t.append(lt)
+    want = jax_schedules(jenc, packed_j)
+    active, got, ogs, ogcs = twf._pack_schedule(packed_t, W, H, tenc.batch)
+    assert active == tuple(sorted(want))
+    for k in active:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
+    assert ogs.shape == (2, H // 4, W // 4) and (ogs >= 0).all()
+
+
+def _state(rng, F):
+    """Random recon, level and mode planes; the MTS/MIP/CCLM/LFNST grids
+    are zero, as on the port's path (nothing writes them there)."""
+    ry = rng.randint(0, 1024, (F, H, W)).astype(np.int32)
+    ru = rng.randint(0, 1024, (F, H // 2, W // 2)).astype(np.int32)
+    rv = rng.randint(0, 1024, (F, H // 2, W // 2)).astype(np.int32)
+    cY = rng.randint(-50, 50, (F, H, W)).astype(np.int16)
+    cU = rng.randint(-50, 50, (F, H // 2, W // 2)).astype(np.int16)
+    cV = rng.randint(-50, 50, (F, H // 2, W // 2)).astype(np.int16)
+    mg = rng.randint(0, 67, (F, H // 4, W // 4)).astype(np.uint8)
+    zeros = [np.zeros((F, H // 4, W // 4), np.uint8) for _ in range(4)]
+    return [ry, ru, rv, cY, cU, cV, mg] + zeros
+
+
+@pytest.mark.parametrize("kind", ["st", "luma", "chroma"])
+def test_one_wave_step_matches_make_class_apply(kind, margins):
+    name = "single" if kind == "st" else "dual"
+    jenc, tenc = _encoders(name)
+    frames = _frames(name)
+    packed = [(*_leaves(jenc, m, c, jwf._collect_leaves_chroma), y, u, v)
+              for y, u, v, m, c in frames]
+    active, sched, ogs, ogcs = twf._pack_schedule([p[:2] for p in packed], W, H,
+                                                  tenc.batch)
+    rng = np.random.RandomState(len(kind))
+    state = _state(rng, 2)
+    orgs = [np.stack([fr[i] for fr in frames]).astype(np.int32) for i in range(3)]
+    qp_y, qp_c = jenc._qps()
+    done = 0
+    for P in (32, 64):
+        if (kind, P) not in active:
+            continue
+        arr = sched[(kind, P)]
+        t = int(np.argmax(arr[:, :, 6].sum(1)))        # the fullest step
+        row = arr[t]
+        f = jax.jit(jwf._make_class_apply(P, len(row), qp_y, qp_c, 10,
+                                          float(jenc.lam), float(jenc.dw_c), True,
+                                          kind=kind))
+        want = f(tuple(jnp.asarray(s) for s in state), jnp.asarray(row),
+                 *(jnp.asarray(o) for o in orgs), jnp.asarray(ogs), jnp.asarray(ogcs))
+        tstate = [torch.from_numpy(s.copy()) for s in state]
+        scan = twf._Scan(tstate, *(torch.from_numpy(o) for o in orgs),
+                         torch.from_numpy(ogs), torch.from_numpy(ogcs), qp_y, qp_c,
+                         10, float(tenc.lam), float(tenc.dw_c), True)
+        scan.step(kind, P, torch.from_numpy(row))
+        for i, (a, b) in enumerate(zip(tstate, want)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"plane {i}")
+        changed = [not np.array_equal(a.numpy(), s) for a, s in zip(tstate, state)]
+        assert changed[0 if kind != "chroma" else 1], "the step wrote nothing"
+        done += 1
+    assert done
+
+
+@pytest.mark.parametrize("name", ["single", "dual"])
+def test_scan_matches_jax_and_is_batch_invariant(name, margins):
+    jenc, tenc = _encoders(name)
+    frames = _frames(name)
+    packed = [(*_leaves(jenc, m, c, jwf._collect_leaves_chroma), y, u, v)
+              for y, u, v, m, c in frames]
+    want = jenc._batched_pass(packed)
+    got = tenc._batched_pass(packed)
+    assert len(got) == 11
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == np.asarray(b).dtype, i
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=f"plane {i}")
+    steps = tenc.steps
+    small = twf.WavefrontEncoder(tenc.cfg, device="cpu", batch={32: 2, 64: 1})
+    for i, (a, b) in enumerate(zip(small._batched_pass(packed), got)):
+        np.testing.assert_array_equal(a, b, err_msg=f"plane {i}")
+    assert small.steps > steps
