@@ -17,23 +17,27 @@ Phases, each of which fails the run on error (nothing is caught):
 5. One Luma ``predict`` of the main path's CTUs under torch.profiler: device
    time by kernel and the device's idle share.
 
-6. The encode kernels K1 (reference gather), K2 (intra RMD / DM), K4
-   (transform-quantisation) and K7 (wave-step scatter) against their plain
-   PyTorch versions on the card, exactly, on seeded inputs: every CU size
-   of both tile classes, luma and chroma, all 67 modes on every CU size
-   through the chroma DM predictor, frame edges and partly coded
-   neighbourhoods, QP 0, 22, 37, full-swing residuals; timed at the main
-   path's batch shapes.
+6. The encode kernels K1 (reference gather), K2 (intra RMD / DM), K3 (MIP
+   candidates against K2's winner), K4 (transform-quantisation, with and
+   without sign-data hiding) and K7 (wave-step scatter, with the mode and
+   MIP code grids) against their plain PyTorch versions on the card,
+   exactly, on seeded inputs: every CU size of both tile classes, luma and
+   chroma, all 67 modes on every CU size through the chroma DM predictor,
+   frame edges and partly coded neighbourhoods, QP 0, 22, 37, full-swing
+   residuals; timed at the main path's batch shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
-   with the dual-tree DCT-2 + deblocking + SAO configuration at QP 22
-   through ``WavefrontEncoder.encode_frames`` (cold, then warm); stage
-   times, wave steps, launches of every kernel, hash SEI against an MD5 of
-   the returned recon, luma PSNR.
+   with the dual-tree MIP + sign-data hiding + DCT-2 + deblocking + SAO
+   configuration at QP 22 through ``WavefrontEncoder.encode_frames``; the
+   previous slice's configuration (MIP and SDH off) beside it, cold runs
+   then warm runs off, on, on, off; stage times, wave steps, launches of
+   every kernel, the MIP CUs, hash SEI against an MD5 of the returned
+   recon, luma PSNR.
 8. The same kernels against their plain versions on the real schedule rows
    of the main path's first wave steps.
 9. 416x240 x 2 frames encoded with ``device="cpu"`` (plain versions) and on
-   the card: the bitstreams must be byte-identical.
+   the card, with MIP and SDH off and on: the bitstreams must be
+   byte-identical.
 10. One warm frame's wave scan under torch.profiler: device time by kernel
     and the device's idle share.
 
@@ -60,8 +64,12 @@ from pmp_vvc_tpu_torch.codec import wavefront as wf
 from pmp_vvc_tpu_torch.codec.headers import VVCConfig
 from pmp_vvc_tpu_torch.data.synthcontent import natural_sequence
 from pmp_vvc_tpu_torch.data.yuv import blocks_for_sequence, write_yuv420
+from pmp_vvc_tpu_torch.ops import tq_generic as ttq
 from pmp_vvc_tpu_torch.ops.intra_generic import (
-    intra_rmd, intra_rmd_reference, ref_gather, ref_gather_reference)
+    gather_plane, intra_rmd, intra_rmd_reference, ref_gather, ref_gather_reference)
+from pmp_vvc_tpu_torch.ops.mip_generic import mip_select, mip_select_reference
+from pmp_vvc_tpu_torch.ops.rows import unpack_rows
+from pmp_vvc_tpu_torch.ops.sdh_generic import _cg_tables, sdh_moves
 from pmp_vvc_tpu_torch.ops.tq_generic import tq, tq_reference
 from pmp_vvc_tpu_torch.pmp.map2partition import blocks_to_frame_partition
 from pmp_vvc_tpu_torch.pmp.pipeline import predict_sequence
@@ -324,7 +332,7 @@ def phase_profile(preds: dict, blocks) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The encode path: kernels K1, K2, K4, K7 and the map-driven wave encode
+# The encode path: kernels K1, K2, K3, K4, K7 and the map-driven wave encode
 # ---------------------------------------------------------------------------
 
 DEVICE = "cuda"
@@ -336,6 +344,8 @@ ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
                    "pmp_vvc_tpu/codec/wavefront.py:97"),
     "intra_rmd": (intra_rmd, "pmp_vvc_tpu_torch/csrc/intra_rmd.cu",
                   "pmp_vvc_tpu/ops/intra_generic.py:142"),
+    "mip_rmd": (mip_select, "pmp_vvc_tpu_torch/csrc/mip_rmd.cu",
+                "pmp_vvc_tpu/ops/mip_generic.py:54"),
     "tq": (tq, "pmp_vvc_tpu_torch/csrc/tq.cu",
            "pmp_vvc_tpu/ops/tq_generic.py:96"),
     "wave_scatter": (wf.wave_scatter, "pmp_vvc_tpu_torch/csrc/wave_scatter.cu",
@@ -345,19 +355,25 @@ ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
 # loops: an angular / planar sample of K2 (4 taps, rounding, clip, PDPC);
 # one sample's share of K2's 8x8 Hadamard SATD (6 butterfly stages, abs,
 # sum); K4's per-coefficient quantise / RD zeroing / dequantise, and its
-# per-sample residual, SSE and rate work. Bounded against the float32 rate
-# outside the tensor cores, which the int32 rate does not exceed.
+# per-sample residual, SSE and rate work; a K3 sample's two upsampling
+# passes, and a K3 reduced sample's 8-term product; K4's sign-data hiding
+# scan per group slot, and per move tried where a group's parity is wrong.
+# Bounded against the float32 rate outside the tensor cores, which the int32
+# rate does not exceed.
 OPS_PRED, OPS_SATD, OPS_QUANT, OPS_SAMPLE = 12, 8, 30, 10
+OPS_UPSAMPLE, OPS_REDUCED, OPS_SDH_SLOT, OPS_SDH_MOVE = 10, 20, 5, 14
 
 
-def enc_cfg(w: int, h: int) -> VVCConfig:
+def enc_cfg(w: int, h: int, tools: bool = True) -> VVCConfig:
     """The slice's configuration: dual tree, map-driven MTT at L3, the
-    bench's chroma QP table, deblocking and SAO; every other tool off."""
+    bench's chroma QP table, deblocking and SAO, and with ``tools`` MIP and
+    sign-data hiding; every other tool off. ``tools=False`` is the
+    configuration of the previous slice."""
     return VVCConfig(width=w, height=h, qp=ENC_QP, dual_tree=True, sao=True,
                      deblocking_disabled=False, chroma_qp_start_minus26=-9,
                      chroma_qp_points=((9, 12), (4, 5), (11, 7)),
                      log2_min_cb=2, max_mtt_depth_intra=3, max_bt_intra=32,
-                     max_tt_intra=32)
+                     max_tt_intra=32, mip=tools, sign_hiding=tools)
 
 
 def kernel_rows(pad: int, scale: int, seed: int, width: int, height: int):
@@ -405,22 +421,21 @@ def _cmp(name: str, got, want, errs: dict) -> None:
         check(torch.equal(g, w), f"{name} differs from its plain version (max {err})")
 
 
-def scatter_both(rows, pad, scale, planes, rec, lev, grid, code, errs):
-    """K7 on ``planes`` (in place) against its plain version on copies."""
+def scatter_both(rows, pad, scale, planes, rec, lev, grids, errs):
+    """K7 on ``planes`` and ``grids`` (in place) against its plain version
+    on copies."""
     ref_planes = [(a.clone(), b.clone()) for a, b in planes]
-    ref_grid = grid.clone() if grid is not None else None
-    wf.wave_scatter(rows, pad, scale, planes, rec, lev, grid, code)
-    wf.wave_scatter_reference(rows, pad, scale, ref_planes, rec, lev, ref_grid, code)
-    _cmp("wave_scatter", [t for p in planes for t in p],
-         [t for p in ref_planes for t in p], errs)
-    if grid is not None:
-        _cmp("wave_scatter", grid, ref_grid, errs)
+    ref_grids = [(g.clone(), c) for g, c in grids]
+    wf.wave_scatter(rows, pad, scale, planes, rec, lev, grids)
+    wf.wave_scatter_reference(rows, pad, scale, ref_planes, rec, lev, ref_grids)
+    _cmp("wave_scatter", [t for p in planes for t in p] + [g for g, _ in grids],
+         [t for p in ref_planes for t in p] + [g for g, _ in ref_grids], errs)
 
 
 def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
     """``_Scan.step`` with each kernel held against its plain version on
     the same inputs; the kernels' results carry the state forward."""
-    ry, ru, rv, cY, cU, cV, mg = scan.state[:7]
+    ry, ru, rv, cY, cU, cV, mg, _, pg = scan.state[:9]
     bd = scan.bd
     if kind != "chroma":
         refs = ref_gather([ry], scan.og4, row, P, 1, bd)
@@ -428,10 +443,16 @@ def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
         best, pred = intra_rmd(refs, scan.oy, mg, row, P, True, bd)
         _cmp("intra_rmd", [best, pred],
              list(intra_rmd_reference(refs, scan.oy, mg, row, P, True, bd)), errs)
-        lev, rec = tq([scan.oy], pred, row, P, 1, scan.qp_y, bd, scan.rd_quant, scan.lam)
-        _cmp("tq", [lev, rec], list(tq_reference([scan.oy], pred, row, P, 1, scan.qp_y, bd,
-                                                 scan.rd_quant, scan.lam)), errs)
-        scatter_both(row, P, 1, [(ry, cY)], rec, lev, mg, best, errs)
+        grids = [(mg, best)]
+        if scan.mip:
+            args = (refs, scan.oy, row, pred, best, P, bd)
+            best, pred, code = mip_select(*args)
+            _cmp("mip_rmd", [best, pred, code], list(mip_select_reference(*args)), errs)
+            grids.append((pg, code))
+        args = ([scan.oy], pred, row, P, 1, scan.qp_y, bd, scan.rd_quant, scan.lam)
+        lev, rec = tq(*args, sdh=scan.sdh)
+        _cmp("tq", [lev, rec], list(tq_reference(*args, sdh=scan.sdh)), errs)
+        scatter_both(row, P, 1, [(ry, cY)], rec, lev, grids, errs)
         if kind == "luma":
             return
     Pc = P // 2
@@ -442,14 +463,35 @@ def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
          list(intra_rmd_reference(refs, None, mg, row, Pc, False, bd)), errs)
     args = ([scan.ou, scan.ov], pred, row, Pc, 2, scan.qp_c, bd, scan.rd_quant,
             scan.lam, scan.dw_c)
-    lev, rec = tq(*args)
-    _cmp("tq", [lev, rec], list(tq_reference(*args)), errs)
-    scatter_both(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev, None, None, errs)
+    lev, rec = tq(*args, sdh=scan.sdh)
+    _cmp("tq", [lev, rec], list(tq_reference(*args, sdh=scan.sdh)), errs)
+    scatter_both(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev, [], errs)
+
+
+def sdh_groups(orgs, pred, rows, P: int, scale: int, qp: int, lam: float) -> tuple[int, int]:
+    """(coefficient groups K4's sign-data hiding scans, groups whose parity it
+    corrects) in one K4 call, counted with the plain pieces."""
+    fi, xs, ys, ws, hs, _, ok = unpack_rows(rows, scale)
+    lw, lh = ttq._log2(ws), ttq._log2(hs)
+    per_tb = torch.from_numpy((_cg_tables(P) >= 0).any(-1).sum(-1)).to(rows.device)
+    d = torch.arange(P, device=rows.device, dtype=torch.int32)
+    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
+    fixed = 0
+    for i, org in enumerate(orgs):
+        tile = gather_plane(org, fi[:, None, None], ys[:, None, None] + d[None, :, None],
+                            xs[:, None, None] + d[None, None, :])
+        coef = ttq.forward_transform_generic((tile - pred[i]) * inside, ws, hs, bit_depth=BD)
+        lev = ttq.rd_cleanup_generic(ttq.quantize_generic(coef, ws, hs, qp, bit_depth=BD),
+                                     coef, ws, hs, qp, lam, bit_depth=BD)
+        fixed += int((sdh_moves(lev, coef, ws, hs, qp, bit_depth=BD)[0] & ok[:, None]).sum())
+    return len(orgs) * int(per_tb[(lw * 7 + lh).long()][ok].sum()), fixed
 
 
 def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
-                  modes=None) -> tuple[float, str, int, int]:
-    """(bound ms, bound_by, bytes, ops) of one call on these rows."""
+                  modes=None, codes=None, sdh=None) -> tuple[float, str, int, int]:
+    """(bound ms, bound_by, bytes, ops) of one call on these rows. ``modes``:
+    K2's luma modes; ``codes``: K3's MIP codes; ``sdh``: (groups scanned,
+    groups corrected) of a K4 call with sign-data hiding."""
     live = rows[rows[:, 6] > 0]
     w, h = live[:, 3] // scale, live[:, 4] // scale
     B, pad_rows = len(rows), len(rows) - len(live)
@@ -466,25 +508,43 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
                 int(((cands - 1) * w * h).sum()) * OPS_SATD
         else:
             ops = n * int((w * h).sum()) * OPS_PRED
+    elif name == "mip_rmd":
+        sid = np.where((w == 4) & (h == 4), 0,
+                       np.where((w == 4) | (h == 4) | ((w == 8) & (h == 8)), 1, 2))
+        n_modes, red_p = np.array([16, 8, 6])[sid], np.array([4, 4, 8])[sid]
+        # every valid candidate, plus the winner again where MIP wins
+        preds = 2 * n_modes + (codes[rows[:, 6] > 0] > 0)
+        ops = int((preds * (w * h * OPS_UPSAMPLE + red_p ** 2 * OPS_REDUCED)).sum()) + \
+            int(((2 * n_modes + 1) * w * h).sum()) * OPS_SATD
+        # boundary rows, original and K2's prediction over each CU, the
+        # weights of the size classes present, the prediction tiles out
+        table = sum(int(n_modes[sid == k][0] * red_p[sid == k][0] ** 2) * 8 * 4
+                    for k in set(sid.tolist()))
+        nbytes = int((w + h).sum()) * 4 + int((w * h).sum()) * 8 + table + \
+            B * P * P * 4 + B * (32 + 4 * 3)
     elif name == "tq":
         kw, kh = np.minimum(w, 32), np.minimum(h, 32)
         macs = h * kw * w + kh * kw * h + h * kw * kh + h * w * kw
         ops = n * int((2 * macs + OPS_QUANT * kw * kh + OPS_SAMPLE * w * h).sum())
         nbytes = n * (int((w * h).sum()) * 4 + B * P * P * 4 * 3) + B * 32
-    else:                               # wave_scatter
+        if sdh is not None:             # the groups' slot tables and moves
+            ops += sdh[0] * 16 * OPS_SDH_SLOT + sdh[1] * 32 * OPS_SDH_MOVE
+            nbytes += sdh[0] // n * 16 * 4
+    else:                               # wave_scatter, one or two grids
         ops = 0
+        ngrids = 0 if scale == 2 else 1 if codes is None else 2
         nbytes = n * int((w * h).sum()) * (8 + 6) + B * 32 + \
-            (int((w // 4 * h // 4).sum()) + len(live) * 4 if scale == 1 else 0)
+            ngrids * (int((w // 4 * h // 4).sum()) + len(live) * 4)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
 
 def phase_encode_kernels() -> tuple[dict, dict]:
-    """K1/K2/K4/K7 against their plain versions on seeded inputs, then
-    their times at the main path's batch shape (16 CUs, 32-pad luma)."""
+    """K1/K2/K3/K4/K7 against their plain versions on seeded inputs, then
+    their times at the main path's batch shapes."""
     errs: dict = {}
-    max_level = 0
+    max_level = sdh_changed = mip_wins = mip_rows = 0
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
         rows_np = kernel_rows(P, scale, seed=P + qp, width=width, height=height)
@@ -502,7 +562,15 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         modes, pred = intra_rmd(refs, orgs[0] if luma else None, mg, rows, P, luma, BD)
         _cmp("intra_rmd", [modes, pred], list(intra_rmd_reference(
             refs, orgs[0] if luma else None, mg, rows, P, luma, BD)), errs)
-        if not luma:
+        grids = []
+        if luma:
+            args = (refs, orgs[0], rows, pred, modes, P, BD)
+            got = mip_select(*args)
+            _cmp("mip_rmd", list(got), list(mip_select_reference(*args)), errs)
+            mip_wins += int((got[2] > 0).sum())
+            mip_rows += int((rows[:, 6] > 0).sum())
+            grids = [(torch.zeros_like(mg), modes), (torch.zeros_like(mg), got[2])]
+        else:
             # every mode through the DM predictor on every CU size: the rows
             # repeated once per mode, row copy m reading mode grid frame m
             rows67 = np.tile(rows_np, (67, 1))
@@ -519,25 +587,32 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         noise = np.random.RandomState(qp).randint(-300, 301, tuple(pred.shape))
         noisy = (pred + torch.from_numpy(noise.astype(np.int32)).to(DEVICE)).clamp(0, 1023)
         # the predictions, noisy ones, and full-swing residuals (original
-        # 1023 against a zero prediction) for the largest levels
+        # 1023 against a zero prediction) for the largest levels; K4 with
+        # sign-data hiding off and on
         flat = [torch.full_like(o, 1023) for o in orgs]
         for o, p in ((orgs, pred), (orgs, noisy.contiguous()), (flat, torch.zeros_like(pred))):
             args = (o, p, rows, P, scale, qp + 12, BD, True, 0.57 * 2 ** ((qp - 12) / 3),
                     None if luma else 1.2599)
-            lev, rc = tq(*args)
-            _cmp("tq", [lev, rc], list(tq_reference(*args)), errs)
+            lev0, rc0 = tq(*args)
+            _cmp("tq", [lev0, rc0], list(tq_reference(*args)), errs)
+            lev, rc = tq(*args, sdh=True)
+            _cmp("tq", [lev, rc], list(tq_reference(*args, sdh=True)), errs)
             max_level = max(max_level, int(lev.abs().max()))
+            sdh_changed += int((lev != lev0).sum())
         state = [(torch.zeros_like(r), torch.zeros(r.shape, dtype=torch.int16, device=DEVICE))
                  for r in recs]
-        grid = torch.zeros_like(mg) if luma else None
-        scatter_both(rows, P, scale, state, rc, lev, grid, modes if luma else None, errs)
-    log(f"[encode-kernels] K1/K2/K4/K7 equal to their plain versions on every CU "
+        scatter_both(rows, P, scale, state, rc, lev, grids, errs)
+    check(sdh_changed > 0, "sign-data hiding changed no level of the seeded inputs")
+    check(0 < mip_wins < mip_rows, f"MIP won {mip_wins} of {mip_rows} CUs")
+    log(f"[encode-kernels] K1/K2/K3/K4/K7 equal to their plain versions on every CU "
         f"size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
-        f"largest |level| {max_level}")
+        f"largest |level| {max_level}; K3 chose MIP for {mip_wins} of {mip_rows} CUs; "
+        f"sign-data hiding changed {sdh_changed} levels")
 
     # timing at the main path's batch shapes: each tile class at its batch
     # (DEFAULT_BATCH); the JSON line carries the 32-pad luma class, whose
-    # steps are the most numerous
+    # steps are the most numerous. K4 is timed with sign-data hiding on (the
+    # main path) and off (the previous slice's path) in turns.
     times = {}
     for P, scale, B in ((32, 1, 16), (64, 1, 8), (16, 2, 16), (32, 2, 8)):
         luma = scale == 1
@@ -550,30 +625,43 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         levs = [torch.zeros(r.shape, dtype=torch.int16, device=DEVICE) for r in recs]
         mg = torch.from_numpy(np.random.RandomState(2).randint(
             0, 67, (2, height // 4, width // 4)).astype(np.uint8)).to(DEVICE)
+        pg = torch.zeros_like(mg)
         org0 = orgs[0] if luma else None
         refs = ref_gather(recs, og_t, rows, P, scale, BD)
         modes, pred = intra_rmd(refs, org0, mg, rows, P, luma, BD)
+        codes = None
+        if luma:
+            k3_args = (refs, org0, rows, pred, modes, P, BD)
+            modes3, pred, codes = mip_select(*k3_args)
         lam = 0.57 * 2 ** ((ENC_QP - 12) / 3)
         tq_args = (orgs, pred, rows, P, scale, ENC_QP + 12, BD, True, lam,
                    None if luma else 1.2599)
-        lev, rc = tq(*tq_args)
-        grid, code = (mg, modes) if luma else (None, None)
+        lev, rc = tq(*tq_args, sdh=True)
+        grids = [(mg, modes3), (pg, codes)] if luma else []
         planes = list(zip(recs, levs))
         calls = {
             "ref_gather": (lambda: ref_gather(recs, og_t, rows, P, scale, BD),
                            lambda: ref_gather_reference(recs, og_t, rows, P, scale, BD)),
             "intra_rmd": (lambda: intra_rmd(refs, org0, mg, rows, P, luma, BD),
                           lambda: intra_rmd_reference(refs, org0, mg, rows, P, luma, BD)),
-            "tq": (lambda: tq(*tq_args), lambda: tq_reference(*tq_args)),
+            "tq": (lambda: tq(*tq_args, sdh=True), lambda: tq_reference(*tq_args, sdh=True)),
+            "tq_no_sdh": (lambda: tq(*tq_args), lambda: tq_reference(*tq_args)),
             "wave_scatter": (
-                lambda: wf.wave_scatter(rows, P, scale, planes, rc, lev, grid, code),
-                lambda: wf.wave_scatter_reference(rows, P, scale, planes, rc, lev,
-                                                  grid, code)),
+                lambda: wf.wave_scatter(rows, P, scale, planes, rc, lev, grids),
+                lambda: wf.wave_scatter_reference(rows, P, scale, planes, rc, lev, grids)),
         }
-        modes_np = modes.cpu().numpy() if luma else None
+        if luma:
+            calls["mip_rmd"] = (lambda: mip_select(*k3_args),
+                                lambda: mip_select_reference(*k3_args))
+        extra = {
+            "intra_rmd": dict(modes=modes.cpu().numpy() if luma else None),
+            "mip_rmd": dict(codes=codes.cpu().numpy() if luma else None),
+            "tq": dict(sdh=sdh_groups(orgs, pred, rows, P, scale, ENC_QP + 12, lam)),
+            "wave_scatter": dict(codes=codes),
+        }
         for name, (kernel, plain) in calls.items():
-            bound, by, nbytes, ops = kernel_bounds(name, rows_np, P, scale, n,
-                                                   modes_np if name == "intra_rmd" else None)
+            bound, by, nbytes, ops = kernel_bounds(name.removesuffix("_no_sdh"), rows_np,
+                                                   P, scale, n, **extra.get(name, {}))
             ms, call = graph_ms(kernel), call_ms(kernel, 500)
             plain_ms = call_ms(plain, 20)
             if (P, scale) == (32, 1):
@@ -581,7 +669,9 @@ def phase_encode_kernels() -> tuple[dict, dict]:
             log(f"[encode-kernels] {name}: {B} CUs, {P}-pad {'luma' if luma else 'chroma'}: "
                 f"device time per call (CUDA graph) {ms:.6f} ms; called from Python "
                 f"{call:.6f} ms; plain version from Python {plain_ms:.6f} ms; bound "
-                f"{bound:.6f} ms by {by} ({nbytes} B, {ops} ops)")
+                f"{bound:.6f} ms by {by} ({nbytes} B, {ops} ops)"
+                + (f"; sign-data hiding corrects {extra['tq']['sdh'][1]} of "
+                   f"{extra['tq']['sdh'][0]} groups" if name == "tq" else ""))
     return errs, times
 
 
@@ -618,30 +708,52 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
+def timed_encode(enc, frames, maps_l, maps_c, label: str):
+    """One warm ``encode_frames`` run: its outputs, stage times logged."""
+    enc.timings = {}
+    t0 = time.perf_counter()
+    outs = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+    wall = time.perf_counter() - t0
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in enc.timings.items())
+    log(f"[encode] {label}: warm run {wall:.3f} s = {len(frames) / wall:.4f} frames/s "
+        f"({stages} s)")
+    return outs
+
+
 def phase_encode(preds: dict):
-    """The map-driven encode at 1920x1080: cold run, then the warm run that
-    is measured, with every kernel's launches counted."""
+    """The map-driven encode at 1920x1080: this slice's configuration (MIP +
+    SDH) and the previous slice's (both off), a cold run of each, then warm
+    runs in the order off, on, on, off; the first warm run with the tools on
+    is the main path's, with every kernel's launches counted."""
     frames = natural_sequence(ENC_W, ENC_H, ENC_FRAMES, seed0=7, bit_depth=BD)
     t0 = time.perf_counter()
     maps_l, maps_c = frame_maps(preds, frames, ENC_W, ENC_H)
     log(f"[encode] maps for {ENC_FRAMES} frames in {time.perf_counter() - t0:.3f} s")
-    enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=3, device=DEVICE)
-    t0 = time.perf_counter()
-    enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
-    log(f"[encode] cold run {time.perf_counter() - t0:.3f} s")
-    enc.timings = {}
+    encs = {tools: wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H, tools), accel_level=3,
+                                       device=DEVICE) for tools in (False, True)}
+    for tools, enc in encs.items():
+        t0 = time.perf_counter()
+        enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+        log(f"[encode] MIP + SDH {tools}: cold run {time.perf_counter() - t0:.3f} s")
+    enc = encs[True]
+    timed_encode(encs[False], frames, maps_l, maps_c, "MIP + SDH off (1)")
     reset_counts()
-    t0 = time.perf_counter()
-    outs = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
-    wall = time.perf_counter() - t0
+    outs = timed_encode(enc, frames, maps_l, maps_c, "MIP + SDH on (1), the main path")
     launches = {name: fn.launches for name, (fn, _, _) in ENC_KERNELS.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the encode path")
-    log(f"[encode] {ENC_W}x{ENC_H} x {ENC_FRAMES} frames, QP {ENC_QP}, dual tree: "
-        f"warm run {wall:.3f} s = {ENC_FRAMES / wall:.4f} frames/s; "
-        f"{enc.steps} wave steps; launches {launches}")
-    for stage, sec in enc.timings.items():
-        log(f"[encode]   {stage:12s} {sec:9.3f} s")
+    pg = enc._dev_result[8]              # the MIP code grid of the frames
+    mip_cus = cus = 0
+    for f in range(ENC_FRAMES):
+        leaves = enc._collect_all(None, maps_l[f], maps_c[f])[0]
+        cus += len(leaves)
+        mip_cus += sum(int(pg[f, y // 4, x // 4] > 0) for x, y, *_ in leaves)
+    check(mip_cus > 0, "no CU of the encode was coded with MIP")
+    log(f"[encode] {ENC_W}x{ENC_H} x {ENC_FRAMES} frames, QP {ENC_QP}, dual tree, "
+        f"MIP + SDH: {enc.steps} wave steps; launches {launches}; {mip_cus} of {cus} "
+        f"luma CUs coded with MIP")
+    timed_encode(enc, frames, maps_l, maps_c, "MIP + SDH on (2)")
+    timed_encode(encs[False], frames, maps_l, maps_c, "MIP + SDH off (2)")
     nbytes = 0
     for f, (bs, recon) in enumerate(outs):
         nbytes += len(bs)
@@ -672,7 +784,8 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48) -> dict:
         [z((F, H // 4, W // 4), torch.uint8) for _ in range(5)]
     qp_y, qp_c = enc._qps()
     scan = wf._Scan(state, *(up(np.stack([fr[i] for fr in frames])) for i in range(3)),
-                    up(ogs), up(ogcs), qp_y, qp_c, BD, float(enc.lam), float(enc.dw_c), True)
+                    up(ogs), up(ogcs), qp_y, qp_c, BD, float(enc.lam), float(enc.dw_c), True,
+                    mip=True, sdh=True)
     errs: dict = {}
     rows = 0
     for t in range(min(n_steps, next(iter(step_arr.values())).shape[0])):
@@ -687,20 +800,24 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48) -> dict:
 
 
 def phase_encode_cpu_vs_card(preds: dict) -> None:
+    """416x240 x 2 on the CPU and on the card, in the previous slice's
+    configuration and in this one (MIP and SDH on)."""
     frames = natural_sequence(SMALL_W, SMALL_H, 2, seed0=7, bit_depth=BD)
     maps_l, maps_c = frame_maps(preds, frames, SMALL_W, SMALL_H)
-    out = {}
-    for device in ("cpu", DEVICE):
-        enc = wf.WavefrontEncoder(enc_cfg(SMALL_W, SMALL_H), accel_level=3, device=device)
-        t0 = time.perf_counter()
-        out[device] = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
-        log(f"[encode-cpu-vs-card] {SMALL_W}x{SMALL_H} x 2 on {device}: "
-            f"{time.perf_counter() - t0:.3f} s, {enc.steps} wave steps")
-    for f in range(2):
-        check(out["cpu"][f][0] == out[DEVICE][f][0],
-              f"frame {f}: CPU and card bitstreams differ")
-    log(f"[encode-cpu-vs-card] bitstreams byte-identical "
-        f"({[len(o[0]) for o in out[DEVICE]]} bytes)")
+    for tools in (False, True):
+        out = {}
+        for device in ("cpu", DEVICE):
+            enc = wf.WavefrontEncoder(enc_cfg(SMALL_W, SMALL_H, tools), accel_level=3,
+                                      device=device)
+            t0 = time.perf_counter()
+            out[device] = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+            log(f"[encode-cpu-vs-card] {SMALL_W}x{SMALL_H} x 2, MIP + SDH {tools}, on "
+                f"{device}: {time.perf_counter() - t0:.3f} s, {enc.steps} wave steps")
+        for f in range(2):
+            check(out["cpu"][f][0] == out[DEVICE][f][0],
+                  f"frame {f} (MIP + SDH {tools}): CPU and card bitstreams differ")
+        log(f"[encode-cpu-vs-card] MIP + SDH {tools}: bitstreams byte-identical "
+            f"({[len(o[0]) for o in out[DEVICE]]} bytes)")
 
 
 def phase_encode_profile(frames, maps_l, maps_c) -> None:
@@ -756,8 +873,9 @@ def main() -> int:
     }]
     # library_ms is null: no single PyTorch call computes any of these
     # functions (the reference substitution, the 67-mode predictor with its
-    # SATD argmin, the integer transform-quantisation round trip, or the
-    # step's masked scatters with their index arithmetic).
+    # SATD argmin, the MIP candidates with their SATD argmin, the integer
+    # transform-quantisation round trip with sign-data hiding, or the step's
+    # masked scatters with their index arithmetic).
     for name, (_, source, replaces) in ENC_KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

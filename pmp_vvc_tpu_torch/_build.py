@@ -1,10 +1,12 @@
 """Build and bind the port's CUDA C++ kernels.
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by ``nvcc``
-into its own shared library for ``sm_90a``, loaded with ``ctypes``. Nothing
-is built when a module is imported: ``library(name)`` builds at first use
-into ``build/kernels/`` at the root of the checkout, keyed by a hash of the
-source and the flags, so an unchanged source is not compiled twice.
+into its own shared library for ``sm_90a``, loaded with ``ctypes``; sources
+may include the shared ``csrc/*.cuh`` headers. Nothing is built when a
+module is imported: ``library(name)`` builds at first use into
+``build/kernels/`` at the root of the checkout, keyed by a hash of the
+source, the headers and the flags, so an unchanged source is not compiled
+twice.
 ``build_all()`` compiles every source at once, one ``nvcc`` process each.
 ``check_cuda``, ``stream`` and ``count_launch`` are what every kernel
 wrapper does around its call.
@@ -45,7 +47,8 @@ def build(name: str) -> tuple[pathlib.Path, str]:
     The output is empty when an up-to-date library was already there.
     """
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, ""

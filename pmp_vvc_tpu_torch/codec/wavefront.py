@@ -13,8 +13,11 @@ launches, for each tile class with live rows, the wave-step kernels:
 
   K1 ``ref_gather``   reference rows with coding-order availability;
   K2 ``intra_rmd``    luma RMD + prediction, or chroma DM prediction;
-  K4 ``tq``           transform / quant / RD zeroing / inverse, coded vs zero;
-  K7 ``wave_scatter`` masked writes into the recon, level and mode planes.
+  K3 ``mip_select``   (with ``mip``) the MIP candidates against K2's winner;
+  K4 ``tq``           transform / quant / RD zeroing / sign-data hiding
+                      (with ``sign_hiding``) / inverse, coded vs zero;
+  K7 ``wave_scatter`` masked writes into the recon and level planes and
+                      the mode and MIP code grids.
 
 The state planes are updated in place (the JAX version's scan carries new
 arrays); nothing is read back inside the loop, and the results come back in
@@ -26,9 +29,10 @@ The JAX module's ``_refs_generic``, ``_avail_from_order`` and
 ``avail_from_order``, ``gather_plane``) and its ``_bits_proxy`` in
 ``ops/tq_generic.py`` (``bits_proxy``), beside the kernels that use them.
 
-Supported: single or dual tree, map- or QT-driven partitioning, DCT-2 TU
-coding with scalar quantisation and RDOQ-lite zeroing, deblocking and SAO.
-Every other tool raises ``NotImplementedError``.
+Supported: single or dual tree, map- or QT-driven partitioning, luma
+MIP, DCT-2 TU coding with scalar quantisation, RDOQ-lite zeroing and
+sign-data hiding, deblocking and SAO. Every other tool raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ import torch
 from .. import _build
 from .._device import resolve_device
 from ..ops.intra_generic import intra_rmd, ref_gather
+from ..ops.mip_generic import mip_select
 from ..ops.rows import check_rows
 from ..ops.tq_generic import tq
 from .encoder import RDO, CuInfo, FrameEncoder
@@ -50,11 +55,11 @@ from .mtt import Split, SplitState, get_implicit_split
 from .residual import ctx
 
 DEFAULT_BATCH = {32: 16, 64: 8}   # CUs per step of the 32- and 64-pad classes
-# Tools whose device kernels are not ported yet (MIP K3, MTS/LFNST/TS/SDH
-# K5, CCLM/JCCR/LMCS K6, ALF/CC-ALF on the host), and the sequential-only
+# Tools whose device kernels are not ported yet (MTS/LFNST/TS K5,
+# CCLM/JCCR/LMCS K6, ALF/CC-ALF on the host), and the sequential-only
 # tools the wave path never supported.
-UNPORTED_TOOLS = ("mts_intra", "mip", "cclm", "lfnst", "sign_hiding",
-                  "joint_cbcr", "lmcs", "transform_skip", "alf", "ccalf")
+UNPORTED_TOOLS = ("mts_intra", "cclm", "lfnst", "joint_cbcr", "lmcs",
+                  "transform_skip", "alf", "ccalf")
 UNSUPPORTED_TOOLS = ("mrl", "isp", "dep_quant")
 
 
@@ -62,13 +67,13 @@ UNSUPPORTED_TOOLS = ("mrl", "isp", "dep_quant")
 # K7: masked scatter of one step's results into the state planes
 # ---------------------------------------------------------------------------
 
-def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grid=None,
-                           code=None):
+def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids=()):
     """Plain version of K7.  ``planes``: one or two (recon int32, levels
     int16) (F, H, W) plane pairs, written in place over each live CU's
-    (h, w) region from rec/lev (n, B, pad, pad) int32; with ``grid``, the
-    uint8 (F, H_luma/4, W_luma/4) grid takes ``code`` (B,) over the CU's
-    4-sample cells.  Writes outside a plane are dropped."""
+    (h, w) region from rec/lev (n, B, pad, pad) int32; ``grids``: up to two
+    (grid, code) pairs, each uint8 (F, H_luma/4, W_luma/4) grid taking its
+    int32 ``code`` (B,) over the CU's 4-sample cells.  Writes outside a
+    plane or grid are dropped."""
     fi, xs, ys, ws, hs, okv = (rows[:, k] for k in (0, 1, 2, 3, 4, 6))
     ok = okv > 0
     d = torch.arange(pad, device=rows.device, dtype=torch.int32)
@@ -83,16 +88,16 @@ def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grid=None,
     for i, (rp, lp) in enumerate(planes):
         rp.index_put_(idx, rec[i][m])
         lp.index_put_(idx, lev[i][m].to(lp.dtype))
-    if grid is not None:
-        g = torch.arange(pad // 4, device=rows.device, dtype=torch.int32)
-        gr = ys[:, None, None] // 4 + g[None, :, None]
-        gc = xs[:, None, None] // 4 + g[None, None, :]
+    g = torch.arange(pad // 4, device=rows.device, dtype=torch.int32)
+    gr = ys[:, None, None] // 4 + g[None, :, None]
+    gc = xs[:, None, None] // 4 + g[None, None, :]
+    for grid, code in grids:
         gm = ok[:, None, None] & (g[None, :, None] < (hs // 4)[:, None, None]) & \
             (g[None, None, :] < (ws // 4)[:, None, None]) & \
             (gr < grid.shape[1]) & (gc < grid.shape[2])
-        gf, gr, gc, vals = (t.expand_as(gm) for t in
-                            (fi[:, None, None], gr, gc, code[:, None, None]))
-        grid.index_put_((gf[gm].long(), gr[gm].long(), gc[gm].long()),
+        gf, grr, gcc, vals = (t.expand_as(gm) for t in
+                              (fi[:, None, None], gr, gc, code[:, None, None]))
+        grid.index_put_((gf[gm].long(), grr[gm].long(), gcc[gm].long()),
                         vals[gm].to(grid.dtype))
 
 
@@ -100,42 +105,44 @@ def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grid=None,
 def _k7():
     fn = _build.library("wave_scatter").pmp_wave_scatter
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def wave_scatter(rows, pad, scale, planes, rec, lev, grid=None, code=None):
+def wave_scatter(rows, pad, scale, planes, rec, lev, grids=()):
     """K7: see ``wave_scatter_reference``; CPU tensors take it, CUDA
-    tensors launch ``csrc/wave_scatter.cu``."""
+    tensors launch ``csrc/wave_scatter.cu`` (one launch for the planes and
+    both grids)."""
     check_rows(rows)
     if len(planes) not in (1, 2) or rec.shape[0] != len(planes):
         raise ValueError("wave_scatter takes one or two plane pairs")
+    if len(grids) > 2:
+        raise ValueError("wave_scatter takes at most two code grids")
     if rows.device.type == "cpu":
-        return wave_scatter_reference(rows, pad, scale, planes, rec, lev,
-                                      grid, code)
+        return wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids)
     _build.check_cuda("wave_scatter", rows, rec, lev,
-                      *(t for p in planes for t in p), grid, code)
+                      *(t for p in planes for t in p), *(t for g in grids for t in g))
     for rp, lp in planes:
         if rp.dtype != torch.int32 or lp.dtype != torch.int16:
             raise TypeError("wave_scatter writes int32 recon and int16 level planes")
     if rec.dtype != torch.int32 or lev.dtype != torch.int32 or rec.shape[2:] != (pad, pad):
         raise ValueError("rec and lev must be (n, B, pad, pad) int32")
-    if grid is not None and (grid.dtype != torch.uint8 or code.dtype != torch.int32):
-        raise TypeError("wave_scatter takes a uint8 grid and int32 codes")
+    for grid, code in grids:
+        if grid.dtype != torch.uint8 or code.dtype != torch.int32:
+            raise TypeError("wave_scatter takes uint8 grids and int32 codes")
+        if grid.shape != grids[0][0].shape or code.shape != (rows.shape[0],):
+            raise ValueError("the code grids must share one shape, one code per row")
     B = rows.shape[0]
     _, H, W = planes[0][0].shape
+    ptr = lambda t: t.data_ptr() if t is not None else None
     p1 = planes[1] if len(planes) == 2 else (None, None)
+    g = [t for pair in grids for t in pair] + [None] * (4 - 2 * len(grids))
+    GH, GW = grids[0][0].shape[1:] if grids else (0, 0)
     err = _k7()(rows.data_ptr(), B, pad, scale, len(planes), H, W,
                 planes[0][0].data_ptr(), planes[0][1].data_ptr(),
-                p1[0].data_ptr() if p1[0] is not None else None,
-                p1[1].data_ptr() if p1[1] is not None else None,
-                rec.data_ptr(), lev.data_ptr(),
-                grid.data_ptr() if grid is not None else None,
-                code.data_ptr() if grid is not None else None,
-                grid.shape[1] if grid is not None else 0,
-                grid.shape[2] if grid is not None else 0,
-                _build.stream(rows))
+                ptr(p1[0]), ptr(p1[1]), rec.data_ptr(), lev.data_ptr(),
+                *(ptr(t) for t in g), GH, GW, _build.stream(rows))
     _build.count_launch(wave_scatter, err)
 
 
@@ -151,29 +158,37 @@ class _Scan:
     (updated in place), originals, order grids and the coding parameters."""
 
     def __init__(self, state, oy, ou, ov, og4, og4c, qp_y, qp_c, bd, lam,
-                 dw_c, rd_quant):
+                 dw_c, rd_quant, mip=False, sdh=False):
         self.state = state
         self.oy, self.ou, self.ov = oy, ou, ov
         self.og4, self.og4c = og4, og4c
         self.qp_y, self.qp_c, self.bd = qp_y, qp_c, bd
         self.lam, self.dw_c, self.rd_quant = lam, dw_c, rd_quant
+        self.mip, self.sdh = mip, sdh
 
     def step(self, kind, P, row):
         """Wave-segment body for the P-pad tile class (``kind``: "st"
-        single tree — luma RMD + TQ, then chroma DM + TQ of the co-located
-        half-res block; "luma" the dual-tree luma pass; "chroma" the
-        dual-tree chroma pass, its DM mode read from the mode grid at the
-        CU centre, with the chroma tree's own order grid)."""
-        ry, ru, rv, cY, cU, cV, mg = self.state[:7]
+        single tree — luma RMD (+ MIP) + TQ, then chroma DM + TQ of the
+        co-located half-res block; "luma" the dual-tree luma pass;
+        "chroma" the dual-tree chroma pass, its DM mode read from the mode
+        grid at the CU centre, with the chroma tree's own order grid)."""
+        ry, ru, rv, cY, cU, cV, mg, _, pg = self.state[:9]
         bd = self.bd
         if kind != "chroma":
             refs = ref_gather([ry], self.og4, row, P, 1, bd)
             best, pred = intra_rmd(refs, self.oy, mg, row, P, True, bd)
+            grids = [(mg, best)]
+            if self.mip:
+                # a MIP winner shows PLANAR in the mode grid (the
+                # neighbours' MPM and the chroma DM view) and its code in
+                # the MIP grid
+                best, pred, code = mip_select(refs, self.oy, row, pred, best, P, bd)
+                grids = [(mg, best), (pg, code)]
             lev, rec = tq([self.oy], pred, row, P, 1, self.qp_y, bd,
-                          self.rd_quant, self.lam)
-            # the MTS, MIP and LFNST grids keep their zeros: those tools
-            # are off, so every CU's code there is 0
-            wave_scatter(row, P, 1, [(ry, cY)], rec, lev, mg, best)
+                          self.rd_quant, self.lam, sdh=self.sdh)
+            # the MTS and LFNST grids keep their zeros: those tools are
+            # off, so every CU's code there is 0
+            wave_scatter(row, P, 1, [(ry, cY)], rec, lev, grids)
             if kind == "luma":
                 return
         # chroma DM at half resolution, availability from the chroma
@@ -183,7 +198,7 @@ class _Scan:
         refs = ref_gather([ru, rv], self.og4c, row, Pc, 2, bd)
         _, pred = intra_rmd(refs, None, mg, row, Pc, False, bd)
         lev, rec = tq([self.ou, self.ov], pred, row, Pc, 2, self.qp_c, bd,
-                      self.rd_quant, self.lam, self.dw_c)
+                      self.rd_quant, self.lam, self.dw_c, sdh=self.sdh)
         wave_scatter(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev)
 
 
@@ -485,7 +500,8 @@ class WavefrontEncoder(FrameEncoder):
             [z((F, H // 4, W // 4), torch.uint8) for _ in range(5)]
         qp_y, qp_c = self._qps()
         scan = _Scan(state, oy, ou, ov, og4, og4c, qp_y, qp_c, cfg.bit_depth,
-                     float(self.lam), float(self.dw_c), bool(cfg.rd_quant))
+                     float(self.lam), float(self.dw_c), bool(cfg.rd_quant),
+                     mip=bool(cfg.mip), sdh=bool(cfg.sign_hiding))
         self._time("upload", t0)
 
         t0 = time.perf_counter()
@@ -533,6 +549,14 @@ class WavefrontEncoder(FrameEncoder):
 
     # ---- phase C: CABAC replay ------------------------------------------
 
+    @staticmethod
+    def _set_mip_fields(cu, code):
+        """Decode a MIP grid code (0 = angular, else 1 + t*16 + mode)."""
+        if code:
+            cu.mip = True
+            cu.mip_transpose = code - 1 >= 16
+            cu.mip_mode = (code - 1) % 16
+
     def _encode_cu(self, enc, rc, org_y, org_u, org_v, cu: CuInfo):
         x, y, w, h = cu.x, cu.y, cu.w, cu.h
         f = self._cur_frame
@@ -540,6 +564,7 @@ class WavefrontEncoder(FrameEncoder):
         cu.mode = int(mg[f, y // 4, x // 4])
         mts_idx = int(tg[f, y // 4, x // 4])
         lfnst_idx = int(lg[f, y // 4, x // 4])
+        self._set_mip_fields(cu, int(pg[f, y // 4, x // 4]))
         lev_y = cY[f, y:y + h, x:x + w].astype(np.int32)
         cx, cy, cw, chh = x // 2, y // 2, w // 2, h // 2
         lev_u = cU[f, cy:cy + chh, cx:cx + cw].astype(np.int32)
@@ -580,6 +605,7 @@ class WavefrontEncoder(FrameEncoder):
         self.unit_w[r:r + h // 4, c:c + w // 4] = w
         self.unit_h[r:r + h // 4, c:c + w // 4] = h
         self.unit_qt[r:r + h // 4, c:c + w // 4] = cu.qt_depth
+        self.unit_mip[r:r + h // 4, c:c + w // 4] = cu.mip
         self.leaf_l.append((x, y, w, h))
         self.leaf_c.append((cx, cy, cw, chh))
 
@@ -591,6 +617,7 @@ class WavefrontEncoder(FrameEncoder):
         cu.mode = int(mg[f, y // 4, x // 4])
         mts_idx = int(tg[f, y // 4, x // 4])
         lfnst_idx = int(lg[f, y // 4, x // 4])
+        self._set_mip_fields(cu, int(pg[f, y // 4, x // 4]))
         lev_y = cY[f, y:y + h, x:x + w].astype(np.int32)
         cbf_y = bool(lev_y.any())
         self._write_intra_luma_mode(enc, cu)
@@ -612,6 +639,7 @@ class WavefrontEncoder(FrameEncoder):
         self.unit_w[r:r + h // 4, c:c + w // 4] = w
         self.unit_h[r:r + h // 4, c:c + w // 4] = h
         self.unit_qt[r:r + h // 4, c:c + w // 4] = cu.qt_depth
+        self.unit_mip[r:r + h // 4, c:c + w // 4] = cu.mip
         self.leaf_l.append((x, y, w, h))
 
     def _encode_chroma_cu(self, enc, rc, org_u, org_v, cu: CuInfo,

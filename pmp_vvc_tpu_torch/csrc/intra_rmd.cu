@@ -6,8 +6,8 @@
 //
 // One block per (CU, plane). Luma: each of the 35 RMD candidates (planar,
 // DC, the 33 even angulars) is predicted into shared memory and scored by
-// a masked Hadamard SATD against the original, without writing the
-// candidate to device memory; the first minimum wins (strict <, in
+// a masked Hadamard SATD (csrc/satd.cuh) against the original, without
+// writing the candidate to device memory; the first minimum wins (strict <, in
 // candidate order), then clip(m -+ 1, 2, 66) are scored in the order
 // [best, m-1, m+1], and the chosen mode's prediction is written. Chroma:
 // the DM mode is read from the luma mode grid at the CU centre and
@@ -26,6 +26,8 @@
 // far below 2^31.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "satd.cuh"
 
 #define MAXP 64
 #define MAXL (2 * MAXP + 3)
@@ -160,59 +162,6 @@ static __device__ int predict_sample(const Cu& c, const Mode& p, int r, int col)
     return pred;
 }
 
-static __device__ int block_sum(int v, int* red) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    int s = 0;
-    if (threadIdx.x == 0)
-        for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
-    return s;                          // valid in thread 0
-}
-
-// SATD of (org - pred) over the CU: 8x8 Hadamard tiles when min(w, h) >= 8,
-// else 4x4; VTM's DC/4 and rounding. The result is valid in thread 0.
-static __device__ int satd(const Cu& c, const int32_t* org, const int32_t* pred,
-                           int* red) {
-    const int ts = min(c.w, c.h) >= 8 ? 8 : 4;
-    const int nx = c.w / ts, ntiles = (c.h / ts) * nx;
-    int total = 0;
-    for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
-        const int r0 = (t / nx) * ts, c0 = (t % nx) * ts;
-        int d[64];
-        for (int i = 0; i < ts; ++i)
-            for (int j = 0; j < ts; ++j) {
-                const int o = (r0 + i) * c.P + c0 + j;
-                d[i * ts + j] = org[o] - pred[o];
-            }
-        // Walsh-Hadamard (Sylvester order) on rows, then columns
-        for (int i = 0; i < ts; ++i)
-            for (int len = 1; len < ts; len <<= 1)
-                for (int j = 0; j < ts; j += len << 1)
-                    for (int k = j; k < j + len; ++k) {
-                        const int a = d[i * ts + k], b = d[i * ts + k + len];
-                        d[i * ts + k] = a + b;
-                        d[i * ts + k + len] = a - b;
-                    }
-        for (int j = 0; j < ts; ++j)
-            for (int len = 1; len < ts; len <<= 1)
-                for (int i = 0; i < ts; i += len << 1)
-                    for (int k = i; k < i + len; ++k) {
-                        const int a = d[k * ts + j], b = d[(k + len) * ts + j];
-                        d[k * ts + j] = a + b;
-                        d[(k + len) * ts + j] = a - b;
-                    }
-        int s = 0;
-        for (int i = 0; i < ts * ts; ++i) s += abs(d[i]);
-        const int dc = abs(d[0]);
-        const int tv = s - dc + (dc >> 2);
-        total += ts == 8 ? (tv + 2) >> 2 : (tv + 1) >> 1;
-    }
-    return block_sum(total, red);
-}
-
 static __device__ void predict_tile(const Cu& c, const Mode& p, int32_t* out) {
     for (int i = threadIdx.x; i < c.h * c.w; i += blockDim.x) {
         const int r = i / c.w, col = i % c.w;
@@ -276,7 +225,7 @@ __global__ void intra_rmd_kernel(const int32_t* __restrict__ refs,
             __syncthreads();
             predict_tile(c, p, spred);
             __syncthreads();
-            const int cost = satd(c, sorg, spred, red);
+            const int cost = satd(c.w, c.h, P, sorg, spred, red);
             if (threadIdx.x == 0 && cost < best_cost) {
                 best_cost = cost;
                 best = m;
@@ -292,7 +241,7 @@ __global__ void intra_rmd_kernel(const int32_t* __restrict__ refs,
                 __syncthreads();
                 predict_tile(c, p, spred);
                 __syncthreads();
-                const int cost = satd(c, sorg, spred, red);
+                const int cost = satd(c.w, c.h, P, sorg, spred, red);
                 if (threadIdx.x == 0 && cost < best_cost) {
                     best_cost = cost;
                     best = cand[k];

@@ -1,0 +1,65 @@
+// SATD device code shared by K2 (csrc/intra_rmd.cu) and K3 (csrc/mip_rmd.cu),
+// so that the angular and MIP costs round the same way.
+//
+// The port of pmp_vvc_tpu/ops/tq_generic.py:satd_generic (160): 8x8
+// Walsh-Hadamard tiles when min(w, h) >= 8, else 4x4, over the CU's (h, w)
+// region of two P-strided tiles; each tile's sum of |coefficients| with VTM's
+// DC/4 and rounding. All in int32: a 64x64 CU of 10-bit samples stays below
+// 2^23, so the JAX package's float32 sums of the same integers are exact.
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+static __device__ int block_sum(int v, int* red) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    __syncthreads();
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    int s = 0;
+    if (threadIdx.x == 0)
+        for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
+    return s;                          // valid in thread 0
+}
+
+// SATD of (org - pred) over the (h, w) CU; every thread of the block must
+// call it. ``red`` holds blockDim.x / 32 ints of shared memory. The result is
+// valid in thread 0.
+static __device__ int satd(int w, int h, int P, const int32_t* org,
+                           const int32_t* pred, int* red) {
+    const int ts = min(w, h) >= 8 ? 8 : 4;
+    const int nx = w / ts, ntiles = (h / ts) * nx;
+    int total = 0;
+    for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
+        const int r0 = (t / nx) * ts, c0 = (t % nx) * ts;
+        int d[64];
+        for (int i = 0; i < ts; ++i)
+            for (int j = 0; j < ts; ++j) {
+                const int o = (r0 + i) * P + c0 + j;
+                d[i * ts + j] = org[o] - pred[o];
+            }
+        // Walsh-Hadamard (Sylvester order) on rows, then columns
+        for (int i = 0; i < ts; ++i)
+            for (int len = 1; len < ts; len <<= 1)
+                for (int j = 0; j < ts; j += len << 1)
+                    for (int k = j; k < j + len; ++k) {
+                        const int a = d[i * ts + k], b = d[i * ts + k + len];
+                        d[i * ts + k] = a + b;
+                        d[i * ts + k + len] = a - b;
+                    }
+        for (int j = 0; j < ts; ++j)
+            for (int len = 1; len < ts; len <<= 1)
+                for (int i = 0; i < ts; i += len << 1)
+                    for (int k = i; k < i + len; ++k) {
+                        const int a = d[k * ts + j], b = d[(k + len) * ts + j];
+                        d[k * ts + j] = a + b;
+                        d[(k + len) * ts + j] = a - b;
+                    }
+        int s = 0;
+        for (int i = 0; i < ts * ts; ++i) s += abs(d[i]);
+        const int dc = abs(d[0]);
+        const int tv = s - dc + (dc >> 2);
+        total += ts == 8 ? (tv + 2) >> 2 : (tv + 1) >> 1;
+    }
+    return block_sum(total, red);
+}

@@ -3,19 +3,30 @@
 // Replaces pmp_vvc_tpu/ops/tq_generic.py forward_transform_generic (96),
 // inverse_transform_generic (113), quantize_generic (135),
 // dequantize_generic (149) and rd_cleanup_generic (198),
-// codec/wavefront.py:_bits_proxy (68), and the coded-vs-zero TU decision
-// of _tq_luma_mts (201-235, 301-318, DCT-2 only) and _tq_generic (134-179).
+// ops/sdh_generic.py:apply_sdh_generic (66), codec/wavefront.py:_bits_proxy
+// (68), and the coded-vs-zero TU decision of _tq_luma_mts (201-235,
+// 301-318, DCT-2 only) and _tq_generic (134-179).
 //
 // One block per (CU, plane), the P x P tile in shared memory:
 //   resid = org - pred over the CU; DCT-2 in two int32 stages with the
 //   per-CU round shifts (matrices: the 64-point core by stride, zero-out
 //   beyond 32); dead-zone (171) quantisation; RDOQ-lite zeroing of 4x4
-//   coefficient groups (skipped when min(w, h) < 4); dequantisation; the
+//   coefficient groups (skipped when min(w, h) < 4); with sdh, sign-data
+//   hiding on the groups of the grouped diagonal scan; dequantisation; the
 //   inverse with a clip to [COEFF_MIN, COEFF_MAX] after each stage; the
 //   rate proxy 8 + nz + sum(2 * bitlen|l| + 1); then the coded TU against
 //   the zero TU, and rec = clip(pred + rr).
 // Luma (luma_cost = 1): cost = SSE + lam * (bits + 1), zero TU SSE0 + 2 lam.
 // Chroma: cost = dw * SSE + lam * bits, zero TU dw * SSE0 + 2 lam.
+//
+// Sign-data hiding, one thread per coefficient group: the group's 16 scan
+// slots come from a (49, ncg, 16) table of flat tile indices (row lw*7+lh,
+// -1 where absent) that the wrapper builds from the port's grouped scan.
+// Where the first and last nonzero slots are >= 4 apart and the parity of
+// the absolute sum disagrees with the first level's sign, the level move of
+// least added dequantisation error is applied: +1 in magnitude on a nonzero
+// level or -1 on one of magnitude >= 2, in the order up[0..15], down[0..15],
+// first minimum; the error (deq(l') - c)^2 - (deq(l) - c)^2 in float32.
 //
 // Float rounding: SSE is summed exactly in int64 and each group's 16 gains
 // in float64, each rounded once to float32; every other float operation is
@@ -28,6 +39,7 @@
 // (about 4 * w * h * min(w, 32) multiply-adds per CU) come close for the
 // largest CUs. chip_smoke.py computes the bound of each call it times.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #define NT 256
@@ -60,6 +72,39 @@ static __device__ __forceinline__ int dequant(int lvl, int iscale, int rs) {
     return rs > 0 ? (v + (1 << (rs - 1))) >> rs : v * (1 << -rs);
 }
 
+// Sign-data hiding of one coefficient group; ``ix`` its 16 flat indices.
+static __device__ void sdh_group(const int32_t* ix, const int32_t* coef,
+                                 int32_t* lev, int iscale, int rs) {
+    int lv[16], first = -1, last = -1, sum = 0;
+    for (int k = 0; k < 16; ++k) {
+        lv[k] = ix[k] >= 0 ? lev[ix[k]] : 0;
+        if (lv[k]) {
+            if (first < 0) first = k;
+            last = k;
+        }
+        sum += abs(lv[k]);
+    }
+    if (first < 0 || last - first < 4) return;            // SBH_THRESHOLD
+    if ((sum & 1) == (lv[first] < 0 ? 1 : 0)) return;     // parity agrees
+    float best = INFINITY;
+    int bk = 0;
+    for (int k = 0; k < 32; ++k) {
+        const int l = lv[k & 15];
+        if (k < 16 ? l == 0 : abs(l) < 2) continue;
+        const int nl = k < 16 ? l + (l > 0 ? 1 : -1) : l - (l > 0 ? 1 : -1);
+        const float cf = (float)coef[ix[k & 15]];
+        const float d0 = __fsub_rn((float)dequant(l, iscale, rs), cf);
+        const float d1 = __fsub_rn((float)dequant(nl, iscale, rs), cf);
+        const float e = __fsub_rn(__fmul_rn(d1, d1), __fmul_rn(d0, d0));
+        if (e < best) {
+            best = e;
+            bk = k;
+        }
+    }
+    const int l = lv[bk & 15];
+    lev[ix[bk & 15]] = bk < 16 ? l + (l > 0 ? 1 : -1) : l - (l > 0 ? 1 : -1);
+}
+
 template <typename T>
 static __device__ T block_sum(T v, T* red) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -77,9 +122,11 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
                           const int32_t* __restrict__ o1,
                           const int32_t* __restrict__ pred,
                           const int32_t* __restrict__ rows,
-                          const int32_t* __restrict__ d64, int B, int P,
+                          const int32_t* __restrict__ d64,
+                          const int32_t* __restrict__ cgtab, int B, int P,
                           int scale, int qp, int bd, int rd_quant,
-                          int luma_cost, int H, int W, float lam, float lam2,
+                          int luma_cost, int H, int W, int sdh, int ncg,
+                          float lam, float lam2,
                           float lam3, float dw, int32_t* __restrict__ lev_out,
                           int32_t* __restrict__ rec_out) {
     extern __shared__ int32_t smem[];
@@ -172,6 +219,12 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
         }
         __syncthreads();
     }
+    if (sdh) {
+        const int32_t* tab = cgtab + (size_t)(lw * 7 + lh) * ncg * 16;
+        for (int g = threadIdx.x; g < ncg; g += blockDim.x)
+            sdh_group(tab + 16 * g, S2, S3, iscale, rs);
+        __syncthreads();
+    }
     // dequantise (clipped)
     for (int e = threadIdx.x; e < kh * kw; e += blockDim.x) {
         const int o = (e / kw) * P + e % kw;
@@ -232,9 +285,10 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
 }
 
 extern "C" int pmp_tq(const int32_t* o0, const int32_t* o1, const int32_t* pred,
-                      const int32_t* rows, const int32_t* d64, int nplanes,
-                      int B, int P, int scale, int qp, int bd, int rd_quant,
-                      int luma_cost, int H, int W, float lam, float lam2,
+                      const int32_t* rows, const int32_t* d64,
+                      const int32_t* cgtab, int nplanes, int B, int P,
+                      int scale, int qp, int bd, int rd_quant, int luma_cost,
+                      int H, int W, int sdh, int ncg, float lam, float lam2,
                       float lam3, float dw, int32_t* lev, int32_t* rec,
                       cudaStream_t stream) {
     if (B == 0) return 0;
@@ -244,8 +298,9 @@ extern "C" int pmp_tq(const int32_t* o0, const int32_t* o1, const int32_t* pred,
         tq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(B, nplanes);
-    tq_kernel<<<grid, NT, smem, stream>>>(o0, o1, pred, rows, d64, B, P, scale,
-                                          qp, bd, rd_quant, luma_cost, H, W,
-                                          lam, lam2, lam3, dw, lev, rec);
+    tq_kernel<<<grid, NT, smem, stream>>>(o0, o1, pred, rows, d64, cgtab, B, P,
+                                          scale, qp, bd, rd_quant, luma_cost,
+                                          H, W, sdh, ncg, lam, lam2, lam3, dw,
+                                          lev, rec);
     return (int)cudaGetLastError();
 }

@@ -1,1 +1,2 @@
-"""Intra prediction, transform, quantization and distortion for the wave path."""
+"""Intra prediction (angular and MIP), transform, quantization, sign-data
+hiding and distortion for the wave path."""

@@ -18,9 +18,10 @@ every partial sum of these integers exactly (|x| < 2^31), so they give the
 JAX package's int32 results on the CPU and on the card alike.
 
 **K4** ``tq`` (``csrc/tq.cu``) is the fused per-CU round trip of the wave
-step: forward DCT-2, dead-zone quantisation, RDOQ-lite zeroing, dequant,
-inverse, the rate proxy and the coded-vs-zero TU decision
-(``wavefront.py:_tq_luma_mts`` with DCT-2 only, and ``_tq_generic``).
+step: forward DCT-2, dead-zone quantisation, RDOQ-lite zeroing, sign-data
+hiding when asked (``ops/sdh_generic.py``), dequant, inverse, the rate proxy
+and the coded-vs-zero TU decision (``wavefront.py:_tq_luma_mts`` with DCT-2
+only, and ``_tq_generic``).
 Cost sums are exact: SSE in int64 and each coefficient group's 16 gains in
 float64, each rounded once to float32, then the costs in float32 in the
 JAX package's operation order.
@@ -233,7 +234,7 @@ def bits_proxy(lev):
 # K4: fused per-CU transform-quantisation round trip
 # ---------------------------------------------------------------------------
 
-def _tq_one(org, pred, rows, P, scale, qp, bd, rd_quant, lam, dw):
+def _tq_one(org, pred, rows, P, scale, qp, bd, rd_quant, lam, dw, sdh):
     fi, xs, ys, ws, hs, _, ok = unpack_rows(rows, scale)
     d = torch.arange(P, device=rows.device, dtype=torch.int32)
     rr_, cc_ = ys[:, None, None] + d[None, :, None], xs[:, None, None] + d[None, None, :]
@@ -245,6 +246,9 @@ def _tq_one(org, pred, rows, P, scale, qp, bd, rd_quant, lam, dw):
     lev = quantize_generic(coef, ws, hs, qp, bit_depth=bd)
     if rd_quant:
         lev = rd_cleanup_generic(lev, coef, ws, hs, qp, lam, bit_depth=bd)
+    if sdh:
+        from .sdh_generic import apply_sdh_generic
+        lev = apply_sdh_generic(lev, coef, ws, hs, qp, bit_depth=bd)
     deq = dequantize_generic(lev, ws, hs, qp, bit_depth=bd)
     rr = inverse_transform_generic(deq, ws, hs, bit_depth=bd)
     err = ((rr - resid) * inside).long()
@@ -268,7 +272,7 @@ def _tq_one(org, pred, rows, P, scale, qp, bd, rd_quant, lam, dw):
 
 
 def tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam,
-                 dw=None):
+                 dw=None, sdh=False):
     """Plain version of K4.
 
     orgs: one or two (F, H, W) int32 original planes (luma, or U and V);
@@ -276,23 +280,27 @@ def tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam,
     schedule rows (luma units; ``scale`` 2 for chroma). ``qp`` is the
     internal QP, ``lam`` the slice lambda; ``dw`` None selects the luma
     cost ``SSE + lam*(bits + 1)``, else the chroma cost
-    ``dw*SSE + lam*bits``; the zero TU costs ``dw*SSE0 + lam*2``.
+    ``dw*SSE + lam*bits``; the zero TU costs ``dw*SSE0 + lam*2``. With
+    ``sdh``, sign-data hiding (``ops/sdh_generic.py``) adjusts the levels
+    after the RD zeroing and before dequantisation, so the rate proxy, the
+    SSE and the coded-vs-zero decision all see the adjusted levels.
     Returns lev and rec, (n, B, P, P) int32, zero outside each CU."""
     outs = [_tq_one(o, pred[i], rows, pad, scale, qp, bit_depth, rd_quant,
-                    lam, dw) for i, o in enumerate(orgs)]
+                    lam, dw, sdh) for i, o in enumerate(orgs)]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
 @functools.cache
 def _k4():
     fn = _build.library("tq").pmp_tq
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [
         ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
 
 
-def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw=None):
+def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw=None,
+       sdh=False):
     """K4: see ``tq_reference``; CPU tensors take it, CUDA tensors launch
     ``csrc/tq.cu``."""
     check_rows(rows)
@@ -300,7 +308,7 @@ def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw=None):
         raise ValueError("tq takes one or two planes, one prediction each")
     if rows.device.type == "cpu":
         return tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth,
-                            rd_quant, lam, dw)
+                            rd_quant, lam, dw, sdh)
     _build.check_cuda("tq", *orgs, pred, rows)
     if any(t.dtype != torch.int32 for t in (*orgs, pred)):
         raise TypeError("tq takes int32 planes and predictions")
@@ -311,10 +319,12 @@ def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw=None):
     lev = torch.empty_like(pred)
     rec = torch.empty_like(pred)
     o1 = orgs[1].data_ptr() if n == 2 else None
+    from .sdh_generic import cg_tables
+    cgt = cg_tables(pad, rows.device)
     err = _k4()(orgs[0].data_ptr(), o1, pred.data_ptr(), rows.data_ptr(),
-                _dct2_64(rows.device).data_ptr(),
+                _dct2_64(rows.device).data_ptr(), cgt.data_ptr(),
                 n, B, pad, scale, qp, bit_depth, int(rd_quant),
-                int(dw is None), H, W,
+                int(dw is None), H, W, int(sdh), cgt.shape[1],
                 *(float(np.float32(v)) for v in
                   (lam, lam * 2.0, lam * 3.0, 1.0 if dw is None else dw)),
                 lev.data_ptr(), rec.data_ptr(), _build.stream(rows))

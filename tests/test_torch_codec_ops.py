@@ -12,8 +12,13 @@ float32 in an order of its own, and its ``exp2`` divisor is not exactly a
 power of two, so a decision closer than that could round either way.
 
 Also: ``_bits_proxy``, the copied tables, and the C CABAC finalizer against
-the Python ``BinEncoder``. The CUDA kernels themselves run only on the card;
-chip_smoke.py holds them against these plain versions there.
+the Python ``BinEncoder``. ``tq_margin`` and ``mip_margin`` also serve the
+``margins`` fixture of test_torch_wavefront.py: with sign-data hiding, each
+corrected coefficient group's gap between the chosen move and the runner-up
+is a float32 decision too; every MIP decision compares integer SATDs, which
+the JAX package sums in float32 and so compares exactly only below 2^24. The
+CUDA kernels themselves run only on the card; chip_smoke.py holds them
+against these plain versions there.
 """
 import itertools
 import pathlib
@@ -31,6 +36,8 @@ from pmp_vvc_tpu.ops import tq_generic as jtq
 from pmp_vvc_tpu_torch.codec.cabac import ContextStore
 from pmp_vvc_tpu_torch.native import cabac_finalize, python_finalize
 from pmp_vvc_tpu_torch.ops import intra_generic as tig
+from pmp_vvc_tpu_torch.ops import mip_generic as tmip
+from pmp_vvc_tpu_torch.ops import sdh_generic as tsdh
 from pmp_vvc_tpu_torch.ops import tq_generic as ttq
 from pmp_vvc_tpu_torch.ops.quant import INV_QUANT_SCALES, IQUANT_SHIFT
 
@@ -108,7 +115,7 @@ def jax_refs(plane, og, rows, pad, scale):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["transform_cores.npz", "ctx_init.npz",
-                                  "ctx_sets.json"])
+                                  "ctx_sets.json", "mip_matrices.npz"])
 def test_copied_tables_are_byte_equal(name):
     a = (REPO / "pmp_vvc_tpu" / "codec" / "data" / name).read_bytes()
     b = (REPO / "pmp_vvc_tpu_torch" / "codec" / "data" / name).read_bytes()
@@ -264,11 +271,46 @@ def test_chroma_dm_reads_the_mode_grid_at_the_cu_centre():
 # K4: transform-quantisation round trip
 # ---------------------------------------------------------------------------
 
-def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None):
+def sdh_gaps(lev, coef, ws, hs, qp):
+    """Per coefficient group that sign-data hiding corrects, the relative
+    float32 gap between the chosen move's added error and the runner-up's.
+    Where both errors are exact in float32 (equal to the int64 value), any
+    evaluation order gives the same choice, ties included: the gap counts
+    as infinite there."""
+    B, P, _ = lev.shape
+    mismatch, err, tgt, new = tsdh.sdh_moves(lev, coef, ws, hs, qp, bit_depth=BD)
+    old, c = (t.reshape(B, 1, -1).expand(-1, tgt.shape[1], -1).gather(-1, tgt.clamp(min=0))
+              .long() for t in (lev, coef))
+    deq = lambda l: ttq._dequant_unclipped(l, ws, hs, qp, BD)
+    exact = (deq(new.long()) - c) ** 2 - (deq(old) - c) ** 2
+    is_exact = err.double() == exact.double()
+    e, k = err.sort(dim=-1, stable=True)
+    top2_exact = is_exact.gather(-1, k[..., :2]).all(-1)
+    e1, e2 = e[..., 0].double(), e[..., 1].double()
+    gap = (e2 - e1) / torch.maximum(torch.maximum(e1.abs(), e2.abs()), torch.ones_like(e1))
+    gap = torch.where(torch.isinf(e2) | top2_exact, torch.inf, gap)
+    return gap[mismatch].tolist()
+
+
+def mip_margin(refs, org, rows, pred, pad):
+    """(largest SATD, smallest gap) of K3's decisions on these inputs: every
+    candidate's and K2's winner's SATD (float32 sums are exact below 2^24),
+    and over the live CUs the gap |MIP winner - K2 winner|."""
+    _, costs, cost_ang = tmip.mip_costs(refs, org, rows, pred, pad, BD)
+    ok = rows[:, 6] > 0
+    valid = costs < tmip._NO_COST
+    top = max(int(costs[valid].max()), int(cost_ang.max()))
+    gap = (costs.min(1).values - cost_ang).abs()[ok]
+    return top, int(gap.min()) if gap.numel() else None
+
+
+def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None, sdh=False):
     """The smallest relative margin of K4's float decisions on these
     inputs, recomputed with the port's plain pieces: each coefficient
     group's gain sum against lam*(3k+1.5), each remaining +-1 level's gain
-    against 3*lam, and the coded TU's cost against the zero TU's."""
+    against 3*lam, and the coded TU's cost against the zero TU's; with
+    ``sdh``, after sign-data hiding. Returns (margin, ``sdh_gaps`` of the
+    groups that sign-data hiding corrects)."""
     fi, xs, ys, ws, hs, _, ok = (torch.from_numpy(a) for a in _unpack(rows, scale))
     d = torch.arange(pad, dtype=torch.int32)
     orgs = org[fi[:, None, None].long(),
@@ -297,6 +339,10 @@ def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None):
     one = (lev.abs() == 1) & big[:, None, None]
     margins.append(((gain.double() - lam3).abs() / lam3)[one])
     lev2 = ttq.rd_cleanup_generic(lev, coef, ws, hs, qp, lam, bit_depth=BD)
+    gaps = []
+    if sdh:
+        gaps = sdh_gaps(lev2, coef, ws, hs, qp)
+        lev2 = tsdh.apply_sdh_generic(lev2, coef, ws, hs, qp, bit_depth=BD)
     rr = ttq.inverse_transform_generic(
         ttq.dequantize_generic(lev2, ws, hs, qp, bit_depth=BD), ws, hs, bit_depth=BD)
     sse = (((rr - resid) * inside).double() ** 2).sum((-1, -2))
@@ -309,7 +355,7 @@ def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None):
         dw32 = float(np.float32(dw))
         cc, cz = dw32 * sse + lam32 * bits, dw32 * sse0 + 2 * lam32
     margins.append(((cc - cz).abs() / torch.maximum(cc, cz))[ok])
-    return min(float(m.min()) if m.numel() else np.inf for m in margins)
+    return min(float(m.min()) if m.numel() else np.inf for m in margins), gaps
 
 
 def tq_inputs(pad, scale, seed):
@@ -342,7 +388,7 @@ def test_tq_matches_jax(pad, scale, qp):
     qpi = qp + 12 if scale == 1 else \
         int(enc.qp_table[qp + enc.qp_bd_offset]) + enc.qp_bd_offset
     rows, org, pred = tq_inputs(pad, scale, seed=qp + pad + scale)
-    margin = tq_margin(_t(org), _t(pred), rows, pad, scale, qpi, lam, dw)
+    margin, _ = tq_margin(_t(org), _t(pred), rows, pad, scale, qpi, lam, dw)
     assert margin > MARGIN, margin
     fi, xs, ys, ws, hs, _, ok = _unpack(rows, scale)
     d = np.arange(pad)

@@ -7,8 +7,10 @@
 3. The whole scan against ``_batched_pass`` (``_wave_scan``), and the
    port's scan with other batch sizes: the same planes.
 
-Every coded-vs-zero and zeroing decision of the port's K4 calls is first
-held to a relative margin above ``MARGIN`` (see test_torch_codec_ops.py).
+Every coded-vs-zero, zeroing and sign-data-hiding decision of the port's
+K4 calls is first held to a relative margin above ``MARGIN``, and every K3
+decision's SATDs to the range where float32 sums are exact (see
+test_torch_codec_ops.py).
 """
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ from pmp_vvc_tpu.codec import wavefront as jwf
 from pmp_vvc_tpu.codec.headers import VVCConfig as JaxConfig
 from pmp_vvc_tpu_torch.codec import wavefront as twf
 from pmp_vvc_tpu_torch.codec.headers import VVCConfig
-from test_torch_codec_ops import MARGIN, tq_margin
+from test_torch_codec_ops import MARGIN, mip_margin, tq_margin
 from test_wavefront import _mtt_maps, _synth
 
 torch.set_num_threads(2)
@@ -35,19 +37,32 @@ CONFIGS = {"single": dict(MTT, qp=27), "dual": dict(SLICE, qp=22)}
 
 @pytest.fixture
 def margins(monkeypatch):
-    """Wraps the port's K4 on the wave path: every call's float decisions
-    must keep a relative margin above MARGIN."""
-    seen = []
-    real = twf.tq
+    """Wraps the port's K4 and K3 on the wave path. Every K4 call's float
+    decisions must keep a relative margin above MARGIN, and so must each
+    coefficient group that sign-data hiding corrects (``seen["sdh"]`` holds
+    one gap per corrected group); every K3 call's SATDs must stay below
+    2^24, where the JAX package's float32 sums and comparisons are exact
+    (``seen["mip"]``: (largest SATD, smallest MIP-vs-angular gap))."""
+    seen = {"tq": [], "sdh": [], "mip": []}
+    real_tq, real_mip = twf.tq, twf.mip_select
 
-    def guarded(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw=None):
+    def guarded(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw=None, sdh=False):
         for i, org in enumerate(orgs):
-            seen.append(tq_margin(org, pred[i], rows.numpy(), pad, scale, qp, lam, dw))
-        return real(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw)
+            m, gaps = tq_margin(org, pred[i], rows.numpy(), pad, scale, qp, lam, dw, sdh)
+            seen["tq"].append(m)
+            seen["sdh"] += gaps
+        return real_tq(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw, sdh)
+
+    def guarded_mip(refs, org, rows, pred, best, pad, bd):
+        seen["mip"].append(mip_margin(refs, org, rows, pred, pad))
+        return real_mip(refs, org, rows, pred, best, pad, bd)
 
     monkeypatch.setattr(twf, "tq", guarded)
+    monkeypatch.setattr(twf, "mip_select", guarded_mip)
     yield seen
-    assert seen and min(seen) > MARGIN, min(seen)
+    assert seen["tq"] and min(seen["tq"]) > MARGIN, min(seen["tq"])
+    assert not seen["sdh"] or min(seen["sdh"]) > MARGIN, min(seen["sdh"])
+    assert not seen["mip"] or max(top for top, _ in seen["mip"]) < 1 << 24
 
 
 def _encoders(name):
