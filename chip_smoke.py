@@ -18,25 +18,33 @@ Phases, each of which fails the run on error (nothing is caught):
    time by kernel and the device's idle share.
 
 6. The encode kernels K1 (reference gather), K2 (intra RMD / DM), K3 (MIP
-   candidates against K2's winner), K4 (transform-quantisation, with and
-   without sign-data hiding) and K7 (wave-step scatter, with the mode and
-   MIP code grids) against their plain PyTorch versions on the card,
-   exactly, on seeded inputs: every CU size of both tile classes, luma and
-   chroma, all 67 modes on every CU size through the chroma DM predictor,
-   frame edges and partly coded neighbourhoods, QP 0, 22, 37, full-swing
-   residuals; timed at the main path's batch shapes.
+   candidates against K2's winner), K4 (the chroma transform-quantisation,
+   with and without sign-data hiding, with the single-tree LFNST region
+   mask), K5 (the luma candidate transform-quantisation: DCT-2,
+   DST-7/DCT-8, LFNST, transform skip; and with those tools off, the luma
+   TQ of the earlier configurations) and K7 (wave-step scatter, with the mode, MIP, mts_idx
+   and lfnst_idx code grids) against their plain PyTorch versions on the
+   card, exactly, on seeded inputs: every CU size of both tile classes,
+   luma and chroma, all 67 modes on every CU size through the chroma DM
+   predictor, frame edges and partly coded neighbourhoods, QP 0, 22, 37,
+   full-swing residuals, and residuals on which transform skip and LFNST
+   win (every K5 candidate kind wins somewhere); timed at the main path's
+   batch shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
-   with the dual-tree MIP + sign-data hiding + DCT-2 + deblocking + SAO
-   configuration at QP 22 through ``WavefrontEncoder.encode_frames``; the
-   previous slice's configuration (MIP and SDH off) beside it, cold runs
-   then warm runs off, on, on, off; stage times, wave steps, launches of
-   every kernel, the MIP CUs, hash SEI against an MD5 of the returned
+   with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
+   + deblocking + SAO configuration at QP 22 through
+   ``WavefrontEncoder.encode_frames``; the previous slice's configuration
+   (MIP and SDH only) beside it, cold runs then warm runs old, new, new,
+   old; stage times, wave steps, launches of every kernel, the MIP, MTS,
+   LFNST and transform-skip CUs, hash SEI against an MD5 of the returned
    recon, luma PSNR.
 8. The same kernels against their plain versions on the real schedule rows
-   of the main path's first wave steps.
+   of the main path's first 48 wave steps and of its first 16 with chroma
+   rows.
 9. 416x240 x 2 frames encoded with ``device="cpu"`` (plain versions) and on
-   the card, with MIP and SDH off and on: the bitstreams must be
+   the card in three configurations (no tools, at 208x120; MIP and SDH;
+   MIP, SDH, MTS, LFNST and transform skip): the bitstreams must be
    byte-identical.
 10. One warm frame's wave scan under torch.profiler: device time by kernel
     and the device's idle share.
@@ -70,7 +78,9 @@ from pmp_vvc_tpu_torch.ops.intra_generic import (
 from pmp_vvc_tpu_torch.ops.mip_generic import mip_select, mip_select_reference
 from pmp_vvc_tpu_torch.ops.rows import unpack_rows
 from pmp_vvc_tpu_torch.ops.sdh_generic import _cg_tables, sdh_moves
-from pmp_vvc_tpu_torch.ops.tq_generic import tq, tq_reference
+from pmp_vvc_tpu_torch.ops.lfnst_generic import inv_lfnst_generic
+from pmp_vvc_tpu_torch.ops.tq_generic import (
+    tq, tq_mts, tq_mts_candidates, tq_mts_reference, tq_reference)
 from pmp_vvc_tpu_torch.pmp.map2partition import blocks_to_frame_partition
 from pmp_vvc_tpu_torch.pmp.pipeline import predict_sequence
 from pmp_vvc_tpu_torch.pmp.predict import CompPredictor
@@ -348,6 +358,8 @@ ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
                 "pmp_vvc_tpu/ops/mip_generic.py:54"),
     "tq": (tq, "pmp_vvc_tpu_torch/csrc/tq.cu",
            "pmp_vvc_tpu/ops/tq_generic.py:96"),
+    "tq_mts": (tq_mts, "pmp_vvc_tpu_torch/csrc/tq_mts.cu",
+               "pmp_vvc_tpu/codec/wavefront.py:188"),
     "wave_scatter": (wf.wave_scatter, "pmp_vvc_tpu_torch/csrc/wave_scatter.cu",
                      "pmp_vvc_tpu/codec/wavefront.py:655"),
 }
@@ -358,22 +370,36 @@ ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
 # per-sample residual, SSE and rate work; a K3 sample's two upsampling
 # passes, and a K3 reduced sample's 8-term product; K4's sign-data hiding
 # scan per group slot, and per move tried where a group's parity is wrong.
-# Bounded against the float32 rate outside the tensor cores, which the int32
-# rate does not exceed.
+# K5 runs K4's stages once per candidate with the same per-coefficient,
+# per-sample and per-slot counts (transform skip: the quantiser and the
+# sample work only), plus two operations per multiply-add of its transforms
+# and 16 x 48 LFNST products and one per sample of its legality count
+# (``k5_ops``). Bounded against the float32 rate outside the tensor cores,
+# which the int32 rate does not exceed.
 OPS_PRED, OPS_SATD, OPS_QUANT, OPS_SAMPLE = 12, 8, 30, 10
 OPS_UPSAMPLE, OPS_REDUCED, OPS_SDH_SLOT, OPS_SDH_MOVE = 10, 20, 5, 14
 
 
-def enc_cfg(w: int, h: int, tools: bool = True) -> VVCConfig:
-    """The slice's configuration: dual tree, map-driven MTT at L3, the
-    bench's chroma QP table, deblocking and SAO, and with ``tools`` MIP and
-    sign-data hiding; every other tool off. ``tools=False`` is the
-    configuration of the previous slice."""
+# The coding tools of each slice's configuration, oldest first; the last is
+# this slice's, the main path's.
+TOOLS = {
+    "no tools": {},
+    "MIP + SDH": dict(mip=True, sign_hiding=True),
+    "MIP + SDH + MTS + LFNST + TS": dict(mip=True, sign_hiding=True, mts_intra=True,
+                                          lfnst=True, transform_skip=True),
+}
+MAIN, PREVIOUS = list(TOOLS)[-1], list(TOOLS)[-2]
+
+
+def enc_cfg(w: int, h: int, tools: str = MAIN) -> VVCConfig:
+    """The slices' configuration: dual tree, map-driven MTT at L3, the
+    bench's chroma QP table, deblocking and SAO, and the coding tools
+    ``TOOLS[tools]`` (transform skip up to 32x32); every other tool off."""
     return VVCConfig(width=w, height=h, qp=ENC_QP, dual_tree=True, sao=True,
                      deblocking_disabled=False, chroma_qp_start_minus26=-9,
                      chroma_qp_points=((9, 12), (4, 5), (11, 7)),
                      log2_min_cb=2, max_mtt_depth_intra=3, max_bt_intra=32,
-                     max_tt_intra=32, mip=tools, sign_hiding=tools)
+                     max_tt_intra=32, **TOOLS[tools])
 
 
 def kernel_rows(pad: int, scale: int, seed: int, width: int, height: int):
@@ -435,23 +461,25 @@ def scatter_both(rows, pad, scale, planes, rec, lev, grids, errs):
 def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
     """``_Scan.step`` with each kernel held against its plain version on
     the same inputs; the kernels' results carry the state forward."""
-    ry, ru, rv, cY, cU, cV, mg, _, pg = scan.state[:9]
+    ry, ru, rv, cY, cU, cV, mg, tg, pg, _, lg = scan.state
     bd = scan.bd
+    lf = None
     if kind != "chroma":
         refs = ref_gather([ry], scan.og4, row, P, 1, bd)
         _cmp("ref_gather", refs, ref_gather_reference([ry], scan.og4, row, P, 1, bd), errs)
         best, pred = intra_rmd(refs, scan.oy, mg, row, P, True, bd)
         _cmp("intra_rmd", [best, pred],
              list(intra_rmd_reference(refs, scan.oy, mg, row, P, True, bd)), errs)
-        grids = [(mg, best)]
+        code = None
         if scan.mip:
             args = (refs, scan.oy, row, pred, best, P, bd)
             best, pred, code = mip_select(*args)
             _cmp("mip_rmd", [best, pred, code], list(mip_select_reference(*args)), errs)
-            grids.append((pg, code))
-        args = ([scan.oy], pred, row, P, 1, scan.qp_y, bd, scan.rd_quant, scan.lam)
-        lev, rec = tq(*args, sdh=scan.sdh)
-        _cmp("tq", [lev, rec], list(tq_reference(*args, sdh=scan.sdh)), errs)
+        args = ([scan.oy], pred, row, P, scan.qp_y, bd, scan.rd_quant, scan.lam,
+                best, code, *scan.luma_tools(P), scan.sdh)
+        lev, rec, tr, lf = tq_mts(*args)
+        _cmp("tq_mts", [lev, rec, tr, lf], list(tq_mts_reference(*args)), errs)
+        grids = [(mg, best)] + ([(pg, code)] if scan.mip else []) + [(tg, tr), (lg, lf)]
         scatter_both(row, P, 1, [(ry, cY)], rec, lev, grids, errs)
         if kind == "luma":
             return
@@ -462,9 +490,9 @@ def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
     _cmp("intra_rmd", [modes, pred],
          list(intra_rmd_reference(refs, None, mg, row, Pc, False, bd)), errs)
     args = ([scan.ou, scan.ov], pred, row, Pc, 2, scan.qp_c, bd, scan.rd_quant,
-            scan.lam, scan.dw_c)
-    lev, rec = tq(*args, sdh=scan.sdh)
-    _cmp("tq", [lev, rec], list(tq_reference(*args, sdh=scan.sdh)), errs)
+            scan.lam, scan.dw_c, scan.sdh, lf)
+    lev, rec = tq(*args)
+    _cmp("tq", [lev, rec], list(tq_reference(*args)), errs)
     scatter_both(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev, [], errs)
 
 
@@ -487,11 +515,51 @@ def sdh_groups(orgs, pred, rows, P: int, scale: int, qp: int, lam: float) -> tup
     return len(orgs) * int(per_tb[(lw * 7 + lh).long()][ok].sum()), fixed
 
 
+def k5_ops(rows: np.ndarray, P: int, k5) -> tuple[int, int]:
+    """(integer operations, coefficient groups that sign-data hiding scans)
+    of one K5 call, from ``k5`` = (mts, lfnst, ts_max, sdh, legal): each
+    candidate a CU runs (DCT-2 always; MTS where w, h <= 32; LFNST where the
+    MIP gate allows; transform skip where w, h <= ts_max) costs its forward
+    transform and quantisation, and a legal one (``legal``: (B, candidates)
+    from ``tq_mts_candidates``, in its order) also its inverse and sums. A
+    multiply-add counts two operations."""
+    mts, lfnst, ts_max, sdh, legal, gate = k5
+    per_tb = (_cg_tables(P) >= 0).any(-1).sum(-1)
+    ops = groups = 0
+    for b, (w, h) in enumerate(rows[:, 3:5]):
+        if rows[b, 6] <= 0:
+            continue
+        n16 = 8 if (w, h) in ((4, 4), (8, 8)) else 16
+        cands = [(min(w, 32), min(h, 32), "tr")]
+        cands += [(min(w, 16), min(h, 16), "tr")] * 4 if mts else []
+        cands += [(min(w, 32), min(h, 32), "lfnst")] * 2 if lfnst else []
+        cands += [(w, h, "ts")] if ts_max else []
+        for c, (kw, kh, kind) in enumerate(cands):
+            if (kind == "tr" and 1 <= c <= 4 and max(w, h) > 32) or \
+                    (kind == "lfnst" and not gate[b]) or (kind == "ts" and max(w, h) > ts_max):
+                continue
+            if kind == "ts":
+                ops += OPS_QUANT * w * h + (OPS_SAMPLE * w * h if legal[b, c] else 0)
+                continue
+            fwd = h * kw * w + kh * kw * h if kind == "tr" else n16 * 48
+            inv = h * kw * kh + h * w * kw + (48 * n16 if kind == "lfnst" else 0)
+            ops += 2 * fwd + OPS_QUANT * kw * kh + w * h
+            if sdh:
+                g = int(per_tb[int(np.log2(w)) * 7 + int(np.log2(h))])
+                ops += g * 16 * OPS_SDH_SLOT
+                groups += g
+            if legal[b, c]:
+                ops += 2 * inv + OPS_SAMPLE * w * h
+    return ops, groups
+
+
 def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
-                  modes=None, codes=None, sdh=None) -> tuple[float, str, int, int]:
+                  modes=None, codes=None, sdh=None, k5=None,
+                  ngrids: int = 0) -> tuple[float, str, int, int]:
     """(bound ms, bound_by, bytes, ops) of one call on these rows. ``modes``:
     K2's luma modes; ``codes``: K3's MIP codes; ``sdh``: (groups scanned,
-    groups corrected) of a K4 call with sign-data hiding."""
+    groups corrected) of a K4 call with sign-data hiding; ``k5``: what
+    ``k5_ops`` reads of a K5 call; ``ngrids``: K7's code grids."""
     live = rows[rows[:, 6] > 0]
     w, h = live[:, 3] // scale, live[:, 4] // scale
     B, pad_rows = len(rows), len(rows) - len(live)
@@ -530,9 +598,12 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
         if sdh is not None:             # the groups' slot tables and moves
             ops += sdh[0] * 16 * OPS_SDH_SLOT + sdh[1] * 32 * OPS_SDH_MOVE
             nbytes += sdh[0] // n * 16 * 4
-    else:                               # wave_scatter, one or two grids
+    elif name == "tq_mts":
+        ops, groups = k5_ops(rows, P, k5)
+        nbytes = int((w * h).sum()) * 4 + B * P * P * 4 * 3 + B * (32 + 4 * 4) + \
+            groups * 16 * 4
+    else:                               # wave_scatter, up to four grids
         ops = 0
-        ngrids = 0 if scale == 2 else 1 if codes is None else 2
         nbytes = n * int((w * h).sum()) * (8 + 6) + B * 32 + \
             ngrids * (int((w // 4 * h // 4).sum()) + len(live) * 4)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -540,11 +611,58 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
             nbytes, ops)
 
 
+K5_KINDS = ("DCT-2", "DST-7/DCT-8", "LFNST", "transform skip", "zero TU")
+
+
+def k5_kinds(lev, tr, lf, rows) -> np.ndarray:
+    """(5,) counts of the live CUs by the K5 candidate kind that won."""
+    ok = (rows[:, 6] > 0).cpu().numpy()
+    coded = (lev[0] != 0).flatten(1).any(1).cpu().numpy()
+    tr, lf = tr.cpu().numpy(), lf.cpu().numpy()
+    kind = np.where(~coded, 4, np.where(lf > 0, 2, np.where(tr == 1, 3,
+                                                            np.where(tr >= 2, 1, 0))))
+    return np.bincount(kind[ok], minlength=5)
+
+
+def k5_inputs(orgs, rows, P: int, pred, noisy, best, codes, seed: int):
+    """(name, originals, prediction, modes, MIP codes) sets for K5 beyond
+    the K4 ones: residuals of sparse +-300 impulses (transform skip wins),
+    and residuals that are one LFNST basis function each (the inverse DCT-2
+    of the inverse LFNST of two secondary coefficients, for the CU's mode,
+    idx 1 or 2; LFNST wins), with random modes and MIP codes."""
+    rng = np.random.RandomState(seed)
+    B = rows.shape[0]
+    fi, xs, ys, ws, hs, _, _ = unpack_rows(rows, 1)
+    d = torch.arange(P, device=rows.device, dtype=torch.int32)
+    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
+    tile = gather_plane(orgs[0], fi[:, None, None], ys[:, None, None] + d[None, :, None],
+                        xs[:, None, None] + d[None, None, :])
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(rows.device)
+    impulses = dev((rng.rand(B, P, P) < 0.03) * rng.choice([-300, 300], (B, P, P)))
+    modes = dev(rng.randint(0, 67, B))
+    mip = dev((rng.rand(B) < 0.3) * rng.randint(1, 33, B))
+    sec = np.zeros((B, P, P), np.int32)
+    sec[:, 0, 0] = rng.choice([-1, 1], B) * rng.randint(2000, 8000, B)
+    sec[:, 1, 0] = rng.randint(-3000, 3000, B)
+    sec = dev(sec)
+    basis = torch.cat([inv_lfnst_generic(sec[b:b + 1], modes[b:b + 1], ws[b:b + 1],
+                                         hs[b:b + 1], 1 + b % 2) for b in range(B)])
+    basis = ttq.inverse_transform_generic(basis, ws, hs, bit_depth=BD) * inside
+    return [("prediction", orgs, pred, best, codes),
+            ("noisy", orgs, noisy, best, codes),
+            ("full swing", [torch.full_like(orgs[0], 1023)], torch.zeros_like(pred), best,
+             codes),
+            ("impulses", orgs, (tile + impulses).clamp(0, 1023)[None].contiguous(), modes, mip),
+            ("LFNST basis", orgs, (tile - basis).clamp(0, 1023)[None].int().contiguous(),
+             modes, mip)]
+
+
 def phase_encode_kernels() -> tuple[dict, dict]:
-    """K1/K2/K3/K4/K7 against their plain versions on seeded inputs, then
+    """K1/K2/K3/K4/K5/K7 against their plain versions on seeded inputs, then
     their times at the main path's batch shapes."""
     errs: dict = {}
-    max_level = sdh_changed = mip_wins = mip_rows = 0
+    max_level = sdh_changed = mip_wins = mip_rows = region_cut = 0
+    k5_won = np.zeros(5, np.int64)
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
         rows_np = kernel_rows(P, scale, seed=P + qp, width=width, height=height)
@@ -559,17 +677,39 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         refs = ref_gather(recs, og_t, rows, P, scale, BD)
         _cmp("ref_gather", refs, ref_gather_reference(recs, og_t, rows, P, scale, BD), errs)
         luma = scale == 1
+        lam = 0.57 * 2 ** ((qp - 12) / 3)
         modes, pred = intra_rmd(refs, orgs[0] if luma else None, mg, rows, P, luma, BD)
         _cmp("intra_rmd", [modes, pred], list(intra_rmd_reference(
             refs, orgs[0] if luma else None, mg, rows, P, luma, BD)), errs)
+        noise = np.random.RandomState(qp).randint(-300, 301, tuple(pred.shape))
+        noisy = (pred + torch.from_numpy(noise.astype(np.int32)).to(DEVICE)).clamp(0, 1023)
         grids = []
         if luma:
             args = (refs, orgs[0], rows, pred, modes, P, BD)
-            got = mip_select(*args)
-            _cmp("mip_rmd", list(got), list(mip_select_reference(*args)), errs)
-            mip_wins += int((got[2] > 0).sum())
+            best, pred3, codes = mip_select(*args)
+            _cmp("mip_rmd", [best, pred3, codes], list(mip_select_reference(*args)), errs)
+            mip_wins += int((codes > 0).sum())
             mip_rows += int((rows[:, 6] > 0).sum())
-            grids = [(torch.zeros_like(mg), modes), (torch.zeros_like(mg), got[2])]
+            # K5 with this slice's tools (MTS and transform skip in the
+            # 32-pad class only) and sign-data hiding; on the noisy set also
+            # MTS alone, LFNST alone without SDH and without the MIP gate,
+            # and transform skip alone
+            small = P <= 32
+            main = (small, True, 32 if small else 0, True, True)
+            alone = [(small, False, 0, True, True), (False, True, 0, False, False),
+                     (False, False, 32 if small else 0, False, True)]
+            for name, o, p, m, c in k5_inputs(orgs, rows, P, pred3, noisy.contiguous(),
+                                               best, codes, seed=P + qp):
+                for mts, lfnst, ts_max, sdh, gate in [main] + (alone if name == "noisy" else []):
+                    args = (o, p, rows, P, qp + 12, BD, True, lam, m, c if gate else None,
+                            mts, lfnst, ts_max, sdh)
+                    got = tq_mts(*args)
+                    _cmp("tq_mts", list(got), list(tq_mts_reference(*args)), errs)
+                    if (mts, lfnst, ts_max, sdh, gate) == main:
+                        k5_won += k5_kinds(got[0], got[2], got[3], rows)
+                        tr, lf = got[2], got[3]
+            grids = [(torch.zeros_like(mg), best), (torch.zeros_like(mg), codes),
+                     (torch.zeros_like(mg), tr), (torch.zeros_like(mg), lf)]
         else:
             # every mode through the DM predictor on every CU size: the rows
             # repeated once per mode, row copy m reading mode grid frame m
@@ -584,35 +724,57 @@ def phase_encode_kernels() -> tuple[dict, dict]:
                 refs67, None, mg67, rows67, P, False, BD)), errs)
             check(set(got[0][rows67[:, 6] > 0].tolist()) == set(range(67)),
                   "the DM sweep did not reach every mode")
-        noise = np.random.RandomState(qp).randint(-300, 301, tuple(pred.shape))
-        noisy = (pred + torch.from_numpy(noise.astype(np.int32)).to(DEVICE)).clamp(0, 1023)
         # the predictions, noisy ones, and full-swing residuals (original
-        # 1023 against a zero prediction) for the largest levels; K4 with
-        # sign-data hiding off and on
+        # 1023 against a zero prediction) for the largest levels; the DCT-2
+        # TQ (luma: K5 with its tools off; chroma: K4) with sign-data hiding
+        # off and on, and for chroma with the single-tree LFNST region on a
+        # random third of the CUs
         flat = [torch.full_like(o, 1023) for o in orgs]
+        active = dev(np.random.RandomState(qp).randint(0, 3, len(rows_np)).astype(np.int32)
+                     * (np.arange(len(rows_np)) % 3 == 0))
         for o, p in ((orgs, pred), (orgs, noisy.contiguous()), (flat, torch.zeros_like(pred))):
-            args = (o, p, rows, P, scale, qp + 12, BD, True, 0.57 * 2 ** ((qp - 12) / 3),
-                    None if luma else 1.2599)
-            lev0, rc0 = tq(*args)
-            _cmp("tq", [lev0, rc0], list(tq_reference(*args)), errs)
-            lev, rc = tq(*args, sdh=True)
-            _cmp("tq", [lev, rc], list(tq_reference(*args, sdh=True)), errs)
+            if luma:
+                args = (o, p, rows, P, qp + 12, BD, True, lam, modes)
+                kernel, plain, name = (lambda *a, sdh=False: tq_mts(*a, sdh=sdh)[:2],
+                                       lambda *a, sdh=False: tq_mts_reference(*a, sdh=sdh)[:2],
+                                       "tq_mts")
+            else:
+                args = (o, p, rows, P, scale, qp + 12, BD, True, lam, 1.2599)
+                kernel, plain, name = tq, tq_reference, "tq"
+            lev0, rc0 = kernel(*args)
+            _cmp(name, [lev0, rc0], list(plain(*args)), errs)
+            lev, rc = kernel(*args, sdh=True)
+            _cmp(name, [lev, rc], list(plain(*args, sdh=True)), errs)
             max_level = max(max_level, int(lev.abs().max()))
             sdh_changed += int((lev != lev0).sum())
+            if not luma:
+                levr, rcr = tq(*args, True, active)
+                _cmp("tq", [levr, rcr], list(tq_reference(*args, True, active)), errs)
+                region_cut += int(((levr == 0) & (lev != 0)).sum())
         state = [(torch.zeros_like(r), torch.zeros(r.shape, dtype=torch.int16, device=DEVICE))
                  for r in recs]
         scatter_both(rows, P, scale, state, rc, lev, grids, errs)
     check(sdh_changed > 0, "sign-data hiding changed no level of the seeded inputs")
     check(0 < mip_wins < mip_rows, f"MIP won {mip_wins} of {mip_rows} CUs")
-    log(f"[encode-kernels] K1/K2/K3/K4/K7 equal to their plain versions on every CU "
+    check(region_cut > 0, "the LFNST region removed no chroma level")
+    check((k5_won > 0).all(), f"some K5 candidate kind never won: {k5_won}")
+    log(f"[encode-kernels] K1/K2/K3/K4/K5/K7 equal to their plain versions on every CU "
         f"size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
         f"largest |level| {max_level}; K3 chose MIP for {mip_wins} of {mip_rows} CUs; "
-        f"sign-data hiding changed {sdh_changed} levels")
+        f"sign-data hiding changed {sdh_changed} levels; the LFNST region removed "
+        f"{region_cut} chroma levels; K5 winners with all tools: "
+        + ", ".join(f"{k} {int(c)}" for k, c in zip(K5_KINDS, k5_won)))
+    return errs, phase_encode_kernel_times(width, height)
 
-    # timing at the main path's batch shapes: each tile class at its batch
-    # (DEFAULT_BATCH); the JSON line carries the 32-pad luma class, whose
-    # steps are the most numerous. K4 is timed with sign-data hiding on (the
-    # main path) and off (the previous slice's path) in turns.
+
+def phase_encode_kernel_times(width: int, height: int) -> dict:
+    """Each kernel's device time, plain time and bound at the main path's
+    batch shapes: each tile class at its batch (DEFAULT_BATCH), the main
+    path's tools. The JSON line carries each kernel at the class of the main
+    path's most numerous steps that run it: the 32-pad luma class, and for
+    K4 the 16-pad chroma class. K4 is also timed without sign-data hiding,
+    and K5 with its tools off (the luma TQ of the configurations without
+    them), with and without sign-data hiding."""
     times = {}
     for P, scale, B in ((32, 1, 16), (64, 1, 8), (16, 2, 16), (32, 2, 8)):
         luma = scale == 1
@@ -625,54 +787,68 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         levs = [torch.zeros(r.shape, dtype=torch.int16, device=DEVICE) for r in recs]
         mg = torch.from_numpy(np.random.RandomState(2).randint(
             0, 67, (2, height // 4, width // 4)).astype(np.uint8)).to(DEVICE)
-        pg = torch.zeros_like(mg)
+        pg, tg, lg = (torch.zeros_like(mg) for _ in range(3))
         org0 = orgs[0] if luma else None
         refs = ref_gather(recs, og_t, rows, P, scale, BD)
         modes, pred = intra_rmd(refs, org0, mg, rows, P, luma, BD)
-        codes = None
-        if luma:
-            k3_args = (refs, org0, rows, pred, modes, P, BD)
-            modes3, pred, codes = mip_select(*k3_args)
         lam = 0.57 * 2 ** ((ENC_QP - 12) / 3)
-        tq_args = (orgs, pred, rows, P, scale, ENC_QP + 12, BD, True, lam,
-                   None if luma else 1.2599)
-        lev, rc = tq(*tq_args, sdh=True)
-        grids = [(mg, modes3), (pg, codes)] if luma else []
-        planes = list(zip(recs, levs))
         calls = {
             "ref_gather": (lambda: ref_gather(recs, og_t, rows, P, scale, BD),
                            lambda: ref_gather_reference(recs, og_t, rows, P, scale, BD)),
             "intra_rmd": (lambda: intra_rmd(refs, org0, mg, rows, P, luma, BD),
                           lambda: intra_rmd_reference(refs, org0, mg, rows, P, luma, BD)),
-            "tq": (lambda: tq(*tq_args, sdh=True), lambda: tq_reference(*tq_args, sdh=True)),
-            "tq_no_sdh": (lambda: tq(*tq_args), lambda: tq_reference(*tq_args)),
-            "wave_scatter": (
-                lambda: wf.wave_scatter(rows, P, scale, planes, rc, lev, grids),
-                lambda: wf.wave_scatter_reference(rows, P, scale, planes, rc, lev, grids)),
         }
+        extra = {"intra_rmd": dict(modes=modes.cpu().numpy() if luma else None)}
+        k5_out = {}
         if luma:
+            k3_args = (refs, org0, rows, pred, modes, P, BD)
+            best, pred, codes = mip_select(*k3_args)
+            small = P <= 32
+            gate = ttq.lfnst_gate(codes, rows[:, 3], rows[:, 4]).cpu().numpy()
             calls["mip_rmd"] = (lambda: mip_select(*k3_args),
                                 lambda: mip_select_reference(*k3_args))
-        extra = {
-            "intra_rmd": dict(modes=modes.cpu().numpy() if luma else None),
-            "mip_rmd": dict(codes=codes.cpu().numpy() if luma else None),
-            "tq": dict(sdh=sdh_groups(orgs, pred, rows, P, scale, ENC_QP + 12, lam)),
-            "wave_scatter": dict(codes=codes),
-        }
+            extra["mip_rmd"] = dict(codes=codes.cpu().numpy())
+            # this slice's tools, then none (with and without sign-data hiding)
+            for name, tools in (("tq_mts", (small, True, 32 if small else 0, True)),
+                                ("tq_mts_no_tools", (False, False, 0, True)),
+                                ("tq_mts_no_tools_no_sdh", (False, False, 0, False))):
+                args = (orgs, pred, rows, P, ENC_QP + 12, BD, True, lam, best, codes, *tools)
+                k5_out[name] = tq_mts(*args)
+                legal = torch.stack([torch.isfinite(c[2]) for c in
+                                     tq_mts_candidates(*args)[0]], 1).cpu().numpy()
+                calls[name] = (lambda a=args: tq_mts(*a), lambda a=args: tq_mts_reference(*a))
+                extra[name] = dict(k5=(*tools, legal, gate))
+            lev, rc, tr, lf = k5_out["tq_mts"]
+            grids = [(mg, best), (pg, codes), (tg, tr), (lg, lf)]
+        else:
+            tq_args = (orgs, pred, rows, P, scale, ENC_QP + 12, BD, True, lam, 1.2599)
+            lev, rc = tq(*tq_args, sdh=True)
+            calls["tq"] = (lambda: tq(*tq_args, sdh=True),
+                           lambda: tq_reference(*tq_args, sdh=True))
+            calls["tq_no_sdh"] = (lambda: tq(*tq_args), lambda: tq_reference(*tq_args))
+            extra["tq"] = dict(sdh=sdh_groups(orgs, pred, rows, P, scale, ENC_QP + 12, lam))
+            grids = []
+        planes = list(zip(recs, levs))
+        calls["wave_scatter"] = (
+            lambda: wf.wave_scatter(rows, P, scale, planes, rc, lev, grids),
+            lambda: wf.wave_scatter_reference(rows, P, scale, planes, rc, lev, grids))
+        extra["wave_scatter"] = dict(ngrids=len(grids))
         for name, (kernel, plain) in calls.items():
-            bound, by, nbytes, ops = kernel_bounds(name.removesuffix("_no_sdh"), rows_np,
+            bound, by, nbytes, ops = kernel_bounds(name.split("_no_")[0], rows_np,
                                                    P, scale, n, **extra.get(name, {}))
             ms, call = graph_ms(kernel), call_ms(kernel, 500)
             plain_ms = call_ms(plain, 20)
-            if (P, scale) == (32, 1):
+            if (P, scale) == ((16, 2) if name == "tq" else (32, 1)):
                 times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             log(f"[encode-kernels] {name}: {B} CUs, {P}-pad {'luma' if luma else 'chroma'}: "
                 f"device time per call (CUDA graph) {ms:.6f} ms; called from Python "
                 f"{call:.6f} ms; plain version from Python {plain_ms:.6f} ms; bound "
                 f"{bound:.6f} ms by {by} ({nbytes} B, {ops} ops)"
                 + (f"; sign-data hiding corrects {extra['tq']['sdh'][1]} of "
-                   f"{extra['tq']['sdh'][0]} groups" if name == "tq" else ""))
-    return errs, times
+                   f"{extra['tq']['sdh'][0]} groups" if name == "tq" else "")
+                + (f"; winners {k5_kinds(*k5_out[name][::2], k5_out[name][3], rows).tolist()}"
+                   if name in k5_out else ""))
+    return times
 
 
 def frame_maps(preds: dict, frames, w: int, h: int):
@@ -720,40 +896,54 @@ def timed_encode(enc, frames, maps_l, maps_c, label: str):
     return outs
 
 
+def luma_codes(enc, maps_l, maps_c, frames: int) -> dict:
+    """Counts over the luma leaves of the last encode: all, MIP, MTS
+    (mts_idx 2..5), LFNST, transform skip, from the returned code grids."""
+    tg, pg, lg = (enc._dev_result[k] for k in (7, 8, 10))
+    out = dict(cus=0, mip=0, mts=0, lfnst=0, ts=0)
+    for f in range(frames):
+        for x, y, *_ in enc._collect_all(None, maps_l[f], maps_c[f])[0]:
+            r, c = y // 4, x // 4
+            out["cus"] += 1
+            out["mip"] += int(pg[f, r, c] > 0)
+            out["mts"] += int(tg[f, r, c] >= 2)
+            out["lfnst"] += int(lg[f, r, c] > 0)
+            out["ts"] += int(tg[f, r, c] == 1)
+    return out
+
+
 def phase_encode(preds: dict):
-    """The map-driven encode at 1920x1080: this slice's configuration (MIP +
-    SDH) and the previous slice's (both off), a cold run of each, then warm
-    runs in the order off, on, on, off; the first warm run with the tools on
-    is the main path's, with every kernel's launches counted."""
+    """The map-driven encode at 1920x1080: this slice's configuration (MIP,
+    SDH, MTS, LFNST, TS) and the previous slice's (MIP and SDH), a cold run
+    of one frame each, then warm runs of both frames in the order old, new,
+    new, old; the first warm run of this slice's is the main path's, with
+    every kernel's launches counted."""
     frames = natural_sequence(ENC_W, ENC_H, ENC_FRAMES, seed0=7, bit_depth=BD)
     t0 = time.perf_counter()
     maps_l, maps_c = frame_maps(preds, frames, ENC_W, ENC_H)
     log(f"[encode] maps for {ENC_FRAMES} frames in {time.perf_counter() - t0:.3f} s")
     encs = {tools: wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H, tools), accel_level=3,
-                                       device=DEVICE) for tools in (False, True)}
-    for tools, enc in encs.items():
+                                       device=DEVICE) for tools in (PREVIOUS, MAIN)}
+    for tools, enc in encs.items():           # one frame loads every kernel
         t0 = time.perf_counter()
-        enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
-        log(f"[encode] MIP + SDH {tools}: cold run {time.perf_counter() - t0:.3f} s")
-    enc = encs[True]
-    timed_encode(encs[False], frames, maps_l, maps_c, "MIP + SDH off (1)")
+        enc.encode_frames(frames[:1], maps=maps_l[:1], chroma_maps=maps_c[:1])
+        log(f"[encode] {tools}: cold run (1 frame) {time.perf_counter() - t0:.3f} s")
+    enc = encs[MAIN]
+    timed_encode(encs[PREVIOUS], frames, maps_l, maps_c, f"{PREVIOUS} (1)")
     reset_counts()
-    outs = timed_encode(enc, frames, maps_l, maps_c, "MIP + SDH on (1), the main path")
+    outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} (1), the main path")
     launches = {name: fn.launches for name, (fn, _, _) in ENC_KERNELS.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the encode path")
-    pg = enc._dev_result[8]              # the MIP code grid of the frames
-    mip_cus = cus = 0
-    for f in range(ENC_FRAMES):
-        leaves = enc._collect_all(None, maps_l[f], maps_c[f])[0]
-        cus += len(leaves)
-        mip_cus += sum(int(pg[f, y // 4, x // 4] > 0) for x, y, *_ in leaves)
-    check(mip_cus > 0, "no CU of the encode was coded with MIP")
+    codes = luma_codes(enc, maps_l, maps_c, ENC_FRAMES)
+    for tool in ("mip", "mts", "lfnst"):
+        check(codes[tool] > 0, f"no CU of the encode was coded with {tool}")
     log(f"[encode] {ENC_W}x{ENC_H} x {ENC_FRAMES} frames, QP {ENC_QP}, dual tree, "
-        f"MIP + SDH: {enc.steps} wave steps; launches {launches}; {mip_cus} of {cus} "
-        f"luma CUs coded with MIP")
-    timed_encode(enc, frames, maps_l, maps_c, "MIP + SDH on (2)")
-    timed_encode(encs[False], frames, maps_l, maps_c, "MIP + SDH off (2)")
+        f"{MAIN}: {enc.steps} wave steps; launches {launches}; of {codes['cus']} luma "
+        f"CUs, {codes['mip']} coded with MIP, {codes['mts']} with DST-7/DCT-8, "
+        f"{codes['lfnst']} with LFNST, {codes['ts']} with transform skip")
+    timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} (2)")
+    timed_encode(encs[PREVIOUS], frames, maps_l, maps_c, f"{PREVIOUS} (2)")
     nbytes = 0
     for f, (bs, recon) in enumerate(outs):
         nbytes += len(bs)
@@ -768,10 +958,13 @@ def phase_encode(preds: dict):
     return enc, frames, maps_l, maps_c, launches
 
 
-def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48) -> dict:
+def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48,
+                             n_chroma: int = 16) -> dict:
     """Every kernel against its plain version on the real schedule rows of
-    the main path's first wave steps, the kernels' results carrying the
-    state from step to step."""
+    the main path's first ``n_steps`` wave steps, and of its first
+    ``n_chroma`` steps with chroma rows (the dual tree's chroma levels follow
+    a frame's luma levels, so the steps between run the kernels unchecked),
+    the kernels' results carrying the state from step to step."""
     enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=3, device=DEVICE)
     leaves = [enc._collect_all(None, maps_l[f], maps_c[f]) for f in range(len(frames))]
     active, step_arr, ogs, ogcs = wf._pack_schedule(leaves, ENC_W, ENC_H, enc.batch)
@@ -783,41 +976,55 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48) -> dict:
              z((F, H // 2, W // 2), torch.int16), z((F, H // 2, W // 2), torch.int16)] + \
         [z((F, H // 4, W // 4), torch.uint8) for _ in range(5)]
     qp_y, qp_c = enc._qps()
+    cfg = enc.cfg
     scan = wf._Scan(state, *(up(np.stack([fr[i] for fr in frames])) for i in range(3)),
                     up(ogs), up(ogcs), qp_y, qp_c, BD, float(enc.lam), float(enc.dw_c), True,
-                    mip=True, sdh=True)
+                    mip=cfg.mip, sdh=cfg.sign_hiding, mts=cfg.mts_intra, lfnst=cfg.lfnst,
+                    ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0)
     errs: dict = {}
-    rows = 0
-    for t in range(min(n_steps, next(iter(step_arr.values())).shape[0])):
-        for kind, P in active:
+    rows = checked = chroma_checked = 0
+    for t in range(next(iter(step_arr.values())).shape[0]):
+        live = [(kind, P) for kind, P in active if step_arr[(kind, P)][t][:, 6].any()]
+        chroma = any(kind == "chroma" for kind, _ in live)
+        check_t = t < n_steps or (chroma and chroma_checked < n_chroma)
+        for kind, P in live:
             arr = step_arr[(kind, P)][t]
-            if arr[:, 6].any():
+            if check_t:
                 checked_step(scan, kind, P, up(arr), errs)
                 rows += int(arr[:, 6].sum())
-    log(f"[first-steps] {n_steps} wave steps of the main path ({rows} CU rows): every "
-        f"kernel equal to its plain version (max_abs_err {errs})")
+            else:
+                scan.step(kind, P, up(arr))
+        checked += check_t
+        chroma_checked += check_t and chroma
+        if t >= n_steps and chroma_checked >= n_chroma:
+            break
+    log(f"[first-steps] the main path's first {n_steps} wave steps and first {n_chroma} "
+        f"with chroma rows ({checked} steps, {rows} CU rows): every kernel equal to its "
+        f"plain version (max_abs_err {errs})")
     return errs
 
 
 def phase_encode_cpu_vs_card(preds: dict) -> None:
-    """416x240 x 2 on the CPU and on the card, in the previous slice's
-    configuration and in this one (MIP and SDH on)."""
-    frames = natural_sequence(SMALL_W, SMALL_H, 2, seed0=7, bit_depth=BD)
-    maps_l, maps_c = frame_maps(preds, frames, SMALL_W, SMALL_H)
-    for tools in (False, True):
+    """416x240 x 2 on the CPU and on the card, in each slice's
+    configuration; the oldest (no tools) at a quarter of that area, 208x120
+    x 2, which keeps the plain versions' CPU time down."""
+    for i, tools in enumerate(TOOLS):
+        w, h = (SMALL_W, SMALL_H) if i else (SMALL_W // 2, SMALL_H // 2)
+        frames = natural_sequence(w, h, 2, seed0=7, bit_depth=BD)
+        maps_l, maps_c = frame_maps(preds, frames, w, h)
         out = {}
         for device in ("cpu", DEVICE):
-            enc = wf.WavefrontEncoder(enc_cfg(SMALL_W, SMALL_H, tools), accel_level=3,
-                                      device=device)
+            enc = wf.WavefrontEncoder(enc_cfg(w, h, tools), accel_level=3, device=device)
             t0 = time.perf_counter()
             out[device] = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
-            log(f"[encode-cpu-vs-card] {SMALL_W}x{SMALL_H} x 2, MIP + SDH {tools}, on "
+            log(f"[encode-cpu-vs-card] {w}x{h} x 2, {tools}, on "
                 f"{device}: {time.perf_counter() - t0:.3f} s, {enc.steps} wave steps")
         for f in range(2):
             check(out["cpu"][f][0] == out[DEVICE][f][0],
-                  f"frame {f} (MIP + SDH {tools}): CPU and card bitstreams differ")
-        log(f"[encode-cpu-vs-card] MIP + SDH {tools}: bitstreams byte-identical "
-            f"({[len(o[0]) for o in out[DEVICE]]} bytes)")
+                  f"frame {f} ({tools}): CPU and card bitstreams differ")
+        log(f"[encode-cpu-vs-card] {tools}: bitstreams byte-identical "
+            f"({[len(o[0]) for o in out[DEVICE]]} bytes); luma CUs "
+            f"{luma_codes(enc, maps_l, maps_c, 2)}")
 
 
 def phase_encode_profile(frames, maps_l, maps_c) -> None:
@@ -843,7 +1050,8 @@ def phase_encode_profile(frames, maps_l, maps_c) -> None:
     log(f"[encode-profile] one 1920x1080 frame's wave scan ({enc.steps} steps): wall "
         f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
     for ms, count, name in rows[:10]:
-        log(f"[encode-profile]   {ms:9.3f} ms  x{count:<6d} {name[:100]}")
+        log(f"[encode-profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<6d} "
+            f"{name[:100]}")
 
 
 def main() -> int:
@@ -874,8 +1082,9 @@ def main() -> int:
     # library_ms is null: no single PyTorch call computes any of these
     # functions (the reference substitution, the 67-mode predictor with its
     # SATD argmin, the MIP candidates with their SATD argmin, the integer
-    # transform-quantisation round trip with sign-data hiding, or the step's
-    # masked scatters with their index arithmetic).
+    # transform-quantisation round trip with sign-data hiding, the candidate
+    # round trips of MTS, LFNST and transform skip with their cost argmin, or
+    # the step's masked scatters with their index arithmetic).
     for name, (_, source, replaces) in ENC_KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

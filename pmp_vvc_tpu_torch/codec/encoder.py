@@ -3,8 +3,8 @@ the wave path (``codec/wavefront.py``) replays its device decisions through.
 
 A port of the part of the JAX package's ``codec/encoder.py`` that its
 ``WavefrontEncoder`` reaches: chroma QP table, slice lambda and chroma
-distortion weight; the neighbour state; split, intra-mode, residual, LFNST
-and MTS syntax; the coding-tree walks and split deciders; the bin-op
+distortion weight; the neighbour state; split, intra-mode, residual
+(transform-skip residual included), LFNST and MTS syntax; the coding-tree walks and split deciders; the bin-op
 recorder and the native CABAC finalizer; and ``encode_frame``'s tail
 (deblocking, SAO, NAL units, decoded-picture-hash SEI).
 
@@ -31,7 +31,7 @@ from .headers import (VVCConfig, decoded_picture_hash_sei, pps_nal, slice_nal,
 from .mtt import (SplitState, can_split_set, get_implicit_split,
                   write_split_cu_mode)
 from .partition import MapPartitioner, PartitionConstraints, Split
-from .residual import ResidualCoder, ctx, grouped_scan
+from .residual import ResidualCoder, TSResidualCoder, ctx, grouped_scan
 from .sao import apply_sao_frame, decide_sao_frame, write_sao_ctu
 from ..ops import mip as mip_ops
 
@@ -406,12 +406,13 @@ class FrameEncoder:
     def _write_resid(self, rc, lev, w, h, is_luma, ts=False, isp=0):
         """ts_flag + residual for one cbf TU component (the
         CABACWriter::residual_coding entry, :2630). Returns
-        (last_pos, violates_mts). Transform skip is refused by the port."""
+        (last_pos, violates_mts); (-1, False) for transform skip."""
         if self._ts_allowed(w, h, is_luma, isp):
             rc.enc.encode_bin(1 if ts else 0,
                               ctx("TransformSkipFlag", 0 if is_luma else 1))
         if ts:
-            raise NotImplementedError("transform-skip residual coding")
+            TSResidualCoder(rc.enc).code(lev, is_luma=is_luma)
+            return -1, False
         return rc.code(lev, is_luma=is_luma)
 
     @staticmethod

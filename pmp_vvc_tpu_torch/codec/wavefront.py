@@ -14,10 +14,15 @@ launches, for each tile class with live rows, the wave-step kernels:
   K1 ``ref_gather``   reference rows with coding-order availability;
   K2 ``intra_rmd``    luma RMD + prediction, or chroma DM prediction;
   K3 ``mip_select``   (with ``mip``) the MIP candidates against K2's winner;
-  K4 ``tq``           transform / quant / RD zeroing / sign-data hiding
-                      (with ``sign_hiding``) / inverse, coded vs zero;
+  K5 ``tq_mts``       (luma) the candidate round trips — DCT-2, and with
+                      ``mts_intra``, ``lfnst`` or ``transform_skip``
+                      DST-7/DCT-8, DCT-2 + LFNST 1/2, transform skip — with
+                      sign-data hiding (with ``sign_hiding``) and their
+                      argmin, then coded vs zero;
+  K4 ``tq``           (chroma) transform / quant / RD zeroing / sign-data
+                      hiding / inverse, coded vs zero;
   K7 ``wave_scatter`` masked writes into the recon and level planes and
-                      the mode and MIP code grids.
+                      the mode, MIP, mts_idx and lfnst_idx code grids.
 
 The state planes are updated in place (the JAX version's scan carries new
 arrays); nothing is read back inside the loop, and the results come back in
@@ -30,9 +35,9 @@ The JAX module's ``_refs_generic``, ``_avail_from_order`` and
 ``ops/tq_generic.py`` (``bits_proxy``), beside the kernels that use them.
 
 Supported: single or dual tree, map- or QT-driven partitioning, luma
-MIP, DCT-2 TU coding with scalar quantisation, RDOQ-lite zeroing and
-sign-data hiding, deblocking and SAO. Every other tool raises
-``NotImplementedError``.
+MIP, TU coding with DCT-2, MTS (DST-7/DCT-8), LFNST and transform skip,
+scalar quantisation, RDOQ-lite zeroing and sign-data hiding, deblocking
+and SAO. Every other tool raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,18 +54,18 @@ from .._device import resolve_device
 from ..ops.intra_generic import intra_rmd, ref_gather
 from ..ops.mip_generic import mip_select
 from ..ops.rows import check_rows
-from ..ops.tq_generic import tq
+from ..ops.tq_generic import tq, tq_mts
 from .encoder import RDO, CuInfo, FrameEncoder
 from .mtt import Split, SplitState, get_implicit_split
 from .residual import ctx
 
 DEFAULT_BATCH = {32: 16, 64: 8}   # CUs per step of the 32- and 64-pad classes
-# Tools whose device kernels are not ported yet (MTS/LFNST/TS K5,
-# CCLM/JCCR/LMCS K6, ALF/CC-ALF on the host), and the sequential-only
-# tools the wave path never supported.
-UNPORTED_TOOLS = ("mts_intra", "cclm", "lfnst", "joint_cbcr", "lmcs",
-                  "transform_skip", "alf", "ccalf")
+# Tools whose device kernels are not ported yet (CCLM/JCCR/LMCS K6,
+# ALF/CC-ALF on the host), and the sequential-only tools the wave path
+# never supported.
+UNPORTED_TOOLS = ("cclm", "joint_cbcr", "lmcs", "alf", "ccalf")
 UNSUPPORTED_TOOLS = ("mrl", "isp", "dep_quant")
+MAX_GRIDS = 4     # code grids K7 writes in one launch: mode, MIP, mts_idx, lfnst_idx
 
 
 # ---------------------------------------------------------------------------
@@ -70,10 +75,10 @@ UNSUPPORTED_TOOLS = ("mrl", "isp", "dep_quant")
 def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids=()):
     """Plain version of K7.  ``planes``: one or two (recon int32, levels
     int16) (F, H, W) plane pairs, written in place over each live CU's
-    (h, w) region from rec/lev (n, B, pad, pad) int32; ``grids``: up to two
-    (grid, code) pairs, each uint8 (F, H_luma/4, W_luma/4) grid taking its
-    int32 ``code`` (B,) over the CU's 4-sample cells.  Writes outside a
-    plane or grid are dropped."""
+    (h, w) region from rec/lev (n, B, pad, pad) int32; ``grids``: up to
+    ``MAX_GRIDS`` (grid, code) pairs, each uint8 (F, H_luma/4, W_luma/4)
+    grid taking its int32 ``code`` (B,) over the CU's 4-sample cells.
+    Writes outside a plane or grid are dropped."""
     fi, xs, ys, ws, hs, okv = (rows[:, k] for k in (0, 1, 2, 3, 4, 6))
     ok = okv > 0
     d = torch.arange(pad, device=rows.device, dtype=torch.int32)
@@ -105,7 +110,7 @@ def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids=()):
 def _k7():
     fn = _build.library("wave_scatter").pmp_wave_scatter
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -113,12 +118,12 @@ def _k7():
 def wave_scatter(rows, pad, scale, planes, rec, lev, grids=()):
     """K7: see ``wave_scatter_reference``; CPU tensors take it, CUDA
     tensors launch ``csrc/wave_scatter.cu`` (one launch for the planes and
-    both grids)."""
+    every grid)."""
     check_rows(rows)
     if len(planes) not in (1, 2) or rec.shape[0] != len(planes):
         raise ValueError("wave_scatter takes one or two plane pairs")
-    if len(grids) > 2:
-        raise ValueError("wave_scatter takes at most two code grids")
+    if len(grids) > MAX_GRIDS:
+        raise ValueError(f"wave_scatter takes at most {MAX_GRIDS} code grids")
     if rows.device.type == "cpu":
         return wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids)
     _build.check_cuda("wave_scatter", rows, rec, lev,
@@ -137,12 +142,13 @@ def wave_scatter(rows, pad, scale, planes, rec, lev, grids=()):
     _, H, W = planes[0][0].shape
     ptr = lambda t: t.data_ptr() if t is not None else None
     p1 = planes[1] if len(planes) == 2 else (None, None)
-    g = [t for pair in grids for t in pair] + [None] * (4 - 2 * len(grids))
+    gptr = (ctypes.c_void_p * MAX_GRIDS)(*(g.data_ptr() for g, _ in grids))
+    cptr = (ctypes.c_void_p * MAX_GRIDS)(*(c.data_ptr() for _, c in grids))
     GH, GW = grids[0][0].shape[1:] if grids else (0, 0)
     err = _k7()(rows.data_ptr(), B, pad, scale, len(planes), H, W,
                 planes[0][0].data_ptr(), planes[0][1].data_ptr(),
                 ptr(p1[0]), ptr(p1[1]), rec.data_ptr(), lev.data_ptr(),
-                *(ptr(t) for t in g), GH, GW, _build.stream(rows))
+                gptr, cptr, len(grids), GH, GW, _build.stream(rows))
     _build.count_launch(wave_scatter, err)
 
 
@@ -155,16 +161,26 @@ wave_scatter.launches = 0
 
 class _Scan:
     """What the steps of one ``_wave_scan`` share: the state planes
-    (updated in place), originals, order grids and the coding parameters."""
+    (updated in place), originals, order grids and the coding parameters.
+    ``ts_max``: the largest transform-skip side, 0 with transform skip off."""
 
     def __init__(self, state, oy, ou, ov, og4, og4c, qp_y, qp_c, bd, lam,
-                 dw_c, rd_quant, mip=False, sdh=False):
+                 dw_c, rd_quant, mip=False, sdh=False, mts=False, lfnst=False,
+                 ts_max=0):
         self.state = state
         self.oy, self.ou, self.ov = oy, ou, ov
         self.og4, self.og4c = og4, og4c
         self.qp_y, self.qp_c, self.bd = qp_y, qp_c, bd
         self.lam, self.dw_c, self.rd_quant = lam, dw_c, rd_quant
         self.mip, self.sdh = mip, sdh
+        self.mts, self.lfnst, self.ts_max = mts, lfnst, ts_max
+
+    def luma_tools(self, P):
+        """(mts, lfnst, ts_max) of the P-pad class: MTS and transform skip
+        only in the 32-pad class (the 64-pad class holds only CUs with a
+        side > 32), LFNST in both."""
+        small = P <= 32
+        return self.mts and small, self.lfnst, self.ts_max if small else 0
 
     def step(self, kind, P, row):
         """Wave-segment body for the P-pad tile class (``kind``: "st"
@@ -172,33 +188,36 @@ class _Scan:
         co-located half-res block; "luma" the dual-tree luma pass;
         "chroma" the dual-tree chroma pass, its DM mode read from the mode
         grid at the CU centre, with the chroma tree's own order grid)."""
-        ry, ru, rv, cY, cU, cV, mg, _, pg = self.state[:9]
+        ry, ru, rv, cY, cU, cV, mg, tg, pg, _, lg = self.state
         bd = self.bd
+        lf = None
         if kind != "chroma":
             refs = ref_gather([ry], self.og4, row, P, 1, bd)
             best, pred = intra_rmd(refs, self.oy, mg, row, P, True, bd)
-            grids = [(mg, best)]
+            code = None
             if self.mip:
                 # a MIP winner shows PLANAR in the mode grid (the
-                # neighbours' MPM and the chroma DM view) and its code in
-                # the MIP grid
+                # neighbours' MPM, the chroma DM view and LFNST's kernel
+                # set) and its code in the MIP grid
                 best, pred, code = mip_select(refs, self.oy, row, pred, best, P, bd)
-                grids = [(mg, best), (pg, code)]
-            lev, rec = tq([self.oy], pred, row, P, 1, self.qp_y, bd,
-                          self.rd_quant, self.lam, sdh=self.sdh)
-            # the MTS and LFNST grids keep their zeros: those tools are
-            # off, so every CU's code there is 0
+            lev, rec, tr, lf = tq_mts([self.oy], pred, row, P, self.qp_y, bd,
+                                      self.rd_quant, self.lam, best, code,
+                                      *self.luma_tools(P), self.sdh)
+            grids = [(mg, best)] + ([(pg, code)] if self.mip else []) + \
+                [(tg, tr), (lg, lf)]
             wave_scatter(row, P, 1, [(ry, cY)], rec, lev, grids)
             if kind == "luma":
                 return
         # chroma DM at half resolution, availability from the chroma
         # tree's order grid (the luma one for single tree); the CCLM/JCCR
-        # code grid keeps its zeros (both tools off)
+        # code grid keeps its zeros (both tools off). A single-tree CU whose
+        # luma chose LFNST keeps its chroma levels in LFNST's region.
         Pc = P // 2
         refs = ref_gather([ru, rv], self.og4c, row, Pc, 2, bd)
         _, pred = intra_rmd(refs, None, mg, row, Pc, False, bd)
         lev, rec = tq([self.ou, self.ov], pred, row, Pc, 2, self.qp_c, bd,
-                      self.rd_quant, self.lam, self.dw_c, sdh=self.sdh)
+                      self.rd_quant, self.lam, self.dw_c, sdh=self.sdh,
+                      lfnst_active=lf)
         wave_scatter(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev)
 
 
@@ -501,7 +520,9 @@ class WavefrontEncoder(FrameEncoder):
         qp_y, qp_c = self._qps()
         scan = _Scan(state, oy, ou, ov, og4, og4c, qp_y, qp_c, cfg.bit_depth,
                      float(self.lam), float(self.dw_c), bool(cfg.rd_quant),
-                     mip=bool(cfg.mip), sdh=bool(cfg.sign_hiding))
+                     mip=bool(cfg.mip), sdh=bool(cfg.sign_hiding),
+                     mts=bool(cfg.mts_intra), lfnst=bool(cfg.lfnst),
+                     ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0)
         self._time("upload", t0)
 
         t0 = time.perf_counter()
@@ -579,20 +600,23 @@ class WavefrontEncoder(FrameEncoder):
         enc.encode_bin(1 if cbf_v else 0,
                        ctx("QtCbf2", 1 if cbf_u else 0))
         enc.encode_bin(1 if cbf_y else 0, ctx("QtCbf0", 0))
+        ts_y = mts_idx == 1              # MTS_SKIP = transform skip
         last_pos_y, violates = -1, False
         if cbf_y:
-            last_pos_y, violates = self._write_resid(rc, lev_y, w, h, True)
+            last_pos_y, violates = self._write_resid(rc, lev_y, w, h, True,
+                                                     ts=ts_y)
         if cbf_u:
             self._write_resid(rc, lev_u, cw, chh, False)
         if cbf_v:
             self._write_resid(rc, lev_v, cw, chh, False)
-        comps = [(w, h, lev_y)] if cbf_y else []
+        comps = [(w, h, lev_y)] if cbf_y and not ts_y else []
         comps += ([(cw, chh, lev_u)] if cbf_u else [])
         comps += ([(cw, chh, lev_v)] if cbf_v else [])
         if not cbf_y:
             lfnst_idx = 0
-        self._write_lfnst_idx(enc, cu, lfnst_idx, comps, False)
-        if lfnst_idx == 0:
+        self._write_lfnst_idx(enc, cu, lfnst_idx, comps, False,
+                              ts_used=cbf_y and ts_y)
+        if lfnst_idx == 0 and not ts_y:
             self._write_mts_idx(enc, mts_idx, w, h, cbf_y, last_pos_y,
                                 violates)
 
@@ -620,16 +644,19 @@ class WavefrontEncoder(FrameEncoder):
         self._set_mip_fields(cu, int(pg[f, y // 4, x // 4]))
         lev_y = cY[f, y:y + h, x:x + w].astype(np.int32)
         cbf_y = bool(lev_y.any())
+        ts_y = mts_idx == 1              # MTS_SKIP = transform skip
         self._write_intra_luma_mode(enc, cu)
         enc.encode_bin(1 if cbf_y else 0, ctx("QtCbf0", 0))
         last_pos_y, violates = -1, False
         if cbf_y:
-            last_pos_y, violates = self._write_resid(rc, lev_y, w, h, True)
+            last_pos_y, violates = self._write_resid(rc, lev_y, w, h, True,
+                                                     ts=ts_y)
         if not cbf_y:
             lfnst_idx = 0
         self._write_lfnst_idx(enc, cu, lfnst_idx,
-                              [(w, h, lev_y)] if cbf_y else [], True)
-        if lfnst_idx == 0:
+                              [(w, h, lev_y)] if cbf_y and not ts_y else [],
+                              True, ts_used=cbf_y and ts_y)
+        if lfnst_idx == 0 and not ts_y:
             self._write_mts_idx(enc, mts_idx, w, h, cbf_y, last_pos_y,
                                 violates)
         self.recon_y[y:y + h, x:x + w] = ry[f, y:y + h, x:x + w]

@@ -12,8 +12,10 @@ Rom.cpp:475-486):
   deq      = clip16((clip16(level) * iqScale[sqrt2][qp%6] + add) >> rShift)
   rShift   = 6 - (tShift - sqrt2 + qp/6)                (may be negative)
 
-Dead-zone ``dz`` = 171 for IRAP slices (all-intra). The size-generic
-device versions are in ``ops/tq_generic.py``.
+Dead-zone ``dz`` = 171 for IRAP slices (all-intra). Transform skip
+quantises the residual itself at the clamped QP ``ts_qp`` with
+qBits = 14 + qp/6 and rShift = 6 - qp/6 (no transform shift, no sqrt2).
+The size-generic device versions are in ``ops/tq_generic.py``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ INV_QUANT_SCALES = np.array([[40, 45, 51, 57, 64, 72],
 QUANT_SHIFT = 14
 IQUANT_SHIFT = 6
 MAX_LOG2_DYN_RANGE = 15
+COEFF_MIN = -(1 << MAX_LOG2_DYN_RANGE)
+COEFF_MAX = (1 << MAX_LOG2_DYN_RANGE) - 1
 
 
 def _geom(w: int, h: int, bit_depth: int):
@@ -35,3 +39,9 @@ def _geom(w: int, h: int, bit_depth: int):
     t_shift = MAX_LOG2_DYN_RANGE - bit_depth - ((lw + lh) >> 1)
     sqrt2 = (lw + lh) & 1
     return t_shift, sqrt2
+
+
+def ts_qp(qp: int, internal_minus_input: int = 0) -> int:
+    """Transform-skip QP clamp (QpParam ctor, Quant.cpp:98):
+    baseQpTS = max(baseQp, 4 + 6 * internalMinusInputBitDepth)."""
+    return max(qp, 4 + 6 * internal_minus_input)

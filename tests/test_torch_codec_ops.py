@@ -2,10 +2,11 @@
 
 K1 ``ref_gather_reference`` against ``wavefront.py:_refs_generic``, K2's
 predictor ``predict_generic`` and RMD against the JAX predictor and SATD,
-and K4 ``tq_reference`` against ``_tq_luma_mts`` (DCT-2 only) and
-``_tq_generic``: exactly, over every CU size 4..64 on pads 32 and 64, all
-67 modes, luma and chroma, random availability, QP 22/27/32/37. Before K4
-is compared, every float decision on the inputs (coefficient-group and
+and the DCT-2 TQ — luma ``tq_mts_reference`` with its tools off against
+``_tq_luma_mts`` (DCT-2 only), chroma K4 ``tq_reference`` against
+``_tq_generic`` — exactly, over every CU size 4..64 on pads 32 and 64, all
+67 modes, luma and chroma, random availability, QP 22/27/32/37. Before the
+TQ is compared, every float decision on the inputs (coefficient-group and
 single-coefficient zeroing, coded vs zero TU) is asserted to keep a
 relative margin above ``MARGIN``: the JAX package sums those costs in
 float32 in an order of its own, and its ``exp2`` divisor is not exactly a
@@ -115,7 +116,7 @@ def jax_refs(plane, og, rows, pad, scale):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["transform_cores.npz", "ctx_init.npz",
-                                  "ctx_sets.json", "mip_matrices.npz"])
+                                  "ctx_sets.json", "mip_matrices.npz", "lfnst.npz"])
 def test_copied_tables_are_byte_equal(name):
     a = (REPO / "pmp_vvc_tpu" / "codec" / "data" / name).read_bytes()
     b = (REPO / "pmp_vvc_tpu_torch" / "codec" / "data" / name).read_bytes()
@@ -304,24 +305,17 @@ def mip_margin(refs, org, rows, pred, pad):
     return top, int(gap.min()) if gap.numel() else None
 
 
-def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None, sdh=False):
-    """The smallest relative margin of K4's float decisions on these
-    inputs, recomputed with the port's plain pieces: each coefficient
-    group's gain sum against lam*(3k+1.5), each remaining +-1 level's gain
-    against 3*lam, and the coded TU's cost against the zero TU's; with
-    ``sdh``, after sign-data hiding. Returns (margin, ``sdh_gaps`` of the
-    groups that sign-data hiding corrects)."""
-    fi, xs, ys, ws, hs, _, ok = (torch.from_numpy(a) for a in _unpack(rows, scale))
-    d = torch.arange(pad, dtype=torch.int32)
-    orgs = org[fi[:, None, None].long(),
-               (ys[:, None, None] + d[None, :, None]).clamp(0, org.shape[1] - 1).long(),
-               (xs[:, None, None] + d[None, None, :]).clamp(0, org.shape[2] - 1).long()]
-    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
-    resid = (orgs - pred) * inside
-    coef = ttq.forward_transform_generic(resid, ws, hs, bit_depth=BD)
+def quant_margins(coef, ws, hs, qp, lam, live, sdh=False, region=None):
+    """The relative margins of the float decisions that quantising ``coef``
+    takes: each coefficient group's gain sum against lam*(3k+1.5) and each
+    remaining +-1 level's gain against 3*lam (RDOQ-lite zeroing, on the
+    ``live`` CUs with both sides >= 4). Returns (margins, the levels after
+    the zeroing and the ``region`` mask if given, and with ``sdh`` the
+    ``sdh_gaps`` of those levels)."""
+    pad = coef.shape[-1]
     lev = ttq.quantize_generic(coef, ws, hs, qp, bit_depth=BD)
     margins = []
-    big = (torch.minimum(ws, hs) >= 4) & ok
+    big = (torch.minimum(ws, hs) >= 4) & live
     lw, lh = ttq._log2(ws), ttq._log2(hs)
     t_shift = 15 - BD - ((lw + lh) >> 1)
     sqrt2 = (lw + lh) & 1
@@ -333,15 +327,67 @@ def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None, sdh=False):
     g = gain.double().reshape(-1, pad // 4, 4, pad // 4, 4).sum((2, 4))
     k = (lev != 0).reshape(-1, pad // 4, 4, pad // 4, 4).sum((2, 4)).double()
     thr = float(np.float32(lam)) * (3 * k + 1.5)
-    live = (k > 0) & big[:, None, None]
-    margins.append(((g - thr).abs() / thr)[live])
+    act = (k > 0) & big[:, None, None]
+    margins.append(((g - thr).abs() / thr)[act])
     lam3 = float(np.float32(lam * 3.0))
     one = (lev.abs() == 1) & big[:, None, None]
     margins.append(((gain.double() - lam3).abs() / lam3)[one])
     lev2 = ttq.rd_cleanup_generic(lev, coef, ws, hs, qp, lam, bit_depth=BD)
-    gaps = []
+    if region is not None:
+        lev2 = lev2 * region
+    return margins, lev2, sdh_gaps(lev2, coef, ws, hs, qp) if sdh else []
+
+
+def luma_or_chroma_tq(orgs, pred, rows, pad, scale, qp, lam, dw, sdh=False):
+    """The plain DCT-2 TQ round trip of the wave step on these inputs,
+    with RD zeroing: ``dw`` None, luma (K5 with its tools off); else chroma
+    (K4). Returns (lev, rec)."""
+    if dw is None:
+        modes = torch.zeros(rows.shape[0], dtype=torch.int32)
+        return ttq.tq_mts_reference(orgs, pred, rows, pad, qp, BD, True, lam, modes,
+                                    sdh=sdh)[:2]
+    return ttq.tq_reference(orgs, pred, rows, pad, scale, qp, BD, True, lam, dw, sdh=sdh)
+
+
+def _dct2_coef(org, pred, rows, pad, scale):
+    """(residual, its DCT-2 coefficients, (h, w) mask, ws, hs, live rows)
+    of each row's tile."""
+    fi, xs, ys, ws, hs, _, ok = (torch.from_numpy(a) for a in _unpack(rows, scale))
+    d = torch.arange(pad, dtype=torch.int32)
+    orgs = org[fi[:, None, None].long(),
+               (ys[:, None, None] + d[None, :, None]).clamp(0, org.shape[1] - 1).long(),
+               (xs[:, None, None] + d[None, None, :]).clamp(0, org.shape[2] - 1).long()]
+    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
+    resid = (orgs - pred) * inside
+    coef = ttq.forward_transform_generic(resid, ws, hs, bit_depth=BD)
+    return resid, coef, inside, ws, hs, ok
+
+
+def region_cut(org, pred, rows, pad, scale, qp, lam, lfnst_active):
+    """How many of K4's RD-zeroed levels on these inputs the single-tree
+    LFNST region removes (``ttq.lfnst_region``, on the live rows whose
+    ``lfnst_active`` is set)."""
+    _, coef, _, ws, hs, ok = _dct2_coef(org, pred, rows, pad, scale)
+    lev = ttq.rd_cleanup_generic(ttq.quantize_generic(coef, ws, hs, qp, bit_depth=BD),
+                                 coef, ws, hs, qp, lam, bit_depth=BD)
+    region = ttq.lfnst_region(ws, hs, lfnst_active.bool(), pad)
+    return int(((lev != 0) & ~region & ok[:, None, None]).sum())
+
+
+def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None, sdh=False,
+              lfnst_active=None):
+    """The smallest relative margin of the DCT-2 TQ's float decisions on
+    these inputs (``luma_or_chroma_tq``: K4's, or with ``dw`` None K5's with
+    its tools off), recomputed with the port's plain pieces: the zeroing
+    decisions of ``quant_margins`` and the coded TU's cost against the zero
+    TU's; with ``sdh``, after sign-data hiding (and ``lfnst_active``'s
+    region). Returns (margin, ``sdh_gaps`` of the groups that sign-data
+    hiding corrects)."""
+    resid, coef, inside, ws, hs, ok = _dct2_coef(org, pred, rows, pad, scale)
+    region = None if lfnst_active is None else \
+        ttq.lfnst_region(ws, hs, lfnst_active.bool(), pad)
+    margins, lev2, gaps = quant_margins(coef, ws, hs, qp, lam, ok, sdh, region)
     if sdh:
-        gaps = sdh_gaps(lev2, coef, ws, hs, qp)
         lev2 = tsdh.apply_sdh_generic(lev2, coef, ws, hs, qp, bit_depth=BD)
     rr = ttq.inverse_transform_generic(
         ttq.dequantize_generic(lev2, ws, hs, qp, bit_depth=BD), ws, hs, bit_depth=BD)
@@ -356,6 +402,60 @@ def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None, sdh=False):
         cc, cz = dw32 * sse + lam32 * bits, dw32 * sse0 + 2 * lam32
     margins.append(((cc - cz).abs() / torch.maximum(cc, cz))[ok])
     return min(float(m.min()) if m.numel() else np.inf for m in margins), gaps
+
+
+def k5_margin(orgs, pred, rows, pad, qp, lam, modes, mip_code=None, mts=False,
+              lfnst=False, ts_max=0, sdh=False):
+    """The smallest relative margins of K5's float decisions on these inputs,
+    from the port's plain pieces: (zeroing margin of every candidate's
+    coefficients, as ``quant_margins``; the gap between the winning
+    candidate's cost and the runner-up's; the gap between the winner's and
+    the zero TU's; ``sdh_gaps`` of every candidate). A cost is recomputed in
+    float64 from the exact SSE; where both costs of a pair have SSE below
+    2^24, the JAX package's float32 sums are exact too and it compares the
+    same float32 values as the port, ties included: that gap counts as
+    infinite."""
+    from pmp_vvc_tpu_torch.ops.lfnst_generic import fwd_lfnst_generic
+    cands, resid, inside, ok, _ = ttq.tq_mts_candidates(
+        orgs, pred, rows, pad, qp, BD, True, lam, modes, mip_code, mts, lfnst, ts_max, sdh)
+    fi, xs, ys, ws, hs, _, _ = (torch.from_numpy(a) for a in _unpack(rows.numpy(), 1))
+    margins, gaps = [], []
+    coef2 = ttq.forward_transform_generic(resid, ws, hs, bit_depth=BD)
+    for lev, rr, cost, tr, lf in cands:
+        if tr == 1:
+            continue                        # transform skip: no zeroing, no SDH
+        kw, kh = next(c[1] for c in ttq.MTS_COMBOS if c[0] == tr)
+        coef = ttq.forward_transform_generic(resid, ws, hs, bit_depth=BD, kind_w=kw,
+                                             kind_h=kh) if not lf else \
+            fwd_lfnst_generic(coef2, modes, ws, hs, lf)
+        m, _, g = quant_margins(coef, ws, hs, qp, lam, ok, sdh)
+        margins += m
+        gaps += g
+    lam32 = float(np.float32(lam))
+    sse = []
+    for lev, rr, cost, tr, lf in cands:
+        e = ((rr - resid) * inside).double()
+        sse.append((e * e).sum((-1, -2)))
+    sse = torch.stack(sse, 1)
+    bins = torch.tensor([next((c[2] for c in ttq.MTS_COMBOS if c[0] == tr), 1.0)
+                         if not lf else 2.0 for _, _, _, tr, lf in cands], dtype=torch.float64)
+    bits = torch.stack([ttq.bits_proxy(c[0]).double() for c in cands], 1)
+    legal = torch.stack([torch.isfinite(c[2]) for c in cands], 1)
+    cost = torch.where(legal, sse + lam32 * (bits + bins), torch.inf)
+    exact = sse < 2 ** 24
+    k = torch.stack([c[2] for c in cands], 1).argmin(1)
+    rows_b = torch.arange(len(k))
+    win, win_exact = cost[rows_b, k], exact[rows_b, k]
+    rel = lambda a, b: (a - b).abs() / torch.maximum(a.abs(), b.abs())
+    cand_gap = torch.where(legal & (win_exact[:, None] & exact).logical_not(),
+                           rel(cost, win[:, None]), torch.inf)
+    cand_gap[rows_b, k] = torch.inf
+    sse0 = (resid.double() ** 2).sum((-1, -2))
+    zero_gap = torch.where(win_exact & (sse0 < 2 ** 24), torch.inf,
+                           rel(sse0 + 2 * lam32, win))
+    small = lambda t: float(t[ok].min()) if ok.any() else np.inf
+    return (min(float(m.min()) if m.numel() else np.inf for m in margins),
+            small(cand_gap.min(1).values), small(zero_gap), gaps)
 
 
 def tq_inputs(pad, scale, seed):
@@ -402,8 +502,8 @@ def test_tq_matches_jax(pad, scale, qp):
     else:
         want_l, want_r = _jtq_chroma(orgs, _j(pred), _j(ws), _j(hs), qpi, BD,
                                          lam, dw, True, _j(inside))
-    got_l, got_r = ttq.tq_reference([_t(org)], _t(pred[None]), _t(rows), pad,
-                                    scale, qpi, BD, True, lam, dw)
+    got_l, got_r = luma_or_chroma_tq([_t(org)], _t(pred[None]), _t(rows), pad, scale, qpi,
+                                     lam, dw)
     want_l, want_r = np.asarray(want_l), np.asarray(want_r)
     m = inside & ok[:, None, None]
     np.testing.assert_array_equal(got_l[0].numpy()[m], want_l[m])

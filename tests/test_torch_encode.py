@@ -6,7 +6,7 @@ and the same with ``pipeline_chunk``), single tree with MTT maps and
 deblocking + SAO, and the slice's dual-tree configuration with luma and
 chroma MTT maps. The bitstreams and recon must be byte-identical, and the
 port's stream must decode hash-verified with the JAX package's decoder.
-Every K4 decision keeps a relative margin above MARGIN
+Every K4 and K5 decision keeps a relative margin above MARGIN
 (test_torch_codec_ops.py). Every flag the port does not support raises;
 MIP and sign-data hiding are accepted (test_torch_encode_tools.py encodes
 with them).
@@ -87,10 +87,11 @@ def test_unported_flags_raise(flag):
 
 
 def test_mip_and_sign_hiding_are_accepted():
-    enc = twf.WavefrontEncoder(VVCConfig(width=64, height=64, mip=True, sign_hiding=True),
+    tools = ("mip", "sign_hiding", "mts_intra", "lfnst", "transform_skip")
+    enc = twf.WavefrontEncoder(VVCConfig(width=64, height=64, **dict.fromkeys(tools, True)),
                                device="cpu")
-    assert enc.cfg.mip and enc.cfg.sign_hiding
-    assert not {"mip", "sign_hiding"} & set(twf.UNPORTED_TOOLS + twf.UNSUPPORTED_TOOLS)
+    assert all(getattr(enc.cfg, t) for t in tools)
+    assert not set(tools) & set(twf.UNPORTED_TOOLS + twf.UNSUPPORTED_TOOLS)
 
 
 def test_rdo_paths_raise():

@@ -1,19 +1,21 @@
-"""The port's MIP (K3) and sign-data hiding (inside K4) against the JAX
+"""The port's MIP (K3) and sign-data hiding (inside K4 and K5) against the JAX
 package, op by op on the CPU.
 
 1. ``predict_mip_generic`` equal to the JAX function for every size of
    ``test_mip_generic.SIZES`` (random and full-swing boundaries) and on a
    batched mixed-size input.
-2. The luma wave step with MIP and sign-data hiding (K1 -> K2 -> K3 -> K4 ->
+2. The luma wave step with MIP and sign-data hiding (K1 -> K2 -> K3 -> K5 ->
    K7) against ``_make_class_apply(kind="luma", mip=True, sdh=True)`` at the
    32- and 64-pad classes, every CU size in a cell of its own: all 11 state
    planes equal, MIP winning for some CUs and losing for others.
 3. ``apply_sdh_generic`` and ``_cg_tables`` equal to the JAX ones on seeded
    levels of every (w, h), full-swing coefficients included.
-4. ``tq_reference(sdh=True)`` against ``_tq_luma_mts(mts=False, sdh=True)``
-   and ``_tq_generic(sdh=True)`` at QP 22/32/37.
+4. The plain DCT-2 TQ with sign-data hiding, luma (``tq_mts_reference``
+   with its tools off) against ``_tq_luma_mts(mts=False, sdh=True)`` and
+   chroma (``tq_reference``) against ``_tq_generic(sdh=True)``, at QP
+   22/32/37.
 
-Every K4 decision, sign-data hiding's included, keeps a relative margin
+Every DCT-2 TQ decision, sign-data hiding's included, keeps a relative margin
 above MARGIN, and every MIP decision's SATDs stay below 2^24 (the
 ``margins`` fixture and ``tq_margin``).
 """
@@ -34,7 +36,8 @@ from pmp_vvc_tpu_torch.ops import mip_generic as tmip
 from pmp_vvc_tpu_torch.ops import sdh_generic as tsdh
 from pmp_vvc_tpu_torch.ops import tq_generic as ttq
 from test_mip_generic import SIZES
-from test_torch_codec_ops import BD, MARGIN, _j, _t, _unpack, planes, tq_inputs, tq_margin
+from test_torch_codec_ops import (BD, MARGIN, _j, _t, _unpack, luma_or_chroma_tq, planes,
+                                  tq_inputs, tq_margin)
 from test_torch_wavefront import margins  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
@@ -197,10 +200,9 @@ def test_tq_with_sdh_matches_jax(pad, scale, qp):
     else:
         want_l, want_r = _jtq_chroma(orgs, _j(pred), _j(ws), _j(hs), qpi, BD, lam, dw,
                                      True, _j(inside), sdh=True)
-    got_l, got_r = ttq.tq_reference([_t(org)], _t(pred[None]), _t(rows), pad, scale, qpi,
-                                    BD, True, lam, dw, sdh=True)
-    plain_l, _ = ttq.tq_reference([_t(org)], _t(pred[None]), _t(rows), pad, scale, qpi,
-                                  BD, True, lam, dw)
+    args = ([_t(org)], _t(pred[None]), _t(rows), pad, scale, qpi, lam, dw)
+    got_l, got_r = luma_or_chroma_tq(*args, sdh=True)
+    plain_l, _ = luma_or_chroma_tq(*args)
     want_l, want_r = np.asarray(want_l), np.asarray(want_r)
     m = inside & ok[:, None, None]
     np.testing.assert_array_equal(got_l[0].numpy()[m], want_l[m])

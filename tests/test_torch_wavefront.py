@@ -8,7 +8,7 @@
    port's scan with other batch sizes: the same planes.
 
 Every coded-vs-zero, zeroing and sign-data-hiding decision of the port's
-K4 calls is first held to a relative margin above ``MARGIN``, and every K3
+K4 and K5 calls is first held to a relative margin above ``MARGIN``, and every K3
 decision's SATDs to the range where float32 sums are exact (see
 test_torch_codec_ops.py).
 """
@@ -23,7 +23,7 @@ from pmp_vvc_tpu.codec import wavefront as jwf
 from pmp_vvc_tpu.codec.headers import VVCConfig as JaxConfig
 from pmp_vvc_tpu_torch.codec import wavefront as twf
 from pmp_vvc_tpu_torch.codec.headers import VVCConfig
-from test_torch_codec_ops import MARGIN, mip_margin, tq_margin
+from test_torch_codec_ops import MARGIN, k5_margin, mip_margin, region_cut, tq_margin
 from test_wavefront import _mtt_maps, _synth
 
 torch.set_num_threads(2)
@@ -37,32 +37,60 @@ CONFIGS = {"single": dict(MTT, qp=27), "dual": dict(SLICE, qp=22)}
 
 @pytest.fixture
 def margins(monkeypatch):
-    """Wraps the port's K4 and K3 on the wave path. Every K4 call's float
-    decisions must keep a relative margin above MARGIN, and so must each
+    """Wraps the port's K4, K3 and K5 on the wave path. The float decisions
+    of every DCT-2 TQ (K4's, and K5's with its tools off) must keep a
+    relative margin above MARGIN (``seen["tq"]``), and so must each
     coefficient group that sign-data hiding corrects (``seen["sdh"]`` holds
     one gap per corrected group); every K3 call's SATDs must stay below
     2^24, where the JAX package's float32 sums and comparisons are exact
-    (``seen["mip"]``: (largest SATD, smallest MIP-vs-angular gap))."""
-    seen = {"tq": [], "sdh": [], "mip": []}
-    real_tq, real_mip = twf.tq, twf.mip_select
+    (``seen["mip"]``: (largest SATD, smallest MIP-vs-angular gap)); every
+    other K5 call's zeroing decisions, its winning candidate against the
+    runner-up and the winner against the zero TU must keep a relative
+    margin above MARGIN (``seen["k5"]``: (zeroing, candidate, zero TU)
+    margins per call; ``k5_margin``). ``seen["region"]`` counts the chroma
+    levels that K4's single-tree LFNST region removes (``region_cut``)."""
+    seen = {"tq": [], "sdh": [], "mip": [], "k5": [], "region": []}
+    real_tq, real_mip, real_k5 = twf.tq, twf.mip_select, twf.tq_mts
 
-    def guarded(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw=None, sdh=False):
+    def guarded(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw, sdh=False,
+                lfnst_active=None):
         for i, org in enumerate(orgs):
-            m, gaps = tq_margin(org, pred[i], rows.numpy(), pad, scale, qp, lam, dw, sdh)
+            m, gaps = tq_margin(org, pred[i], rows.numpy(), pad, scale, qp, lam, dw, sdh,
+                                lfnst_active)
             seen["tq"].append(m)
             seen["sdh"] += gaps
-        return real_tq(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw, sdh)
+            if lfnst_active is not None:
+                seen["region"].append(region_cut(org, pred[i], rows.numpy(), pad, scale,
+                                                 qp, lam, lfnst_active))
+        return real_tq(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw, sdh,
+                       lfnst_active)
 
     def guarded_mip(refs, org, rows, pred, best, pad, bd):
         seen["mip"].append(mip_margin(refs, org, rows, pred, pad))
         return real_mip(refs, org, rows, pred, best, pad, bd)
 
+    def guarded_k5(orgs, pred, rows, pad, qp, bd, rd_quant, lam, modes, mip_code=None,
+                   mts=False, lfnst=False, ts_max=0, sdh=False):
+        if mts or lfnst or ts_max:
+            *m, gaps = k5_margin(orgs, pred, rows, pad, qp, lam, modes, mip_code, mts,
+                                 lfnst, ts_max, sdh)
+            seen["k5"].append(m)
+        else:
+            m, gaps = tq_margin(orgs[0], pred[0], rows.numpy(), pad, 1, qp, lam, None, sdh)
+            seen["tq"].append(m)
+        seen["sdh"] += gaps
+        return real_k5(orgs, pred, rows, pad, qp, bd, rd_quant, lam, modes, mip_code,
+                       mts, lfnst, ts_max, sdh)
+
     monkeypatch.setattr(twf, "tq", guarded)
     monkeypatch.setattr(twf, "mip_select", guarded_mip)
+    monkeypatch.setattr(twf, "tq_mts", guarded_k5)
     yield seen
     assert seen["tq"] and min(seen["tq"]) > MARGIN, min(seen["tq"])
     assert not seen["sdh"] or min(seen["sdh"]) > MARGIN, min(seen["sdh"])
     assert not seen["mip"] or max(top for top, _ in seen["mip"]) < 1 << 24
+    assert not seen["k5"] or min(min(m) for m in seen["k5"]) > MARGIN, \
+        [min(c) for c in zip(*seen["k5"])]
 
 
 def _encoders(name):
