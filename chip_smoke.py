@@ -20,32 +20,40 @@ Phases, each of which fails the run on error (nothing is caught):
 6. The encode kernels K1 (reference gather), K2 (intra RMD / DM), K3 (MIP
    candidates against K2's winner), K4 (the chroma transform-quantisation,
    with and without sign-data hiding, with the single-tree LFNST region
-   mask), K5 (the luma candidate transform-quantisation: DCT-2,
-   DST-7/DCT-8, LFNST, transform skip; and with those tools off, the luma
-   TQ of the earlier configurations) and K7 (wave-step scatter, with the mode, MIP, mts_idx
-   and lfnst_idx code grids) against their plain PyTorch versions on the
+   mask, with and without the joint Cb-Cr trial), K5 (the luma candidate
+   transform-quantisation: DCT-2, DST-7/DCT-8, LFNST, transform skip; and
+   with those tools off, the luma TQ of the earlier configurations), K6a
+   (CCLM against the chroma DM prediction) and K7 (wave-step scatter, with
+   the mode, MIP, mts_idx and lfnst_idx code grids, and the chroma steps'
+   CCLM / joint Cb-Cr grid) against their plain PyTorch versions on the
    card, exactly, on seeded inputs: every CU size of both tile classes,
    luma and chroma, all 67 modes on every CU size through the chroma DM
-   predictor, frame edges and partly coded neighbourhoods, QP 0, 22, 37,
-   full-swing residuals, and residuals on which transform skip and LFNST
-   win (every K5 candidate kind wins somewhere); timed at the main path's
-   batch shapes.
+   predictor, frame edges, CTU-top rows and partly coded neighbourhoods
+   (every left/above availability pair of K6a), QP 0, 22, 37, full-swing
+   residuals, residuals on which transform skip and LFNST win (every K5
+   candidate kind wins somewhere), K6a's two-sample, flat and clamped
+   templates, LM winning, DM winning, exact SATD ties and the CCLM gate off,
+   and the joint Cb-Cr TU winning, losing and quantising to zero on odd
+   residual differences of both signs; timed at the main path's batch
+   shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
-   + deblocking + SAO configuration at QP 22 through
+   + CCLM + joint Cb-Cr + deblocking + SAO configuration at QP 22 through
    ``WavefrontEncoder.encode_frames``; the previous slice's configuration
-   (MIP and SDH only) beside it, cold runs then warm runs old, new, new,
-   old; stage times, wave steps, launches of every kernel, the MIP, MTS,
-   LFNST and transform-skip CUs, hash SEI against an MD5 of the returned
-   recon, luma PSNR.
+   (without CCLM and joint Cb-Cr) beside it, cold runs then warm runs old,
+   new, new, old; stage times, wave steps, launches of every kernel, the
+   MIP, MTS, LFNST and transform-skip luma CUs, the LM chroma CUs and joint
+   Cb-Cr TUs, hash SEI against an MD5 of the returned recon, luma PSNR.
 8. The same kernels against their plain versions on the real schedule rows
    of the main path's first 48 wave steps and of its first 16 with chroma
    rows.
-9. 416x240 x 2 frames encoded with ``device="cpu"`` (plain versions) and on
-   the card in three configurations (no tools, at 208x120; MIP and SDH;
-   MIP, SDH, MTS, LFNST and transform skip): the bitstreams must be
-   byte-identical.
+9. Frames encoded with ``device="cpu"`` (plain versions) and on the card
+   in five configurations: no tools at 208x120; MIP and SDH, and MIP, SDH,
+   MTS, LFNST and transform skip, at 416x240 on natural content; this
+   slice's at 416x240 in dual tree and at 208x120 in single tree, on
+   content where LM and the joint Cb-Cr trial win (both must fire). The
+   bitstreams must be byte-identical.
 10. One warm frame's wave scan under torch.profiler: device time by kernel
     and the device's idle share.
 
@@ -73,6 +81,8 @@ from pmp_vvc_tpu_torch.codec.headers import VVCConfig
 from pmp_vvc_tpu_torch.data.synthcontent import natural_sequence
 from pmp_vvc_tpu_torch.data.yuv import blocks_for_sequence, write_yuv420
 from pmp_vvc_tpu_torch.ops import tq_generic as ttq
+from pmp_vvc_tpu_torch.ops.cclm_generic import (
+    cclm_costs, cclm_models, cclm_neighbours, cclm_select, cclm_select_reference)
 from pmp_vvc_tpu_torch.ops.intra_generic import (
     gather_plane, intra_rmd, intra_rmd_reference, ref_gather, ref_gather_reference)
 from pmp_vvc_tpu_torch.ops.mip_generic import mip_select, mip_select_reference
@@ -357,9 +367,11 @@ ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
     "mip_rmd": (mip_select, "pmp_vvc_tpu_torch/csrc/mip_rmd.cu",
                 "pmp_vvc_tpu/ops/mip_generic.py:54"),
     "tq": (tq, "pmp_vvc_tpu_torch/csrc/tq.cu",
-           "pmp_vvc_tpu/ops/tq_generic.py:96"),
+           "pmp_vvc_tpu/ops/tq_generic.py:96, pmp_vvc_tpu/codec/wavefront.py:598"),
     "tq_mts": (tq_mts, "pmp_vvc_tpu_torch/csrc/tq_mts.cu",
                "pmp_vvc_tpu/codec/wavefront.py:188"),
+    "cclm": (cclm_select, "pmp_vvc_tpu_torch/csrc/cclm.cu",
+             "pmp_vvc_tpu/ops/cclm_generic.py:40"),
     "wave_scatter": (wf.wave_scatter, "pmp_vvc_tpu_torch/csrc/wave_scatter.cu",
                      "pmp_vvc_tpu/codec/wavefront.py:655"),
 }
@@ -374,10 +386,14 @@ ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
 # per-sample and per-slot counts (transform skip: the quantiser and the
 # sample work only), plus two operations per multiply-add of its transforms
 # and 16 x 48 LFNST products and one per sample of its legality count
-# (``k5_ops``). Bounded against the float32 rate outside the tensor cores,
-# which the int32 rate does not exceed.
+# (``k5_ops``). K6a downsamples one luma sample pair per chroma sample (7
+# operations), predicts U and V (4 each) and scores four SATDs; the joint
+# Cb-Cr trial adds a third round trip and, per sample, the joint residual and
+# two reconstructions with their SSE. Bounded against the float32 rate
+# outside the tensor cores, which the int32 rate does not exceed.
 OPS_PRED, OPS_SATD, OPS_QUANT, OPS_SAMPLE = 12, 8, 30, 10
 OPS_UPSAMPLE, OPS_REDUCED, OPS_SDH_SLOT, OPS_SDH_MOVE = 10, 20, 5, 14
+OPS_DOWNSAMPLE, OPS_LM = 7, 4
 
 
 # The coding tools of each slice's configuration, oldest first; the last is
@@ -387,15 +403,18 @@ TOOLS = {
     "MIP + SDH": dict(mip=True, sign_hiding=True),
     "MIP + SDH + MTS + LFNST + TS": dict(mip=True, sign_hiding=True, mts_intra=True,
                                           lfnst=True, transform_skip=True),
+    "MIP + SDH + MTS + LFNST + TS + CCLM + JCCR": dict(
+        mip=True, sign_hiding=True, mts_intra=True, lfnst=True, transform_skip=True,
+        cclm=True, joint_cbcr=True),
 }
 MAIN, PREVIOUS = list(TOOLS)[-1], list(TOOLS)[-2]
 
 
-def enc_cfg(w: int, h: int, tools: str = MAIN) -> VVCConfig:
-    """The slices' configuration: dual tree, map-driven MTT at L3, the
-    bench's chroma QP table, deblocking and SAO, and the coding tools
+def enc_cfg(w: int, h: int, tools: str = MAIN, dual_tree: bool = True) -> VVCConfig:
+    """The slices' configuration: dual tree (or single), map-driven MTT at
+    L3, the bench's chroma QP table, deblocking and SAO, and the coding tools
     ``TOOLS[tools]`` (transform skip up to 32x32); every other tool off."""
-    return VVCConfig(width=w, height=h, qp=ENC_QP, dual_tree=True, sao=True,
+    return VVCConfig(width=w, height=h, qp=ENC_QP, dual_tree=dual_tree, sao=True,
                      deblocking_disabled=False, chroma_qp_start_minus26=-9,
                      chroma_qp_points=((9, 12), (4, 5), (11, 7)),
                      log2_min_cb=2, max_mtt_depth_intra=3, max_bt_intra=32,
@@ -461,7 +480,7 @@ def scatter_both(rows, pad, scale, planes, rec, lev, grids, errs):
 def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
     """``_Scan.step`` with each kernel held against its plain version on
     the same inputs; the kernels' results carry the state forward."""
-    ry, ru, rv, cY, cU, cV, mg, tg, pg, _, lg = scan.state
+    ry, ru, rv, cY, cU, cV, mg, tg, pg, cg, lg = scan.state
     bd = scan.bd
     lf = None
     if kind != "chroma":
@@ -489,30 +508,43 @@ def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
     modes, pred = intra_rmd(refs, None, mg, row, Pc, False, bd)
     _cmp("intra_rmd", [modes, pred],
          list(intra_rmd_reference(refs, None, mg, row, Pc, False, bd)), errs)
+    code = torch.zeros_like(row[:, 0])
+    if scan.cclm:
+        args = (refs, ry, [scan.ou, scan.ov], scan.og4c, row, pred, Pc, bd)
+        pred, code = cclm_select(*args)
+        _cmp("cclm", [pred, code], list(cclm_select_reference(*args)), errs)
     args = ([scan.ou, scan.ov], pred, row, Pc, 2, scan.qp_c, bd, scan.rd_quant,
-            scan.lam, scan.dw_c, scan.sdh, lf)
-    lev, rec = tq(*args)
-    _cmp("tq", [lev, rec], list(tq_reference(*args)), errs)
-    scatter_both(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev, [], errs)
+            scan.lam, scan.dw_c, scan.sdh, lf, scan.jccr, scan.qp_j)
+    out = tq(*args)
+    _cmp("tq", list(out), list(tq_reference(*args)), errs)
+    if scan.jccr:
+        code = code + 2 * out[2]
+    grids = [(cg, code)] if scan.cclm or scan.jccr else []
+    scatter_both(row, Pc, 2, [(ru, cU), (rv, cV)], out[1], out[0], grids, errs)
 
 
-def sdh_groups(orgs, pred, rows, P: int, scale: int, qp: int, lam: float) -> tuple[int, int]:
+def resid_tiles(orgs, pred, rows, P: int, scale: int, joint: bool = False) -> list:
+    """Each plane's residual tiles (original - prediction over each CU), or
+    with ``joint`` the joint Cb-Cr residual round((res_u - res_v) / 2)."""
+    tiles = [ttq._orgs_inside(o, rows, P, scale) for o in orgs]
+    res = [(t[0] - pred[i]) * t[1] for i, t in enumerate(tiles)]
+    return [torch.round((res[0] - res[1]).double() / 2).int()] if joint else res
+
+
+def sdh_groups(resids, rows, P: int, scale: int, qp: int, lam: float) -> tuple[int, int]:
     """(coefficient groups K4's sign-data hiding scans, groups whose parity it
-    corrects) in one K4 call, counted with the plain pieces."""
-    fi, xs, ys, ws, hs, _, ok = unpack_rows(rows, scale)
+    corrects) over these residual tiles (``resid_tiles``) in one K4 call,
+    counted with the plain pieces."""
+    _, _, _, ws, hs, _, ok = unpack_rows(rows, scale)
     lw, lh = ttq._log2(ws), ttq._log2(hs)
     per_tb = torch.from_numpy((_cg_tables(P) >= 0).any(-1).sum(-1)).to(rows.device)
-    d = torch.arange(P, device=rows.device, dtype=torch.int32)
-    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
     fixed = 0
-    for i, org in enumerate(orgs):
-        tile = gather_plane(org, fi[:, None, None], ys[:, None, None] + d[None, :, None],
-                            xs[:, None, None] + d[None, None, :])
-        coef = ttq.forward_transform_generic((tile - pred[i]) * inside, ws, hs, bit_depth=BD)
+    for resid in resids:
+        coef = ttq.forward_transform_generic(resid, ws, hs, bit_depth=BD)
         lev = ttq.rd_cleanup_generic(ttq.quantize_generic(coef, ws, hs, qp, bit_depth=BD),
                                      coef, ws, hs, qp, lam, bit_depth=BD)
         fixed += int((sdh_moves(lev, coef, ws, hs, qp, bit_depth=BD)[0] & ok[:, None]).sum())
-    return len(orgs) * int(per_tb[(lw * 7 + lh).long()][ok].sum()), fixed
+    return len(resids) * int(per_tb[(lw * 7 + lh).long()][ok].sum()), fixed
 
 
 def k5_ops(rows: np.ndarray, P: int, k5) -> tuple[int, int]:
@@ -554,12 +586,14 @@ def k5_ops(rows: np.ndarray, P: int, k5) -> tuple[int, int]:
 
 
 def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
-                  modes=None, codes=None, sdh=None, k5=None,
+                  modes=None, codes=None, sdh=None, k5=None, jccr=None,
                   ngrids: int = 0) -> tuple[float, str, int, int]:
     """(bound ms, bound_by, bytes, ops) of one call on these rows. ``modes``:
     K2's luma modes; ``codes``: K3's MIP codes; ``sdh``: (groups scanned,
-    groups corrected) of a K4 call with sign-data hiding; ``k5``: what
-    ``k5_ops`` reads of a K5 call; ``ngrids``: K7's code grids."""
+    groups corrected) of a K4 call with sign-data hiding; ``jccr``: the same
+    for the joint Cb-Cr TU of a K4 call with the trial ((0, 0) without
+    sign-data hiding); ``k5``: what ``k5_ops`` reads of a K5 call;
+    ``ngrids``: K7's code grids."""
     live = rows[rows[:, 6] > 0]
     w, h = live[:, 3] // scale, live[:, 4] // scale
     B, pad_rows = len(rows), len(rows) - len(live)
@@ -593,11 +627,23 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
     elif name == "tq":
         kw, kh = np.minimum(w, 32), np.minimum(h, 32)
         macs = h * kw * w + kh * kw * h + h * kw * kh + h * w * kw
-        ops = n * int((2 * macs + OPS_QUANT * kw * kh + OPS_SAMPLE * w * h).sum())
+        n_tq = n + (jccr is not None)   # the joint TU is a third round trip
+        ops = n_tq * int((2 * macs + OPS_QUANT * kw * kh + OPS_SAMPLE * w * h).sum())
         nbytes = n * (int((w * h).sum()) * 4 + B * P * P * 4 * 3) + B * 32
         if sdh is not None:             # the groups' slot tables and moves
             ops += sdh[0] * 16 * OPS_SDH_SLOT + sdh[1] * 32 * OPS_SDH_MOVE
             nbytes += sdh[0] // n * 16 * 4
+        if jccr is not None:            # joint residual, two reconstructions, flag
+            ops += jccr[0] * 16 * OPS_SDH_SLOT + jccr[1] * 32 * OPS_SDH_MOVE + \
+                2 * OPS_SAMPLE * int((w * h).sum())
+            nbytes += B * 4
+    elif name == "cclm":
+        # the luma window (rows ly-2 .. ly+2h-1, columns lx-3 .. lx+2w-1), two
+        # originals and two DM predictions in, four template samples per
+        # plane, the order grid's two cells; two prediction tiles and a flag out
+        nbytes = int(((2 * h + 2) * (2 * w + 3)).sum()) * 4 + int((w * h).sum()) * 4 * 4 + \
+            len(live) * (2 * 4 * 4 + 2 * 4) + B * (2 * P * P * 4 + 4 + 32)
+        ops = int((w * h).sum()) * (OPS_DOWNSAMPLE + 2 * OPS_LM + 4 * OPS_SATD)
     elif name == "tq_mts":
         ops, groups = k5_ops(rows, P, k5)
         nbytes = int((w * h).sum()) * 4 + B * P * P * 4 * 3 + B * (32 + 4 * 4) + \
@@ -657,15 +703,77 @@ def k5_inputs(orgs, rows, P: int, pred, noisy, best, codes, seed: int):
              modes, mip)]
 
 
+def cclm_luma(rec_c: np.ndarray, seed: int) -> np.ndarray:
+    """A luma recon for K6a's seeded inputs: the chroma recon ``rec_c`` (2
+    frames) upsampled 2x with noise, so that LM fits the chroma; a flat
+    64x64 block (flat templates) and a 64x64 block of values 500-502 under
+    chroma of a wide range (slopes clamped to +-15)."""
+    rng = np.random.RandomState(seed)
+    up = np.repeat(np.repeat(rec_c, 2, 1), 2, 2)
+    ry = up + rng.randint(-3, 4, up.shape)
+    ry[:, 64:128, 128:192] = 600
+    ry[:, 128:192, 64:128] = 500 + rng.randint(0, 3, (2, 64, 64))
+    return ry.clip(0, 1023).astype(np.int32)
+
+
+CCLM_CASES = ("left+above", "left only", "above only", "neither", "CTU top", "frame edge",
+              "two samples", "flat", "clamped", "LM chosen", "DM better", "SATD tie",
+              "LM better, gate off")
+
+
+def cclm_cases(refs, ry, orgs, og, rows, pred, P: int, use) -> np.ndarray:
+    """Counts of K6a's cases over the live rows of one call (``CCLM_CASES``,
+    in that order), from the plain pieces and the call's ``use``."""
+    fi, cxs, cys, cws, chs, _, ok = unpack_rows(rows, 2)
+    la, aa = cclm_neighbours(og, rows)
+    _, _, case = cclm_models(ry, fi, cxs, cys, cws, chs, pad_c=P, top_u=refs[0, 0],
+                             left_u=refs[0, 1], top_v=refs[1, 0], left_v=refs[1, 1],
+                             bit_depth=BD, left_avail=la, above_avail=aa)
+    _, cost_dm, cost_lm = cclm_costs(refs, ry, orgs, og, rows, pred, P, BD)
+    gate = (rows[:, 7] & 1) > 0
+    Hc, Wc = orgs[0].shape[1:]
+    masks = (la & aa, la & ~aa, ~la & aa, ~la & ~aa, aa & (2 * cys % 128 == 0),
+             (cxs + cws == Wc) | (cys + chs == Hc), case["two"], case["flat"],
+             case["clamped"][0] | case["clamped"][1], use > 0, cost_dm < cost_lm,
+             cost_dm == cost_lm, ~gate & (cost_lm < cost_dm))
+    return np.array([int((m & ok).sum()) for m in masks])
+
+
+JCCR_CASES = ("joint won", "joint lost", "joint TU zero", "odd difference > 0",
+              "odd difference < 0")
+
+
+def jccr_cases(orgs, pred, rows, P: int, qp_j: int, lam: float, dw: float, sdh: bool,
+               active, use) -> np.ndarray:
+    """Counts of the joint Cb-Cr trial's cases over the live rows of one K4
+    call (``JCCR_CASES``), from the plain pieces and the call's ``use``."""
+    tiles = [ttq._orgs_inside(o, rows, P, 2) for o in orgs]
+    (ou, inside, ws, hs, ok), (ov, *_) = tiles
+    d = (ou - pred[0]) * inside - (ov - pred[1]) * inside
+    joint = torch.round(d.double() / 2).int()
+    act = None if active is None else active.bool()
+    lev_j = ttq._tq_tile(pred[0] + joint, pred[0], inside, ws, hs, ok, qp_j, BD, True, lam,
+                         dw, sdh, act)[0]
+    cbf_j = (lev_j != 0).flatten(1).any(1)
+    odd = (d % 2 != 0) & inside & ok[:, None, None]
+    return np.array([int(((use > 0) & ok).sum()), int((cbf_j & (use == 0) & ok).sum()),
+                     int((~cbf_j & ok).sum()), int((odd & (d > 0)).sum()),
+                     int((odd & (d < 0)).sum())])
+
+
 def phase_encode_kernels() -> tuple[dict, dict]:
-    """K1/K2/K3/K4/K5/K7 against their plain versions on seeded inputs, then
-    their times at the main path's batch shapes."""
+    """K1/K2/K3/K4/K5/K6a/K7 against their plain versions on seeded inputs,
+    then their times at the main path's batch shapes."""
     errs: dict = {}
     max_level = sdh_changed = mip_wins = mip_rows = region_cut = 0
     k5_won = np.zeros(5, np.int64)
+    cclm_seen = np.zeros(len(CCLM_CASES), np.int64)
+    jccr_seen = np.zeros(len(JCCR_CASES), np.int64)
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
         rows_np = kernel_rows(P, scale, seed=P + qp, width=width, height=height)
+        if scale == 2:                  # K6a's CCLM gate, random
+            rows_np[:, 7] = np.random.RandomState(P + qp).randint(0, 2, len(rows_np))
         rec, org, og = kernel_planes(P + scale + qp, width, height, scale)
         dev = lambda a: torch.from_numpy(a).to(DEVICE)
         rows, og_t = dev(rows_np), dev(og)
@@ -683,6 +791,8 @@ def phase_encode_kernels() -> tuple[dict, dict]:
             refs, orgs[0] if luma else None, mg, rows, P, luma, BD)), errs)
         noise = np.random.RandomState(qp).randint(-300, 301, tuple(pred.shape))
         noisy = (pred + torch.from_numpy(noise.astype(np.int32)).to(DEVICE)).clamp(0, 1023)
+        active = dev(np.random.RandomState(qp).randint(0, 3, len(rows_np)).astype(np.int32)
+                     * (np.arange(len(rows_np)) % 3 == 0))
         grids = []
         if luma:
             args = (refs, orgs[0], rows, pred, modes, P, BD)
@@ -724,14 +834,40 @@ def phase_encode_kernels() -> tuple[dict, dict]:
                 refs67, None, mg67, rows67, P, False, BD)), errs)
             check(set(got[0][rows67[:, 6] > 0].tolist()) == set(range(67)),
                   "the DM sweep did not reach every mode")
+            # K6a, and K4's joint Cb-Cr trial after it: V = 1023 - U (recon
+            # and original), so that V's residuals mirror U's; the luma recon
+            # follows the U recon (``cclm_luma``)
+            recs_c, orgs_c = [dev(rec), dev(1023 - rec)], [dev(org), dev(1023 - org)]
+            ry = dev(cclm_luma(rec, seed=P + qp))
+            refs_c = ref_gather(recs_c, og_t, rows, P, 2, BD)
+            _cmp("ref_gather", refs_c, ref_gather_reference(recs_c, og_t, rows, P, 2, BD), errs)
+            _, dm = intra_rmd(refs_c, None, mg, rows, P, False, BD)
+            _cmp("intra_rmd", dm, intra_rmd_reference(refs_c, None, mg, rows, P, False, BD)[1],
+                 errs)
+            args = (refs_c, ry, orgs_c, og_t, rows, dm, P, BD)
+            pred6, use_lm = cclm_select(*args)
+            _cmp("cclm", [pred6, use_lm], list(cclm_select_reference(*args)), errs)
+            cclm_seen += cclm_cases(*args[:7], use_lm)
+            # an exact SATD tie on every third CU: its DM prediction is LM's
+            tie = (torch.arange(len(rows_np), device=DEVICE) % 3 == 0)[None, :, None, None]
+            args = (*args[:5], torch.where(tie, cclm_costs(*args)[0], dm).contiguous(), P, BD)
+            got = cclm_select(*args)
+            _cmp("cclm", list(got), list(cclm_select_reference(*args)), errs)
+            cclm_seen += cclm_cases(*args[:7], got[1])
+            qp_j = qp + 13              # a joint QP of its own
+            for (o, p), sdh, act in itertools.product(
+                    ((orgs_c, pred6), (orgs, pred)), (False, True), (None, active)):
+                args = (o, p, rows, P, 2, qp + 12, BD, True, lam, 1.2599, sdh, act, True, qp_j)
+                got = tq(*args)
+                _cmp("tq", list(got), list(tq_reference(*args)), errs)
+                jccr_seen += jccr_cases(o, p, rows, P, qp_j, lam, 1.2599, sdh, act, got[2])
+            grids = [(torch.zeros_like(mg), use_lm + 2 * got[2])]
         # the predictions, noisy ones, and full-swing residuals (original
         # 1023 against a zero prediction) for the largest levels; the DCT-2
         # TQ (luma: K5 with its tools off; chroma: K4) with sign-data hiding
         # off and on, and for chroma with the single-tree LFNST region on a
         # random third of the CUs
         flat = [torch.full_like(o, 1023) for o in orgs]
-        active = dev(np.random.RandomState(qp).randint(0, 3, len(rows_np)).astype(np.int32)
-                     * (np.arange(len(rows_np)) % 3 == 0))
         for o, p in ((orgs, pred), (orgs, noisy.contiguous()), (flat, torch.zeros_like(pred))):
             if luma:
                 args = (o, p, rows, P, qp + 12, BD, True, lam, modes)
@@ -758,12 +894,17 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     check(0 < mip_wins < mip_rows, f"MIP won {mip_wins} of {mip_rows} CUs")
     check(region_cut > 0, "the LFNST region removed no chroma level")
     check((k5_won > 0).all(), f"some K5 candidate kind never won: {k5_won}")
-    log(f"[encode-kernels] K1/K2/K3/K4/K5/K7 equal to their plain versions on every CU "
-        f"size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
+    check((cclm_seen > 0).all(), f"some K6a case never occurred: {cclm_seen}")
+    check((jccr_seen > 0).all(), f"some joint Cb-Cr case never occurred: {jccr_seen}")
+    log(f"[encode-kernels] K1/K2/K3/K4/K5/K6a/K7 equal to their plain versions on every "
+        f"CU size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
         f"largest |level| {max_level}; K3 chose MIP for {mip_wins} of {mip_rows} CUs; "
         f"sign-data hiding changed {sdh_changed} levels; the LFNST region removed "
         f"{region_cut} chroma levels; K5 winners with all tools: "
-        + ", ".join(f"{k} {int(c)}" for k, c in zip(K5_KINDS, k5_won)))
+        + ", ".join(f"{k} {int(c)}" for k, c in zip(K5_KINDS, k5_won))
+        + "; K6a cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CCLM_CASES, cclm_seen))
+        + "; joint Cb-Cr cases: "
+        + ", ".join(f"{k} {int(c)}" for k, c in zip(JCCR_CASES, jccr_seen)))
     return errs, phase_encode_kernel_times(width, height)
 
 
@@ -772,18 +913,22 @@ def phase_encode_kernel_times(width: int, height: int) -> dict:
     batch shapes: each tile class at its batch (DEFAULT_BATCH), the main
     path's tools. The JSON line carries each kernel at the class of the main
     path's most numerous steps that run it: the 32-pad luma class, and for
-    K4 the 16-pad chroma class. K4 is also timed without sign-data hiding,
-    and K5 with its tools off (the luma TQ of the configurations without
-    them), with and without sign-data hiding."""
+    K4 and K6a the 16-pad chroma class. K4 is also timed without the joint
+    Cb-Cr trial, with and without sign-data hiding, and K5 with its tools off
+    (the luma TQ of the configurations without them), with and without
+    sign-data hiding. The chroma planes are V = 1023 - U, and the luma recon
+    follows U (``cclm_luma``), so that LM and the joint trial win on some
+    CUs; every chroma row has the CCLM gate set."""
     times = {}
     for P, scale, B in ((32, 1, 16), (64, 1, 8), (16, 2, 16), (32, 2, 8)):
         luma = scale == 1
         rows_np = kernel_rows(P, scale, seed=1, width=width, height=height)[:B]
+        rows_np[:, 7] = 0 if luma else 1
         rec, org, og = kernel_planes(1, width, height, scale)
         n = 1 if luma else 2
         rows, og_t = torch.from_numpy(rows_np).to(DEVICE), torch.from_numpy(og).to(DEVICE)
-        recs = [torch.from_numpy(rec).to(DEVICE) for _ in range(n)]
-        orgs = [torch.from_numpy(org).to(DEVICE) for _ in range(n)]
+        recs = [torch.from_numpy(r).to(DEVICE) for r in (rec, 1023 - rec)[:n]]
+        orgs = [torch.from_numpy(o).to(DEVICE) for o in (org, 1023 - org)[:n]]
         levs = [torch.zeros(r.shape, dtype=torch.int16, device=DEVICE) for r in recs]
         mg = torch.from_numpy(np.random.RandomState(2).randint(
             0, 67, (2, height // 4, width // 4)).astype(np.uint8)).to(DEVICE)
@@ -821,13 +966,27 @@ def phase_encode_kernel_times(width: int, height: int) -> dict:
             lev, rc, tr, lf = k5_out["tq_mts"]
             grids = [(mg, best), (pg, codes), (tg, tr), (lg, lf)]
         else:
-            tq_args = (orgs, pred, rows, P, scale, ENC_QP + 12, BD, True, lam, 1.2599)
-            lev, rc = tq(*tq_args, sdh=True)
-            calls["tq"] = (lambda: tq(*tq_args, sdh=True),
-                           lambda: tq_reference(*tq_args, sdh=True))
-            calls["tq_no_sdh"] = (lambda: tq(*tq_args), lambda: tq_reference(*tq_args))
-            extra["tq"] = dict(sdh=sdh_groups(orgs, pred, rows, P, scale, ENC_QP + 12, lam))
-            grids = []
+            ry = torch.from_numpy(cclm_luma(rec, 1)).to(DEVICE)
+            k6_args = (refs, ry, orgs, og_t, rows, pred, P, BD)
+            pred, use_lm = cclm_select(*k6_args)
+            calls["cclm"] = (lambda: cclm_select(*k6_args),
+                             lambda: cclm_select_reference(*k6_args))
+            # the main path's K4 (sign-data hiding and the joint Cb-Cr trial
+            # at the joint QP, which equals the chroma QP without offsets),
+            # then without the trial, with and without sign-data hiding
+            qp_c = ENC_QP + 12
+            tq_args = (orgs, pred, rows, P, scale, qp_c, BD, True, lam, 1.2599)
+            lev, rc, joint = tq(*tq_args, sdh=True, jccr=True, qp_j=qp_c)
+            calls["tq"] = (lambda: tq(*tq_args, sdh=True, jccr=True, qp_j=qp_c),
+                           lambda: tq_reference(*tq_args, sdh=True, jccr=True, qp_j=qp_c))
+            calls["tq_no_jccr"] = (lambda: tq(*tq_args, sdh=True),
+                                   lambda: tq_reference(*tq_args, sdh=True))
+            calls["tq_no_jccr_no_sdh"] = (lambda: tq(*tq_args), lambda: tq_reference(*tq_args))
+            sdh = sdh_groups(resid_tiles(orgs, pred, rows, P, scale), rows, P, scale, qp_c, lam)
+            extra["tq"] = dict(sdh=sdh, jccr=sdh_groups(
+                resid_tiles(orgs, pred, rows, P, scale, joint=True), rows, P, scale, qp_c, lam))
+            extra["tq_no_jccr"] = dict(sdh=sdh)
+            grids = [(pg, use_lm + 2 * joint)]
         planes = list(zip(recs, levs))
         calls["wave_scatter"] = (
             lambda: wf.wave_scatter(rows, P, scale, planes, rc, lev, grids),
@@ -838,14 +997,16 @@ def phase_encode_kernel_times(width: int, height: int) -> dict:
                                                    P, scale, n, **extra.get(name, {}))
             ms, call = graph_ms(kernel), call_ms(kernel, 500)
             plain_ms = call_ms(plain, 20)
-            if (P, scale) == ((16, 2) if name == "tq" else (32, 1)):
+            if (P, scale) == ((16, 2) if name in ("tq", "cclm") else (32, 1)):
                 times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             log(f"[encode-kernels] {name}: {B} CUs, {P}-pad {'luma' if luma else 'chroma'}: "
                 f"device time per call (CUDA graph) {ms:.6f} ms; called from Python "
                 f"{call:.6f} ms; plain version from Python {plain_ms:.6f} ms; bound "
                 f"{bound:.6f} ms by {by} ({nbytes} B, {ops} ops)"
                 + (f"; sign-data hiding corrects {extra['tq']['sdh'][1]} of "
-                   f"{extra['tq']['sdh'][0]} groups" if name == "tq" else "")
+                   f"{extra['tq']['sdh'][0]} groups; the joint TU wins on "
+                   f"{int(joint.sum())} CUs" if name == "tq" else "")
+                + (f"; LM chosen for {int(use_lm.sum())} CUs" if name == "cclm" else "")
                 + (f"; winners {k5_kinds(*k5_out[name][::2], k5_out[name][3], rows).tolist()}"
                    if name in k5_out else ""))
     return times
@@ -912,12 +1073,50 @@ def luma_codes(enc, maps_l, maps_c, frames: int) -> dict:
     return out
 
 
+def chroma_codes(enc, maps_l, maps_c, frames: int) -> dict:
+    """Counts over the chroma CUs of the last encode (the chroma tree's
+    leaves in dual tree, the CUs in single tree): all, LM, joint Cb-Cr TUs,
+    from the returned code grid."""
+    cg = enc._dev_result[9]
+    out = dict(cus=0, lm=0, joint=0)
+    for f in range(frames):
+        leaves, cleaves = enc._collect_all(None, maps_l[f], maps_c[f])
+        for x, y, *_ in leaves if cleaves is None else cleaves:
+            code = int(cg[f, y // 4, x // 4])
+            out["cus"] += 1
+            out["lm"] += code & 1
+            out["joint"] += code >> 1 & 1
+    return out
+
+
+def chroma_tool_frames(w: int, h: int, n: int, seed0: int = 3) -> list:
+    """n seeded 10-bit (y, u, v) frames where LM and the joint Cb-Cr trial
+    win: a textured luma; on the left half chroma anti-correlated between U
+    and V (as the JAX package's joint Cb-Cr test has it), on the right half
+    chroma linear in the 2x2-averaged luma."""
+    out = []
+    for f in range(n):
+        rng = np.random.RandomState(seed0 + f)
+        yy, xx = np.mgrid[0:h, 0:w]
+        y = np.clip(128 + 60 * np.sin(xx / 13.) * np.cos(yy / 17.) + rng.randn(h, w) * 8,
+                    0, 255).astype(np.int32) << 2
+        base = 30 * np.sin(xx[::2, ::2] / 9.) + rng.randn(h // 2, w // 2) * 6
+        u = np.clip(128 + base, 0, 255).astype(np.int32) << 2
+        v = np.clip(128 - base, 0, 255).astype(np.int32) << 2
+        ds = (y[0::2, 0::2] + y[1::2, 0::2] + y[0::2, 1::2] + y[1::2, 1::2] + 2) >> 2
+        right = np.s_[:, w // 4:]
+        u[right] = np.clip(160 + ds[right] // 2, 0, 1023)
+        v[right] = np.clip(1000 - (3 * ds[right]) // 4, 0, 1023)
+        out.append((y, u, v))
+    return out
+
+
 def phase_encode(preds: dict):
     """The map-driven encode at 1920x1080: this slice's configuration (MIP,
-    SDH, MTS, LFNST, TS) and the previous slice's (MIP and SDH), a cold run
-    of one frame each, then warm runs of both frames in the order old, new,
-    new, old; the first warm run of this slice's is the main path's, with
-    every kernel's launches counted."""
+    SDH, MTS, LFNST, TS, CCLM, JCCR) and the previous slice's (without CCLM
+    and JCCR), a cold run of one frame each, then warm runs of both frames in
+    the order old, new, new, old; the first warm run of this slice's is the
+    main path's, with every kernel's launches counted."""
     frames = natural_sequence(ENC_W, ENC_H, ENC_FRAMES, seed0=7, bit_depth=BD)
     t0 = time.perf_counter()
     maps_l, maps_c = frame_maps(preds, frames, ENC_W, ENC_H)
@@ -938,10 +1137,13 @@ def phase_encode(preds: dict):
     codes = luma_codes(enc, maps_l, maps_c, ENC_FRAMES)
     for tool in ("mip", "mts", "lfnst"):
         check(codes[tool] > 0, f"no CU of the encode was coded with {tool}")
+    cc = chroma_codes(enc, maps_l, maps_c, ENC_FRAMES)
     log(f"[encode] {ENC_W}x{ENC_H} x {ENC_FRAMES} frames, QP {ENC_QP}, dual tree, "
         f"{MAIN}: {enc.steps} wave steps; launches {launches}; of {codes['cus']} luma "
         f"CUs, {codes['mip']} coded with MIP, {codes['mts']} with DST-7/DCT-8, "
-        f"{codes['lfnst']} with LFNST, {codes['ts']} with transform skip")
+        f"{codes['lfnst']} with LFNST, {codes['ts']} with transform skip; of "
+        f"{cc['cus']} chroma CUs, {cc['lm']} coded with LM, {cc['joint']} with a joint "
+        f"Cb-Cr TU")
     timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} (2)")
     timed_encode(encs[PREVIOUS], frames, maps_l, maps_c, f"{PREVIOUS} (2)")
     nbytes = 0
@@ -967,7 +1169,8 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48,
     the kernels' results carrying the state from step to step."""
     enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=3, device=DEVICE)
     leaves = [enc._collect_all(None, maps_l[f], maps_c[f]) for f in range(len(frames))]
-    active, step_arr, ogs, ogcs = wf._pack_schedule(leaves, ENC_W, ENC_H, enc.batch)
+    active, step_arr, ogs, ogcs = wf._pack_schedule(leaves, ENC_W, ENC_H, enc.batch,
+                                                    enc.cfg.cclm)
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)
     F, H, W = len(frames), ENC_H, ENC_W
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=DEVICE)
@@ -975,12 +1178,13 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48,
              z((F, H // 2, W // 2), torch.int32), z((F, H, W), torch.int16),
              z((F, H // 2, W // 2), torch.int16), z((F, H // 2, W // 2), torch.int16)] + \
         [z((F, H // 4, W // 4), torch.uint8) for _ in range(5)]
-    qp_y, qp_c = enc._qps()
+    qp_y, qp_c, qp_j = enc._qps()
     cfg = enc.cfg
     scan = wf._Scan(state, *(up(np.stack([fr[i] for fr in frames])) for i in range(3)),
                     up(ogs), up(ogcs), qp_y, qp_c, BD, float(enc.lam), float(enc.dw_c), True,
                     mip=cfg.mip, sdh=cfg.sign_hiding, mts=cfg.mts_intra, lfnst=cfg.lfnst,
-                    ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0)
+                    ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0,
+                    cclm=cfg.cclm, jccr=cfg.joint_cbcr, qp_j=qp_j)
     errs: dict = {}
     rows = checked = chroma_checked = 0
     for t in range(next(iter(step_arr.values())).shape[0]):
@@ -998,33 +1202,55 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48,
         chroma_checked += check_t and chroma
         if t >= n_steps and chroma_checked >= n_chroma:
             break
+    check(set(ENC_KERNELS) <= set(errs),
+          f"kernels not run on the first steps: {set(ENC_KERNELS) - set(errs)}")
     log(f"[first-steps] the main path's first {n_steps} wave steps and first {n_chroma} "
         f"with chroma rows ({checked} steps, {rows} CU rows): every kernel equal to its "
         f"plain version (max_abs_err {errs})")
     return errs
 
 
+# Phase 9's encodes, CPU against card: (tools, dual tree, width, height,
+# content); the oldest at a quarter of 416x240, which keeps the plain
+# versions' CPU time down, and this slice's in both trees on content where LM
+# and the joint Cb-Cr trial win.
+CPU_VS_CARD = (
+    ("no tools", True, SMALL_W // 2, SMALL_H // 2, "natural"),
+    ("MIP + SDH", True, SMALL_W, SMALL_H, "natural"),
+    (PREVIOUS, True, SMALL_W, SMALL_H, "natural"),
+    (MAIN, True, SMALL_W, SMALL_H, "chroma tools"),
+    (MAIN, False, SMALL_W // 2, SMALL_H // 2, "chroma tools"),
+)
+
+
 def phase_encode_cpu_vs_card(preds: dict) -> None:
-    """416x240 x 2 on the CPU and on the card, in each slice's
-    configuration; the oldest (no tools) at a quarter of that area, 208x120
-    x 2, which keeps the plain versions' CPU time down."""
-    for i, tools in enumerate(TOOLS):
-        w, h = (SMALL_W, SMALL_H) if i else (SMALL_W // 2, SMALL_H // 2)
-        frames = natural_sequence(w, h, 2, seed0=7, bit_depth=BD)
+    """Two frames of each ``CPU_VS_CARD`` encode on the CPU and on the card:
+    the bitstreams must be byte-identical, and on the chroma-tools content
+    both LM and the joint Cb-Cr trial must win somewhere."""
+    for tools, dual, w, h, content in CPU_VS_CARD:
+        frames = natural_sequence(w, h, 2, seed0=7, bit_depth=BD) if content == "natural" \
+            else chroma_tool_frames(w, h, 2)
         maps_l, maps_c = frame_maps(preds, frames, w, h)
+        if not dual:
+            maps_c = [None, None]
         out = {}
         for device in ("cpu", DEVICE):
-            enc = wf.WavefrontEncoder(enc_cfg(w, h, tools), accel_level=3, device=device)
+            enc = wf.WavefrontEncoder(enc_cfg(w, h, tools, dual), accel_level=3, device=device)
             t0 = time.perf_counter()
             out[device] = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
-            log(f"[encode-cpu-vs-card] {w}x{h} x 2, {tools}, on "
-                f"{device}: {time.perf_counter() - t0:.3f} s, {enc.steps} wave steps")
+            log(f"[encode-cpu-vs-card] {w}x{h} x 2, {tools}, "
+                f"{'dual' if dual else 'single'} tree, {content} content, on {device}: "
+                f"{time.perf_counter() - t0:.3f} s, {enc.steps} wave steps")
         for f in range(2):
             check(out["cpu"][f][0] == out[DEVICE][f][0],
-                  f"frame {f} ({tools}): CPU and card bitstreams differ")
+                  f"frame {f} ({tools}, dual tree {dual}): CPU and card bitstreams differ")
+        cc = chroma_codes(enc, maps_l, maps_c, 2)
+        if content == "chroma tools":
+            check(cc["lm"] > 0 and cc["joint"] > 0,
+                  f"{tools}, dual tree {dual}: LM or the joint Cb-Cr trial never won ({cc})")
         log(f"[encode-cpu-vs-card] {tools}: bitstreams byte-identical "
             f"({[len(o[0]) for o in out[DEVICE]]} bytes); luma CUs "
-            f"{luma_codes(enc, maps_l, maps_c, 2)}")
+            f"{luma_codes(enc, maps_l, maps_c, 2)}; chroma CUs {cc}")
 
 
 def phase_encode_profile(frames, maps_l, maps_c) -> None:
@@ -1082,8 +1308,9 @@ def main() -> int:
     # library_ms is null: no single PyTorch call computes any of these
     # functions (the reference substitution, the 67-mode predictor with its
     # SATD argmin, the MIP candidates with their SATD argmin, the integer
-    # transform-quantisation round trip with sign-data hiding, the candidate
-    # round trips of MTS, LFNST and transform skip with their cost argmin, or
+    # transform-quantisation round trip with sign-data hiding and the joint
+    # Cb-Cr trial, the candidate round trips of MTS, LFNST and transform skip
+    # with their cost argmin, the CCLM template fit with its SATD choice, or
     # the step's masked scatters with their index arithmetic).
     for name, (_, source, replaces) in ENC_KERNELS.items():
         kernels.append({

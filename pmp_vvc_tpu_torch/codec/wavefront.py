@@ -14,15 +14,19 @@ launches, for each tile class with live rows, the wave-step kernels:
   K1 ``ref_gather``   reference rows with coding-order availability;
   K2 ``intra_rmd``    luma RMD + prediction, or chroma DM prediction;
   K3 ``mip_select``   (with ``mip``) the MIP candidates against K2's winner;
+  K6a ``cclm_select`` (with ``cclm``) the chroma LM predictions against K2's
+                      DM ones by joint U+V SATD;
   K5 ``tq_mts``       (luma) the candidate round trips — DCT-2, and with
                       ``mts_intra``, ``lfnst`` or ``transform_skip``
                       DST-7/DCT-8, DCT-2 + LFNST 1/2, transform skip — with
                       sign-data hiding (with ``sign_hiding``) and their
                       argmin, then coded vs zero;
   K4 ``tq``           (chroma) transform / quant / RD zeroing / sign-data
-                      hiding / inverse, coded vs zero;
+                      hiding / inverse, coded vs zero; with ``joint_cbcr``
+                      the joint Cb-Cr trial (K6c) after the U and V TUs;
   K7 ``wave_scatter`` masked writes into the recon and level planes and
-                      the mode, MIP, mts_idx and lfnst_idx code grids.
+                      the mode, MIP, mts_idx and lfnst_idx code grids (luma)
+                      or the CCLM / joint Cb-Cr grid (chroma).
 
 The state planes are updated in place (the JAX version's scan carries new
 arrays); nothing is read back inside the loop, and the results come back in
@@ -35,9 +39,10 @@ The JAX module's ``_refs_generic``, ``_avail_from_order`` and
 ``ops/tq_generic.py`` (``bits_proxy``), beside the kernels that use them.
 
 Supported: single or dual tree, map- or QT-driven partitioning, luma
-MIP, TU coding with DCT-2, MTS (DST-7/DCT-8), LFNST and transform skip,
-scalar quantisation, RDOQ-lite zeroing and sign-data hiding, deblocking
-and SAO. Every other tool raises ``NotImplementedError``.
+MIP, chroma CCLM (LM_CHROMA), TU coding with DCT-2, MTS (DST-7/DCT-8),
+LFNST and transform skip, joint Cb-Cr residuals, scalar quantisation,
+RDOQ-lite zeroing and sign-data hiding, deblocking and SAO. Every other
+tool raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ import torch
 
 from .. import _build
 from .._device import resolve_device
+from ..ops.cclm_generic import cclm_select
 from ..ops.intra_generic import intra_rmd, ref_gather
 from ..ops.mip_generic import mip_select
 from ..ops.rows import check_rows
@@ -60,10 +66,9 @@ from .mtt import Split, SplitState, get_implicit_split
 from .residual import ctx
 
 DEFAULT_BATCH = {32: 16, 64: 8}   # CUs per step of the 32- and 64-pad classes
-# Tools whose device kernels are not ported yet (CCLM/JCCR/LMCS K6,
-# ALF/CC-ALF on the host), and the sequential-only tools the wave path
-# never supported.
-UNPORTED_TOOLS = ("cclm", "joint_cbcr", "lmcs", "alf", "ccalf")
+# Tools not ported yet (LMCS with its chroma scaling K6b, ALF/CC-ALF on the
+# host), and the sequential-only tools the wave path never supported.
+UNPORTED_TOOLS = ("lmcs", "alf", "ccalf")
 UNSUPPORTED_TOOLS = ("mrl", "isp", "dep_quant")
 MAX_GRIDS = 4     # code grids K7 writes in one launch: mode, MIP, mts_idx, lfnst_idx
 
@@ -77,8 +82,9 @@ def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids=()):
     int16) (F, H, W) plane pairs, written in place over each live CU's
     (h, w) region from rec/lev (n, B, pad, pad) int32; ``grids``: up to
     ``MAX_GRIDS`` (grid, code) pairs, each uint8 (F, H_luma/4, W_luma/4)
-    grid taking its int32 ``code`` (B,) over the CU's 4-sample cells.
-    Writes outside a plane or grid are dropped."""
+    grid taking its int32 ``code`` (B,) over the CU's 4-sample cells (a
+    chroma CU's cells are those of its luma-unit area). Writes outside a
+    plane or grid are dropped."""
     fi, xs, ys, ws, hs, okv = (rows[:, k] for k in (0, 1, 2, 3, 4, 6))
     ok = okv > 0
     d = torch.arange(pad, device=rows.device, dtype=torch.int32)
@@ -93,7 +99,7 @@ def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids=()):
     for i, (rp, lp) in enumerate(planes):
         rp.index_put_(idx, rec[i][m])
         lp.index_put_(idx, lev[i][m].to(lp.dtype))
-    g = torch.arange(pad // 4, device=rows.device, dtype=torch.int32)
+    g = torch.arange(pad * scale // 4, device=rows.device, dtype=torch.int32)
     gr = ys[:, None, None] // 4 + g[None, :, None]
     gc = xs[:, None, None] // 4 + g[None, None, :]
     for grid, code in grids:
@@ -162,11 +168,12 @@ wave_scatter.launches = 0
 class _Scan:
     """What the steps of one ``_wave_scan`` share: the state planes
     (updated in place), originals, order grids and the coding parameters.
-    ``ts_max``: the largest transform-skip side, 0 with transform skip off."""
+    ``ts_max``: the largest transform-skip side, 0 with transform skip off;
+    ``qp_j``: the internal QP of the joint Cb-Cr TU."""
 
     def __init__(self, state, oy, ou, ov, og4, og4c, qp_y, qp_c, bd, lam,
                  dw_c, rd_quant, mip=False, sdh=False, mts=False, lfnst=False,
-                 ts_max=0):
+                 ts_max=0, cclm=False, jccr=False, qp_j=0):
         self.state = state
         self.oy, self.ou, self.ov = oy, ou, ov
         self.og4, self.og4c = og4, og4c
@@ -174,6 +181,7 @@ class _Scan:
         self.lam, self.dw_c, self.rd_quant = lam, dw_c, rd_quant
         self.mip, self.sdh = mip, sdh
         self.mts, self.lfnst, self.ts_max = mts, lfnst, ts_max
+        self.cclm, self.jccr, self.qp_j = cclm, jccr, qp_j
 
     def luma_tools(self, P):
         """(mts, lfnst, ts_max) of the P-pad class: MTS and transform skip
@@ -184,11 +192,11 @@ class _Scan:
 
     def step(self, kind, P, row):
         """Wave-segment body for the P-pad tile class (``kind``: "st"
-        single tree — luma RMD (+ MIP) + TQ, then chroma DM + TQ of the
-        co-located half-res block; "luma" the dual-tree luma pass;
+        single tree — luma RMD (+ MIP) + TQ, then chroma DM (or LM) + TQ of
+        the co-located half-res block; "luma" the dual-tree luma pass;
         "chroma" the dual-tree chroma pass, its DM mode read from the mode
         grid at the CU centre, with the chroma tree's own order grid)."""
-        ry, ru, rv, cY, cU, cV, mg, tg, pg, _, lg = self.state
+        ry, ru, rv, cY, cU, cV, mg, tg, pg, cg, lg = self.state
         bd = self.bd
         lf = None
         if kind != "chroma":
@@ -209,16 +217,24 @@ class _Scan:
             if kind == "luma":
                 return
         # chroma DM at half resolution, availability from the chroma
-        # tree's order grid (the luma one for single tree); the CCLM/JCCR
-        # code grid keeps its zeros (both tools off). A single-tree CU whose
-        # luma chose LFNST keeps its chroma levels in LFNST's region.
+        # tree's order grid (the luma one for single tree), then LM against
+        # DM (cclm) and the joint Cb-Cr trial (jccr); their choices go into
+        # the code grid, bit 0 LM, bit 1 joint. A single-tree CU whose luma
+        # chose LFNST keeps its chroma levels in LFNST's region.
         Pc = P // 2
         refs = ref_gather([ru, rv], self.og4c, row, Pc, 2, bd)
         _, pred = intra_rmd(refs, None, mg, row, Pc, False, bd)
-        lev, rec = tq([self.ou, self.ov], pred, row, Pc, 2, self.qp_c, bd,
-                      self.rd_quant, self.lam, self.dw_c, sdh=self.sdh,
-                      lfnst_active=lf)
-        wave_scatter(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev)
+        use_lm = 0
+        if self.cclm:
+            pred, use_lm = cclm_select(refs, ry, [self.ou, self.ov], self.og4c, row, pred,
+                                       Pc, bd)
+        out = tq([self.ou, self.ov], pred, row, Pc, 2, self.qp_c, bd, self.rd_quant,
+                 self.lam, self.dw_c, sdh=self.sdh, lfnst_active=lf, jccr=self.jccr,
+                 qp_j=self.qp_j)
+        grids = []
+        if self.cclm or self.jccr:
+            grids = [(cg, use_lm + (2 * out[2] if self.jccr else 0))]
+        wave_scatter(row, Pc, 2, [(ru, cU), (rv, cV)], out[1], out[0], grids)
 
 
 def _collect_leaves_chroma(enc, decide, decide_luma=None):
@@ -487,7 +503,8 @@ class WavefrontEncoder(FrameEncoder):
         qp_c = int(self.qp_table[qpi + self.qp_bd_offset]) \
             + cfg.chroma_qp_offset
         qp_c = max(-self.qp_bd_offset, min(63, qp_c)) + self.qp_bd_offset
-        return qp_y, qp_c
+        qp_j = qp_c - cfg.chroma_qp_offset + cfg.jccr_qp_offset
+        return qp_y, qp_c, qp_j
 
     def _batched_pass(self, frames, fetch=True):
         """frames: list of (leaves_luma, leaves_chroma_or_None, y, u, v).
@@ -517,12 +534,13 @@ class WavefrontEncoder(FrameEncoder):
                  z((F, H // 2, W // 2), torch.int16),
                  z((F, H // 2, W // 2), torch.int16)] + \
             [z((F, H // 4, W // 4), torch.uint8) for _ in range(5)]
-        qp_y, qp_c = self._qps()
+        qp_y, qp_c, qp_j = self._qps()
         scan = _Scan(state, oy, ou, ov, og4, og4c, qp_y, qp_c, cfg.bit_depth,
                      float(self.lam), float(self.dw_c), bool(cfg.rd_quant),
                      mip=bool(cfg.mip), sdh=bool(cfg.sign_hiding),
                      mts=bool(cfg.mts_intra), lfnst=bool(cfg.lfnst),
-                     ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0)
+                     ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0,
+                     cclm=bool(cfg.cclm), jccr=bool(cfg.joint_cbcr), qp_j=qp_j)
         self._time("upload", t0)
 
         t0 = time.perf_counter()
@@ -578,6 +596,23 @@ class WavefrontEncoder(FrameEncoder):
             cu.mip_transpose = code - 1 >= 16
             cu.mip_mode = (code - 1) % 16
 
+    @staticmethod
+    def _chroma_codes(code):
+        """(LM chroma, joint Cb-Cr) of a chroma code grid value."""
+        return bool(code & 1), bool(code & 2)
+
+    def _write_joint_flag(self, enc, cbf_u, cbf_v, joint):
+        """tu_joint_cbcr_residual_flag (CABACWriter.cpp:2610), coded where
+        the tool is on and a chroma TU is coded."""
+        cbf_mask = (2 if cbf_u else 0) + (1 if cbf_v else 0)
+        if self.cfg.joint_cbcr and cbf_mask:
+            enc.encode_bin(1 if joint else 0, ctx("JointCbCrFlag", cbf_mask - 1))
+
+    def _mark_joint(self, cx, cy, cw, chh, joint2):
+        """Record a chroma CU coded as a joint TU with both cbfs (the
+        deblocking QP of its edges)."""
+        self.unit_joint2[cy // 2:(cy + chh) // 2, cx // 2:(cx + cw) // 2] = joint2
+
     def _encode_cu(self, enc, rc, org_y, org_u, org_v, cu: CuInfo):
         x, y, w, h = cu.x, cu.y, cu.w, cu.h
         f = self._cur_frame
@@ -586,6 +621,7 @@ class WavefrontEncoder(FrameEncoder):
         mts_idx = int(tg[f, y // 4, x // 4])
         lfnst_idx = int(lg[f, y // 4, x // 4])
         self._set_mip_fields(cu, int(pg[f, y // 4, x // 4]))
+        cclm_flag, joint = self._chroma_codes(int(cg[f, y // 4, x // 4]))
         lev_y = cY[f, y:y + h, x:x + w].astype(np.int32)
         cx, cy, cw, chh = x // 2, y // 2, w // 2, h // 2
         lev_u = cU[f, cy:cy + chh, cx:cx + cw].astype(np.int32)
@@ -595,11 +631,12 @@ class WavefrontEncoder(FrameEncoder):
         cbf_v = bool(lev_v.any())
 
         self._write_intra_luma_mode(enc, cu)
-        self._write_intra_chroma_mode(enc, lm_symbol=0)
+        self._write_intra_chroma_mode(enc, cclm=cclm_flag, lm_symbol=0)
         enc.encode_bin(1 if cbf_u else 0, ctx("QtCbf1", 0))
         enc.encode_bin(1 if cbf_v else 0,
                        ctx("QtCbf2", 1 if cbf_u else 0))
         enc.encode_bin(1 if cbf_y else 0, ctx("QtCbf0", 0))
+        self._write_joint_flag(enc, cbf_u, cbf_v, joint)
         ts_y = mts_idx == 1              # MTS_SKIP = transform skip
         last_pos_y, violates = -1, False
         if cbf_y:
@@ -607,7 +644,7 @@ class WavefrontEncoder(FrameEncoder):
                                                      ts=ts_y)
         if cbf_u:
             self._write_resid(rc, lev_u, cw, chh, False)
-        if cbf_v:
+        if cbf_v and not joint:
             self._write_resid(rc, lev_v, cw, chh, False)
         comps = [(w, h, lev_y)] if cbf_y and not ts_y else []
         comps += ([(cw, chh, lev_u)] if cbf_u else [])
@@ -623,6 +660,7 @@ class WavefrontEncoder(FrameEncoder):
         self.recon_y[y:y + h, x:x + w] = ry[f, y:y + h, x:x + w]
         self.recon_u[cy:cy + chh, cx:cx + cw] = ru[f, cy:cy + chh, cx:cx + cw]
         self.recon_v[cy:cy + chh, cx:cx + cw] = rv[f, cy:cy + chh, cx:cx + cw]
+        self._mark_joint(cx, cy, cw, chh, joint and cbf_u and cbf_v)
         r, c = y // 4, x // 4
         self.coded[r:r + h // 4, c:c + w // 4] = True
         self.unit_mode[r:r + h // 4, c:c + w // 4] = cu.mode
@@ -671,7 +709,7 @@ class WavefrontEncoder(FrameEncoder):
 
     def _encode_chroma_cu(self, enc, rc, org_u, org_v, cu: CuInfo,
                           split_path=(None, None)):
-        """Dual-tree chroma CU replay from device results (DM mode)."""
+        """Dual-tree chroma CU replay from device results (DM or LM)."""
         x, y, w, h = cu.x, cu.y, cu.w, cu.h
         cx, cy, cw, chh = x // 2, y // 2, w // 2, h // 2
         f = self._cur_frame
@@ -681,13 +719,17 @@ class WavefrontEncoder(FrameEncoder):
         lev_v = cV[f, cy:cy + chh, cx:cx + cw].astype(np.int32)
         cbf_u = bool(lev_u.any())
         cbf_v = bool(lev_v.any())
-        self._write_intra_chroma_mode(enc, cclm_allowed=False, lm_symbol=0,
-                                      luma_mode=cu.mode)
+        cclm_flag, joint = self._chroma_codes(int(cg[f, y // 4, x // 4]))
+        self._write_intra_chroma_mode(
+            enc, cclm=cclm_flag,
+            cclm_allowed=self.cfg.cclm and self._cclm_allowed_dual(split_path),
+            lm_symbol=0, luma_mode=cu.mode)
         enc.encode_bin(1 if cbf_u else 0, ctx("QtCbf1", 0))
         enc.encode_bin(1 if cbf_v else 0, ctx("QtCbf2", 1 if cbf_u else 0))
+        self._write_joint_flag(enc, cbf_u, cbf_v, joint)
         if cbf_u:
             self._write_resid(rc, lev_u, cw, chh, False)
-        if cbf_v:
+        if cbf_v and not joint:
             self._write_resid(rc, lev_v, cw, chh, False)
         if min(cw, chh) >= 4:
             comps = ([(cw, chh, lev_u)] if cbf_u else []) \
@@ -695,6 +737,7 @@ class WavefrontEncoder(FrameEncoder):
             self._write_lfnst_idx(enc, cu, 0, comps, True)
         self.recon_u[cy:cy + chh, cx:cx + cw] = ru[f, cy:cy + chh, cx:cx + cw]
         self.recon_v[cy:cy + chh, cx:cx + cw] = rv[f, cy:cy + chh, cx:cx + cw]
+        self._mark_joint(cx, cy, cw, chh, joint and cbf_u and cbf_v)
         r, c = y // 4, x // 4
         self.coded_c[r:r + h // 4, c:c + w // 4] = True
         self.unit_w_c[r:r + h // 4, c:c + w // 4] = w

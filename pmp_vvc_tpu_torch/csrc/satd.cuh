@@ -1,5 +1,6 @@
-// SATD device code shared by K2 (csrc/intra_rmd.cu) and K3 (csrc/mip_rmd.cu),
-// so that the angular and MIP costs round the same way.
+// SATD device code shared by K2 (csrc/intra_rmd.cu), K3 (csrc/mip_rmd.cu) and
+// K6a (csrc/cclm.cu), so that the angular, MIP and CCLM costs round the same
+// way.
 //
 // The port of pmp_vvc_tpu/ops/tq_generic.py:satd_generic (160): 8x8
 // Walsh-Hadamard tiles when min(w, h) >= 8, else 4x4, over the CU's (h, w)
@@ -24,7 +25,9 @@ static __device__ int block_sum(int v, int* red) {
 
 // SATD of (org - pred) over the (h, w) CU; every thread of the block must
 // call it. ``red`` holds blockDim.x / 32 ints of shared memory. The result is
-// valid in thread 0.
+// valid in thread 0. Sides are 4 or more: a caller with a side of 2 (K6a's
+// chroma CUs of a 4-sample luma side) passes it rounded up to 4, with both
+// tiles zero beyond the CU, which gives the plain version's masked tiles.
 static __device__ int satd(int w, int h, int P, const int32_t* org,
                            const int32_t* pred, int* red) {
     const int ts = min(w, h) >= 8 ? 8 : 4;

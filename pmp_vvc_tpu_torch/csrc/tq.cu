@@ -24,6 +24,19 @@
 // positions < 8 of 4x4 and 8x8 TBs, < 16 of the others, no constraint where
 // a side is below 4.
 //
+// With ``jccr`` (K6c, codec/wavefront.py:_chroma_part 598-633), one block
+// per CU runs the U and V round trips, then the joint Cb-Cr trial (mask 3,
+// Cr = -Cb): the joint residual round((res_u - res_v) / 2), half to even,
+// in integers, takes a third round trip at qp_j as U's residual with the
+// same LFNST region and sign-data hiding; Cr is clip(pred_v - rr_j) from the
+// unclipped reconstructed residual after that TU's coded-vs-zero decision.
+// The separate and joint costs are dw * (SSE_U + SSE_V) + lam * bits over
+// the reconstructions, each SSE exact in int64 and rounded once, bits the
+// coded TUs' rate proxies (1 for an uncoded TU) + 1, or the joint TU's + 3,
+// in float32 in the JAX package's operation order. Joint wins where its TU
+// is coded and its cost is strictly lower: both planes then take its levels
+// and reconstructions, and use_joint is 1.
+//
 // The stages, sign-data hiding (one thread per coefficient group) and the
 // exact cost sums are the device code of csrc/tq.cuh, shared with K5.
 //
@@ -33,53 +46,33 @@
 // largest CUs. chip_smoke.py computes the bound of each call it times.
 #include "tq.cuh"
 
-__global__ void tq_kernel(const int32_t* __restrict__ o0,
-                          const int32_t* __restrict__ o1,
-                          const int32_t* __restrict__ pred,
-                          const int32_t* __restrict__ rows,
-                          const int32_t* __restrict__ d64,
-                          const int32_t* __restrict__ cgtab,
-                          const int32_t* __restrict__ lfnst_active, int B, int P,
-                          int scale, int qp, int bd, int rd_quant,
-                          int H, int W, int sdh_on, int ncg,
-                          float lam, float lam2,
-                          float lam3, float dw, int32_t* __restrict__ lev_out,
-                          int32_t* __restrict__ rec_out) {
-    extern __shared__ int32_t smem[];
-    __shared__ long long red64[NT / 32];
-    __shared__ int red32[NT / 32];
-    __shared__ int s_coded;
-    const int b = blockIdx.x, pl = blockIdx.y, PP = P * P;
-    const size_t tile = ((size_t)pl * B + b) * PP;
-    const int32_t* r = rows + 8 * b;
-    const int pel_max = (1 << bd) - 1;
-    if (r[6] <= 0) {                   // padding row
-        for (int i = threadIdx.x; i < PP; i += blockDim.x)
-            lev_out[tile + i] = rec_out[tile + i] = 0;
-        return;
-    }
-    int32_t* S0 = smem;                // residual
-    int32_t* S1 = smem + PP;           // stage 1 / dequantised / inverse
-    int32_t* S2 = smem + 2 * PP;       // coefficients / inverse stage 1
-    int32_t* S3 = smem + 3 * PP;       // levels
-    const int fi = r[0], xs = r[1] / scale, ys = r[2] / scale;
-    const Tile t = make_tile(P, r[3] / scale, r[4] / scale, qp, bd);
-    const int w = t.w, h = t.h, kw = keep(0, w), kh = keep(0, h);
-    const int32_t* org = (pl ? o1 : o0) + (size_t)fi * H * W;
-    const int32_t* pr = pred + tile;
-
-    for (int i = threadIdx.x; i < PP; i += blockDim.x) {
-        const int y = i / P, x = i % P;
-        S0[i] = (y < h && x < w)
+// The CU's residual org - pred into S0 (zero outside the CU); S3 cleared.
+static __device__ void load_resid(const Tile& t, const int32_t* org, int H, int W,
+                                  int xs, int ys, const int32_t* pr, int32_t* S0,
+                                  int32_t* S3) {
+    for (int i = threadIdx.x; i < t.P * t.P; i += blockDim.x) {
+        const int y = i / t.P, x = i % t.P;
+        S0[i] = (y < t.h && x < t.w)
                     ? org[clampi(ys + y, 0, H - 1) * W + clampi(xs + x, 0, W - 1)] - pr[i]
                     : 0;
         S3[i] = 0;
     }
     __syncthreads();
+}
+
+// One round trip of the residual in S0: the levels in S3 and the
+// reconstructed residual in S1, before the coded-vs-zero decision, which it
+// returns to every thread; ``bits`` (thread 0) is the levels' rate proxy.
+static __device__ int round_trip(const Tile& t, int32_t* S0, int32_t* S1, int32_t* S2,
+                                 int32_t* S3, const int32_t* d64, const int32_t* cgtab,
+                                 int ncg, bool region, int rd_quant, int sdh_on,
+                                 float lam, float lam2, float lam3, float dw,
+                                 long long* red64, int* red32, int* s_coded, int* bits) {
+    const int w = t.w, h = t.h, P = t.P, kw = keep(0, w), kh = keep(0, h);
     fwd_transform(t, S0, S1, S2, 0, 0, d64, nullptr);
     quantize(t, S2, S3, kh, kw);
     if (rd_quant && min(w, h) >= 4) rd_cleanup(t, S2, S3, kh, kw, lam, lam3);
-    if (lfnst_active != nullptr && lfnst_active[b] && w >= 4 && h >= 4) {
+    if (region) {
         // outside the top-left 4x4 group, then its diagonal positions from
         // n_allow on
         const int n_allow = (w == 4 && h == 4) || (w == 8 && h == 8) ? 8 : 16;
@@ -93,21 +86,145 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
     dequantize(t, S3, S1, kh, kw);
     inv_transform(t, S1, S2, S1, 0, 0, d64, nullptr);
     long long sse, sse0;
-    int bits, unused;
-    tile_sums(t, S0, S1, S3, red64, red32, &sse, &bits);
+    int unused;
+    tile_sums(t, S0, S1, S3, red64, red32, &sse, bits);
     tile_sums(t, S0, nullptr, nullptr, red64, red32, &sse0, &unused);
     if (threadIdx.x == 0) {
         const float cost_code =
-            __fadd_rn(__fmul_rn(dw, __ll2float_rn(sse)), __fmul_rn(lam, (float)bits));
-        s_coded = __fadd_rn(__fmul_rn(dw, __ll2float_rn(sse0)), lam2) > cost_code;
+            __fadd_rn(__fmul_rn(dw, __ll2float_rn(sse)), __fmul_rn(lam, (float)*bits));
+        *s_coded = __fadd_rn(__fmul_rn(dw, __ll2float_rn(sse0)), lam2) > cost_code;
     }
     __syncthreads();
-    const int coded = s_coded;
+    return *s_coded;
+}
+
+__global__ void tq_kernel(const int32_t* __restrict__ o0,
+                          const int32_t* __restrict__ o1,
+                          const int32_t* __restrict__ pred,
+                          const int32_t* __restrict__ rows,
+                          const int32_t* __restrict__ d64,
+                          const int32_t* __restrict__ cgtab,
+                          const int32_t* __restrict__ lfnst_active, int B, int P,
+                          int scale, int qp, int bd, int rd_quant,
+                          int H, int W, int sdh_on, int ncg, int jccr, int qp_j,
+                          float lam, float lam2, float lam3, float dw,
+                          int32_t* __restrict__ lev_out, int32_t* __restrict__ rec_out,
+                          int32_t* __restrict__ joint_out) {
+    extern __shared__ int32_t smem[];
+    __shared__ long long red64[NT / 32];
+    __shared__ int red32[NT / 32];
+    __shared__ int s_coded, s_use;
+    __shared__ long long s_sse[2];
+    __shared__ int s_bits[2];
+    const int b = blockIdx.x, PP = P * P;
+    // without jccr one block per (CU, plane); with it one block per CU
+    const int pl0 = jccr ? 0 : blockIdx.y, npl = jccr ? 2 : 1;
+    const int32_t* r = rows + 8 * b;
+    const int pel_max = (1 << bd) - 1;
+    if (r[6] <= 0) {                   // padding row
+        for (int pl = pl0; pl < pl0 + npl; ++pl) {
+            const size_t tile = ((size_t)pl * B + b) * PP;
+            for (int i = threadIdx.x; i < PP; i += blockDim.x)
+                lev_out[tile + i] = rec_out[tile + i] = 0;
+        }
+        if (jccr && threadIdx.x == 0) joint_out[b] = 0;
+        return;
+    }
+    int32_t* S0 = smem;                // residual
+    int32_t* S1 = smem + PP;           // stage 1 / dequantised / inverse
+    int32_t* S2 = smem + 2 * PP;       // coefficients / inverse stage 1
+    int32_t* S3 = smem + 3 * PP;       // levels
+    const int fi = r[0], xs = r[1] / scale, ys = r[2] / scale;
+    const Tile t = make_tile(P, r[3] / scale, r[4] / scale, qp, bd);
+    const int w = t.w, h = t.h;
+    const bool region = lfnst_active != nullptr && lfnst_active[b] && w >= 4 && h >= 4;
+    const int32_t* org[2] = {o0 + (size_t)fi * H * W, o1 ? o1 + (size_t)fi * H * W : nullptr};
+
+    for (int pl = pl0; pl < pl0 + npl; ++pl) {
+        const size_t tile = ((size_t)pl * B + b) * PP;
+        const int32_t* pr = pred + tile;
+        load_resid(t, org[pl], H, W, xs, ys, pr, S0, S3);
+        int bits;
+        const int coded = round_trip(t, S0, S1, S2, S3, d64, cgtab, ncg, region, rd_quant,
+                                     sdh_on, lam, lam2, lam3, dw, red64, red32, &s_coded,
+                                     &bits);
+        long long sse = 0;             // JCCR: reconstruction against the original
+        for (int i = threadIdx.x; i < PP; i += blockDim.x) {
+            const int y = i / P, x = i % P;
+            const bool in = y < h && x < w;
+            const int rec = in ? clampi(pr[i] + (coded ? S1[i] : 0), 0, pel_max) : 0;
+            lev_out[tile + i] = in && coded ? S3[i] : 0;
+            rec_out[tile + i] = rec;
+            if (jccr && in) {
+                const long long d = (long long)rec - (S0[i] + pr[i]);
+                sse += d * d;
+            }
+        }
+        if (jccr) {
+            sse = block_sum(sse, red64);
+            if (threadIdx.x == 0) {
+                s_sse[pl] = sse;
+                s_bits[pl] = coded && bits > 8 ? bits : 0;   // 0: no coded level
+            }
+        }
+        __syncthreads();               // S0 and S3 are refilled next
+    }
+    if (!jccr) return;
+
+    // the joint residual round((res_u - res_v) / 2), half to even
+    const int32_t *pu = pred + (size_t)b * PP, *pv = pred + ((size_t)B + b) * PP;
+    for (int i = threadIdx.x; i < PP; i += blockDim.x) {
+        const int y = i / P, x = i % P;
+        int j = 0;
+        if (y < h && x < w) {
+            const int o = clampi(ys + y, 0, H - 1) * W + clampi(xs + x, 0, W - 1);
+            const int d = (org[0][o] - pu[i]) - (org[1][o] - pv[i]);
+            j = d >> 1;
+            if ((d & 1) && (j & 1)) ++j;
+        }
+        S0[i] = j;
+        S3[i] = 0;
+    }
+    __syncthreads();
+    const Tile tj = make_tile(P, w, h, qp_j, bd);
+    int bits_j;
+    const int coded_j = round_trip(tj, S0, S1, S2, S3, d64, cgtab, ncg, region, rd_quant,
+                                   sdh_on, lam, lam2, lam3, dw, red64, red32, &s_coded,
+                                   &bits_j);
+    long long sse_ju = 0, sse_jv = 0;
+    for (int e = threadIdx.x; e < h * w; e += blockDim.x) {
+        const int i = (e / w) * P + e % w;
+        const int o = clampi(ys + e / w, 0, H - 1) * W + clampi(xs + e % w, 0, W - 1);
+        const int rr = coded_j ? S1[i] : 0;
+        const long long du = (long long)clampi(pu[i] + rr, 0, pel_max) - org[0][o];
+        const long long dv = (long long)clampi(pv[i] - rr, 0, pel_max) - org[1][o];
+        sse_ju += du * du;
+        sse_jv += dv * dv;
+    }
+    sse_ju = block_sum(sse_ju, red64);
+    sse_jv = block_sum(sse_jv, red64);
+    if (threadIdx.x == 0) {
+        const float bits_s =
+            __fadd_rn(__fadd_rn(s_bits[0] ? (float)s_bits[0] : 1.0f,
+                                s_bits[1] ? (float)s_bits[1] : 1.0f), 1.0f);
+        const float cost_s = __fadd_rn(
+            __fmul_rn(dw, __fadd_rn(__ll2float_rn(s_sse[0]), __ll2float_rn(s_sse[1]))),
+            __fmul_rn(lam, bits_s));
+        const float cost_j = __fadd_rn(
+            __fmul_rn(dw, __fadd_rn(__ll2float_rn(sse_ju), __ll2float_rn(sse_jv))),
+            __fmul_rn(lam, __fadd_rn((float)bits_j, 3.0f)));
+        s_use = coded_j && bits_j > 8 && cost_j < cost_s;
+        joint_out[b] = s_use;
+    }
+    __syncthreads();
+    if (!s_use) return;
     for (int i = threadIdx.x; i < PP; i += blockDim.x) {
         const int y = i / P, x = i % P;
         const bool in = y < h && x < w;
-        lev_out[tile + i] = in && coded ? S3[i] : 0;
-        rec_out[tile + i] = in ? clampi(pr[i] + (coded ? S1[i] : 0), 0, pel_max) : 0;
+        const int lev = in ? S3[i] : 0, rr = in ? S1[i] : 0;
+        lev_out[(size_t)b * PP + i] = lev_out[((size_t)B + b) * PP + i] = lev;
+        rec_out[(size_t)b * PP + i] = in ? clampi(pu[i] + rr, 0, pel_max) : 0;
+        rec_out[((size_t)B + b) * PP + i] = in ? clampi(pv[i] - rr, 0, pel_max) : 0;
     }
 }
 
@@ -116,19 +233,19 @@ extern "C" int pmp_tq(const int32_t* o0, const int32_t* o1, const int32_t* pred,
                       const int32_t* cgtab, const int32_t* lfnst_active,
                       int nplanes, int B, int P,
                       int scale, int qp, int bd, int rd_quant,
-                      int H, int W, int sdh, int ncg, float lam, float lam2,
-                      float lam3, float dw, int32_t* lev, int32_t* rec,
-                      cudaStream_t stream) {
+                      int H, int W, int sdh, int ncg, int jccr, int qp_j, float lam,
+                      float lam2, float lam3, float dw, int32_t* lev, int32_t* rec,
+                      int32_t* joint, cudaStream_t stream) {
     if (B == 0) return 0;
-    if (P > 64 || P < 4) return (int)cudaErrorInvalidValue;
+    if (P > 64 || P < 4 || (jccr && nplanes != 2)) return (int)cudaErrorInvalidValue;
     const int smem = 4 * P * P * (int)sizeof(int32_t);
     cudaError_t err = cudaFuncSetAttribute(
         tq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(B, nplanes);
+    dim3 grid(B, jccr ? 1 : nplanes);
     tq_kernel<<<grid, NT, smem, stream>>>(o0, o1, pred, rows, d64, cgtab,
                                           lfnst_active, B, P, scale, qp, bd,
-                                          rd_quant, H, W, sdh, ncg,
-                                          lam, lam2, lam3, dw, lev, rec);
+                                          rd_quant, H, W, sdh, ncg, jccr, qp_j,
+                                          lam, lam2, lam3, dw, lev, rec, joint);
     return (int)cudaGetLastError();
 }

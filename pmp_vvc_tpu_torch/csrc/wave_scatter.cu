@@ -9,9 +9,10 @@
 // One block per (CU, plane): recon (int32) and levels (stored int16) over
 // the CU's (h, w) region of the plane, rows and columns inside the plane;
 // with up to four code grids (the luma step's mode, MIP, mts_idx and
-// lfnst_idx grids), each CU's code (uint8) over its (h/4, w/4) cells of the
-// 4-sample luma-unit grid, cells inside the grid. Padding rows (live == 0)
-// write nothing.
+// lfnst_idx grids, or the chroma step's CCLM / joint Cb-Cr grid), each CU's
+// code (uint8) over its (h/4, w/4) cells of the 4-sample luma-unit grid
+// (h and w in luma units at either scale), cells inside the grid. Padding
+// rows (live == 0) write nothing.
 //
 // Bound: bytes. Each CU reads w*h recon and levels and writes 6 bytes per
 // sample plus its grid cells; there is no arithmetic to speak of.

@@ -22,8 +22,10 @@ step: forward DCT-2, dead-zone quantisation, RDOQ-lite zeroing, the
 single-tree LFNST region when asked, sign-data hiding when asked
 (``ops/sdh_generic.py``), dequant, inverse, the rate proxy and the
 coded-vs-zero TU decision (``wavefront.py:_tq_luma_mts`` with DCT-2 only,
-and ``_tq_generic``). **K5** ``tq_mts`` (``csrc/tq_mts.cu``) is the luma
-TQ with candidate transforms (``_tq_luma_mts``): DCT-2, DST-7/DCT-8, DCT-2 +
+and ``_tq_generic``); with ``jccr``, the joint Cb-Cr trial
+(``wavefront.py:_chroma_part`` 598-633) after the U and V round trips.
+**K5** ``tq_mts`` (``csrc/tq_mts.cu``) is the luma TQ with candidate
+transforms (``_tq_luma_mts``): DCT-2, DST-7/DCT-8, DCT-2 +
 LFNST (``ops/lfnst_generic.py``) and transform skip, their cost argmin, then
 the zero TU.
 Cost sums are exact: SSE in int64 and each coefficient group's 16 gains in
@@ -266,16 +268,19 @@ def _orgs_inside(org, rows, P, scale):
     return orgs, inside, ws, hs, ok
 
 
-def _tq_one(org, pred, rows, P, scale, qp, bd, rd_quant, lam, dw, sdh,
-            lfnst_active=None):
-    orgs, inside, ws, hs, ok = _orgs_inside(org, rows, P, scale)
-    resid = (orgs - pred) * inside
+def _tq_tile(orgt, pred, inside, ws, hs, ok, qp, bd, rd_quant, lam, dw, sdh,
+             lfnst_active=None):
+    """One chroma TQ round trip of the original tiles ``orgt`` against
+    ``pred``: (lev, rec, rr), rr the reconstructed residual after the
+    coded-vs-zero decision, each zero outside the (h, w) mask and for
+    padding rows."""
+    resid = (orgt - pred) * inside
     coef = forward_transform_generic(resid, ws, hs, bit_depth=bd)
     lev = quantize_generic(coef, ws, hs, qp, bit_depth=bd)
     if rd_quant:
         lev = rd_cleanup_generic(lev, coef, ws, hs, qp, lam, bit_depth=bd)
     if lfnst_active is not None:
-        lev = lev * lfnst_region(ws, hs, lfnst_active, P)
+        lev = lev * lfnst_region(ws, hs, lfnst_active, pred.shape[-1])
     if sdh:
         from .sdh_generic import apply_sdh_generic
         lev = apply_sdh_generic(lev, coef, ws, hs, qp, bit_depth=bd)
@@ -291,51 +296,92 @@ def _tq_one(org, pred, rows, P, scale, qp, bd, rd_quant, lam, dw, sdh,
     cost_zero = dw32 * sse0 + torch.tensor(np.float32(lam * 2.0))
     coded = (cost_zero > cost_code)[:, None, None] & inside & ok[:, None, None]
     lev = torch.where(coded, lev, 0)
-    rec = (pred + torch.where(coded, rr, 0)).clamp(0, (1 << bd) - 1)
-    return lev, torch.where(inside & ok[:, None, None], rec, 0)
+    rr = torch.where(coded, rr, 0)
+    rec = (pred + rr).clamp(0, (1 << bd) - 1)
+    return lev, torch.where(inside & ok[:, None, None], rec, 0), rr
+
+
+def _joint_trial(tiles, pred, outs, qp_j, bd, rd_quant, lam, dw, sdh, act):
+    """JCCR mask 3 (Cr = -Cb) against the separate U and V TUs ``outs``
+    (``wavefront.py:_chroma_part`` 598-633): the joint residual
+    round((res_u - res_v) / 2), half to even, takes a third round trip at
+    ``qp_j`` as U's residual; Cr is clip(pred_v - rr_j) from its unclipped
+    reconstructed residual. The costs are float32, dw * (SSE_U + SSE_V) +
+    lam * bits over the reconstructions: separate bits are each coded TU's
+    rate proxy (1 for an uncoded one) + 1, joint bits the joint TU's + 3.
+    Joint wins where its TU is coded and its cost is strictly lower; then
+    both planes take its levels. Returns (lev, rec, use_joint (B,) int32)."""
+    (ou, inside, ws, hs, ok), (ov, *_) = tiles
+    (lev_u, rec_u, _), (lev_v, rec_v, _) = outs
+    joint = torch.round(((ou - pred[0]) * inside - (ov - pred[1]) * inside).double() / 2).int()
+    lev_j, rec_ju, rr_j = _tq_tile(pred[0] + joint, pred[0], inside, ws, hs, ok, qp_j, bd,
+                                   rd_quant, lam, dw, sdh, act)
+    rec_jv = torch.where(inside & ok[:, None, None], (pred[1] - rr_j).clamp(0, (1 << bd) - 1), 0)
+    sse = lambda rec, org: (((rec - org) * inside).long() ** 2).sum((-1, -2)).float()
+    cbf = lambda lev: (lev != 0).flatten(1).any(1)
+    lam32 = torch.tensor(lam, dtype=torch.float32)
+    dw32 = torch.tensor(dw, dtype=torch.float32)
+    bits_s = torch.where(cbf(lev_u), bits_proxy(lev_u), 1.0) + \
+        torch.where(cbf(lev_v), bits_proxy(lev_v), 1.0) + 1.0
+    bits_j = bits_proxy(lev_j) + 3.0
+    cost_s = dw32 * (sse(rec_u, ou) + sse(rec_v, ov)) + lam32 * bits_s
+    cost_j = dw32 * (sse(rec_ju, ou) + sse(rec_jv, ov)) + lam32 * bits_j
+    use = cbf(lev_j) & (cost_j < cost_s) & ok
+    uj = use[:, None, None]
+    lev = torch.stack([torch.where(uj, lev_j, lev_u), torch.where(uj, lev_j, lev_v)])
+    rec = torch.stack([torch.where(uj, rec_ju, rec_u), torch.where(uj, rec_jv, rec_v)])
+    return lev, rec, use.int()
 
 
 def tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam,
-                 dw, sdh=False, lfnst_active=None):
+                 dw, sdh=False, lfnst_active=None, jccr=False, qp_j=0):
     """Plain version of K4, the chroma TQ (luma runs K5, ``tq_mts``).
 
     orgs: one or two (F, H, W) int32 original planes (U and V);
-    pred: (n, B, P, P) int32 predictions from K2; rows: (B, 8) int32
-    schedule rows (luma units, ``scale`` 2). ``qp`` is the internal QP,
-    ``lam`` the slice lambda, ``dw`` the chroma distortion weight: the
-    coded TU costs ``dw*SSE + lam*bits``, the zero TU ``dw*SSE0 + lam*2``. With
-    ``sdh``, sign-data hiding (``ops/sdh_generic.py``) adjusts the levels
-    after the RD zeroing and before dequantisation, so the rate proxy, the
-    SSE and the coded-vs-zero decision all see the adjusted levels.
-    ``lfnst_active``: optional (B,) int32, nonzero for the single-tree CUs
-    whose luma chose LFNST (K5's ``lf``); their levels are confined to
-    ``lfnst_region`` after the RD zeroing and before sign-data hiding.
-    Returns lev and rec, (n, B, P, P) int32, zero outside each CU."""
+    pred: (n, B, P, P) int32 predictions from K2 (or K6a); rows: (B, 8)
+    int32 schedule rows (luma units, ``scale`` 2). ``qp`` is the internal
+    QP, ``lam`` the slice lambda, ``dw`` the chroma distortion weight: the
+    coded TU costs ``dw*SSE + lam*bits``, the zero TU ``dw*SSE0 + lam*2``.
+    With ``sdh``, sign-data hiding (``ops/sdh_generic.py``) adjusts the
+    levels after the RD zeroing and before dequantisation, so the rate
+    proxy, the SSE and the coded-vs-zero decision all see the adjusted
+    levels. ``lfnst_active``: optional (B,) int32, nonzero for the
+    single-tree CUs whose luma chose LFNST (K5's ``lf``); their levels are
+    confined to ``lfnst_region`` after the RD zeroing and before sign-data
+    hiding. With ``jccr`` (U and V given), the joint Cb-Cr trial
+    (``_joint_trial``) at internal QP ``qp_j`` follows, with the same
+    sign-data hiding and LFNST region. Returns lev and rec, (n, B, P, P)
+    int32, zero outside each CU, and with ``jccr`` use_joint (B,) int32."""
     act = None if lfnst_active is None else lfnst_active.bool()
-    outs = [_tq_one(o, pred[i], rows, pad, scale, qp, bit_depth, rd_quant,
-                    lam, dw, sdh, act) for i, o in enumerate(orgs)]
+    tiles = [_orgs_inside(o, rows, pad, scale) for o in orgs]
+    outs = [_tq_tile(t[0], pred[i], *t[1:], qp, bit_depth, rd_quant, lam, dw, sdh, act)
+            for i, t in enumerate(tiles)]
+    if jccr:
+        return _joint_trial(tiles, pred, outs, qp_j, bit_depth, rd_quant, lam, dw, sdh, act)
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
 @functools.cache
 def _k4():
     fn = _build.library("tq").pmp_tq
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
-        ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [
+        ctypes.c_float] * 4 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn
 
 
 def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw,
-       sdh=False, lfnst_active=None):
+       sdh=False, lfnst_active=None, jccr=False, qp_j=0):
     """K4: see ``tq_reference``; CPU tensors take it, CUDA tensors launch
     ``csrc/tq.cu``."""
     check_rows(rows)
     if len(orgs) != pred.shape[0] or len(orgs) not in (1, 2):
         raise ValueError("tq takes one or two planes, one prediction each")
+    if jccr and len(orgs) != 2:
+        raise ValueError("the joint Cb-Cr trial takes the U and V planes")
     if rows.device.type == "cpu":
         return tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth,
-                            rd_quant, lam, dw, sdh, lfnst_active)
+                            rd_quant, lam, dw, sdh, lfnst_active, jccr, qp_j)
     _build.check_cuda("tq", *orgs, pred, rows, lfnst_active)
     if any(t.dtype != torch.int32 for t in (*orgs, pred)):
         raise TypeError("tq takes int32 planes and predictions")
@@ -348,6 +394,7 @@ def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw,
     _, H, W = orgs[0].shape
     lev = torch.empty_like(pred)
     rec = torch.empty_like(pred)
+    joint = torch.empty((B,), dtype=torch.int32, device=rows.device) if jccr else None
     o1 = orgs[1].data_ptr() if n == 2 else None
     from .sdh_generic import cg_tables
     cgt = cg_tables(pad, rows.device)
@@ -355,11 +402,12 @@ def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw,
     err = _k4()(orgs[0].data_ptr(), o1, pred.data_ptr(), rows.data_ptr(),
                 _dct2_64(rows.device).data_ptr(), cgt.data_ptr(), act,
                 n, B, pad, scale, qp, bit_depth, int(rd_quant),
-                H, W, int(sdh), cgt.shape[1],
+                H, W, int(sdh), cgt.shape[1], int(jccr), qp_j,
                 *(float(np.float32(v)) for v in (lam, lam * 2.0, lam * 3.0, dw)),
-                lev.data_ptr(), rec.data_ptr(), _build.stream(rows))
+                lev.data_ptr(), rec.data_ptr(),
+                joint.data_ptr() if jccr else None, _build.stream(rows))
     _build.count_launch(tq, err)
-    return lev, rec
+    return (lev, rec, joint) if jccr else (lev, rec)
 
 
 tq.launches = 0

@@ -383,9 +383,15 @@ def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None, sdh=False,
     TU's; with ``sdh``, after sign-data hiding (and ``lfnst_active``'s
     region). Returns (margin, ``sdh_gaps`` of the groups that sign-data
     hiding corrects)."""
-    resid, coef, inside, ws, hs, ok = _dct2_coef(org, pred, rows, pad, scale)
+    return _round_trip_margin(*_dct2_coef(org, pred, rows, pad, scale), qp, lam, dw, sdh,
+                              lfnst_active)
+
+
+def _round_trip_margin(resid, coef, inside, ws, hs, ok, qp, lam, dw, sdh, lfnst_active):
+    """``tq_margin`` of the residual tiles ``resid`` with DCT-2 coefficients
+    ``coef``."""
     region = None if lfnst_active is None else \
-        ttq.lfnst_region(ws, hs, lfnst_active.bool(), pad)
+        ttq.lfnst_region(ws, hs, lfnst_active.bool(), coef.shape[-1])
     margins, lev2, gaps = quant_margins(coef, ws, hs, qp, lam, ok, sdh, region)
     if sdh:
         lev2 = tsdh.apply_sdh_generic(lev2, coef, ws, hs, qp, bit_depth=BD)
@@ -402,6 +408,39 @@ def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None, sdh=False,
         cc, cz = dw32 * sse + lam32 * bits, dw32 * sse0 + 2 * lam32
     margins.append(((cc - cz).abs() / torch.maximum(cc, cz))[ok])
     return min(float(m.min()) if m.numel() else np.inf for m in margins), gaps
+
+
+def jccr_margin(orgs, pred, rows, pad, scale, qp, qp_j, lam, dw, sdh=False,
+                lfnst_active=None):
+    """The smallest relative margin of the joint Cb-Cr trial's float decisions
+    on these inputs (K4 with ``jccr``; its U and V round trips are
+    ``tq_margin``'s): the joint TU's zeroing and coded-vs-zero decisions, as
+    in ``tq_margin``, and where the joint TU is coded its cost against the
+    separate TUs' (``ttq._joint_trial``), both recomputed in float64 from the
+    exact SSEs. Returns (margin, ``sdh_gaps`` of the joint TU)."""
+    tiles = [ttq._orgs_inside(o, torch.from_numpy(rows), pad, scale) for o in orgs]
+    (ou, inside, ws, hs, ok), (ov, *_) = tiles
+    act = None if lfnst_active is None else lfnst_active.bool()
+    joint = torch.round(((ou - pred[0]) * inside - (ov - pred[1]) * inside).double() / 2).int()
+    coef = ttq.forward_transform_generic(joint, ws, hs, bit_depth=BD)
+    margin, gaps = _round_trip_margin(joint, coef, inside, ws, hs, ok, qp_j, lam, dw, sdh,
+                                      lfnst_active)
+    (lev_u, rec_u, _), (lev_v, rec_v, _) = (
+        ttq._tq_tile(t[0], pred[i], *t[1:], qp, BD, True, lam, dw, sdh, act)
+        for i, t in enumerate(tiles))
+    lev_j, rec_ju, rr_j = ttq._tq_tile(pred[0] + joint, pred[0], inside, ws, hs, ok, qp_j,
+                                       BD, True, lam, dw, sdh, act)
+    rec_jv = (pred[1] - rr_j).clamp(0, (1 << BD) - 1)
+    sse = lambda rec, org: (((rec - org) * inside).double() ** 2).sum((-1, -2))
+    cbf = lambda lev: (lev != 0).flatten(1).any(1)
+    bits = lambda lev: ttq.bits_proxy(lev).double()
+    lam32, dw32 = float(np.float32(lam)), float(np.float32(dw))
+    bits_s = torch.where(cbf(lev_u), bits(lev_u), 1.0) + \
+        torch.where(cbf(lev_v), bits(lev_v), 1.0) + 1
+    cost_s = dw32 * (sse(rec_u, ou) + sse(rec_v, ov)) + lam32 * bits_s
+    cost_j = dw32 * (sse(rec_ju, ou) + sse(rec_jv, ov)) + lam32 * (bits(lev_j) + 3)
+    gap = ((cost_j - cost_s).abs() / torch.maximum(cost_j, cost_s))[cbf(lev_j) & ok]
+    return min(margin, float(gap.min()) if gap.numel() else np.inf), gaps
 
 
 def k5_margin(orgs, pred, rows, pad, qp, lam, modes, mip_code=None, mts=False,

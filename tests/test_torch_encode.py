@@ -87,7 +87,8 @@ def test_unported_flags_raise(flag):
 
 
 def test_mip_and_sign_hiding_are_accepted():
-    tools = ("mip", "sign_hiding", "mts_intra", "lfnst", "transform_skip")
+    tools = ("mip", "sign_hiding", "mts_intra", "lfnst", "transform_skip", "cclm",
+             "joint_cbcr")
     enc = twf.WavefrontEncoder(VVCConfig(width=64, height=64, **dict.fromkeys(tools, True)),
                                device="cpu")
     assert all(getattr(enc.cfg, t) for t in tools)

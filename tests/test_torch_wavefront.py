@@ -23,7 +23,9 @@ from pmp_vvc_tpu.codec import wavefront as jwf
 from pmp_vvc_tpu.codec.headers import VVCConfig as JaxConfig
 from pmp_vvc_tpu_torch.codec import wavefront as twf
 from pmp_vvc_tpu_torch.codec.headers import VVCConfig
-from test_torch_codec_ops import MARGIN, k5_margin, mip_margin, region_cut, tq_margin
+from pmp_vvc_tpu_torch.ops.cclm_generic import cclm_costs
+from test_torch_codec_ops import (MARGIN, jccr_margin, k5_margin, mip_margin, region_cut,
+                                  tq_margin)
 from test_wavefront import _mtt_maps, _synth
 
 torch.set_num_threads(2)
@@ -37,7 +39,7 @@ CONFIGS = {"single": dict(MTT, qp=27), "dual": dict(SLICE, qp=22)}
 
 @pytest.fixture
 def margins(monkeypatch):
-    """Wraps the port's K4, K3 and K5 on the wave path. The float decisions
+    """Wraps the port's K4, K3, K5 and K6a on the wave path. The float decisions
     of every DCT-2 TQ (K4's, and K5's with its tools off) must keep a
     relative margin above MARGIN (``seen["tq"]``), and so must each
     coefficient group that sign-data hiding corrects (``seen["sdh"]`` holds
@@ -48,12 +50,19 @@ def margins(monkeypatch):
     runner-up and the winner against the zero TU must keep a relative
     margin above MARGIN (``seen["k5"]``: (zeroing, candidate, zero TU)
     margins per call; ``k5_margin``). ``seen["region"]`` counts the chroma
-    levels that K4's single-tree LFNST region removes (``region_cut``)."""
-    seen = {"tq": [], "sdh": [], "mip": [], "k5": [], "region": []}
+    levels that K4's single-tree LFNST region removes (``region_cut``). With
+    the joint Cb-Cr trial, its joint TU's decisions and the joint-vs-separate
+    choice of every CU whose joint TU is coded must keep a relative margin
+    above MARGIN too (``seen["jccr"]``, ``jccr_margin``); every K6a call's
+    DM and LM joint SATDs must stay below 2^24, where the JAX package's
+    float32 sums and its strict comparison are exact (``seen["cclm"]``: the
+    largest SATD per call)."""
+    seen = {"tq": [], "sdh": [], "mip": [], "k5": [], "region": [], "jccr": [], "cclm": []}
     real_tq, real_mip, real_k5 = twf.tq, twf.mip_select, twf.tq_mts
+    real_cclm = twf.cclm_select
 
     def guarded(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw, sdh=False,
-                lfnst_active=None):
+                lfnst_active=None, jccr=False, qp_j=0):
         for i, org in enumerate(orgs):
             m, gaps = tq_margin(org, pred[i], rows.numpy(), pad, scale, qp, lam, dw, sdh,
                                 lfnst_active)
@@ -62,12 +71,22 @@ def margins(monkeypatch):
             if lfnst_active is not None:
                 seen["region"].append(region_cut(org, pred[i], rows.numpy(), pad, scale,
                                                  qp, lam, lfnst_active))
+        if jccr:
+            m, gaps = jccr_margin(orgs, pred, rows.numpy(), pad, scale, qp, qp_j, lam, dw,
+                                  sdh, lfnst_active)
+            seen["jccr"].append(m)
+            seen["sdh"] += gaps
         return real_tq(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw, sdh,
-                       lfnst_active)
+                       lfnst_active, jccr, qp_j)
 
     def guarded_mip(refs, org, rows, pred, best, pad, bd):
         seen["mip"].append(mip_margin(refs, org, rows, pred, pad))
         return real_mip(refs, org, rows, pred, best, pad, bd)
+
+    def guarded_cclm(refs, ry, orgs, og4c, rows, pred, pad, bd):
+        _, cost_dm, cost_lm = cclm_costs(refs, ry, orgs, og4c, rows, pred, pad, bd)
+        seen["cclm"].append(int(torch.maximum(cost_dm, cost_lm).max()))
+        return real_cclm(refs, ry, orgs, og4c, rows, pred, pad, bd)
 
     def guarded_k5(orgs, pred, rows, pad, qp, bd, rd_quant, lam, modes, mip_code=None,
                    mts=False, lfnst=False, ts_max=0, sdh=False):
@@ -85,12 +104,15 @@ def margins(monkeypatch):
     monkeypatch.setattr(twf, "tq", guarded)
     monkeypatch.setattr(twf, "mip_select", guarded_mip)
     monkeypatch.setattr(twf, "tq_mts", guarded_k5)
+    monkeypatch.setattr(twf, "cclm_select", guarded_cclm)
     yield seen
     assert seen["tq"] and min(seen["tq"]) > MARGIN, min(seen["tq"])
     assert not seen["sdh"] or min(seen["sdh"]) > MARGIN, min(seen["sdh"])
     assert not seen["mip"] or max(top for top, _ in seen["mip"]) < 1 << 24
     assert not seen["k5"] or min(min(m) for m in seen["k5"]) > MARGIN, \
         [min(c) for c in zip(*seen["k5"])]
+    assert not seen["jccr"] or min(seen["jccr"]) > MARGIN, min(seen["jccr"])
+    assert not seen["cclm"] or max(seen["cclm"]) < 1 << 24
 
 
 def _encoders(name):
