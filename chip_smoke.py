@@ -34,27 +34,38 @@ Phases, each of which fails the run on error (nothing is caught):
    candidate kind wins somewhere), K6a's two-sample, flat and clamped
    templates, LM winning, DM winning, exact SATD ties and the CCLM gate off,
    and the joint Cb-Cr TU winning, losing and quantising to zero on odd
-   residual differences of both signs; timed at the main path's batch
-   shapes.
+   residual differences of both signs; K4 with the LMCS chroma residual
+   scale (K6b) for U/V and the joint TU, with and without sign-data hiding,
+   its per-CU scale held to ``crs_scale_reference`` too, on a 208x120 frame
+   where every CRS case occurs (``CRS_CASES``); timed at the main path's
+   batch shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
-   + CCLM + joint Cb-Cr + deblocking + SAO configuration at QP 22 through
-   ``WavefrontEncoder.encode_frames``; the previous slice's configuration
-   (without CCLM and joint Cb-Cr) beside it, cold runs then warm runs old,
-   new, new, old; stage times, wave steps, launches of every kernel, the
-   MIP, MTS, LFNST and transform-skip luma CUs, the LM chroma CUs and joint
-   Cb-Cr TUs, hash SEI against an MD5 of the returned recon, luma PSNR.
+   + CCLM + joint Cb-Cr + LMCS with chroma scaling + deblocking + SAO
+   configuration at QP 22 through ``WavefrontEncoder.encode_frames``; the
+   previous slice's configuration (without LMCS) beside it, cold runs then
+   warm runs old, new, new, old; stage times, wave steps, launches of every
+   kernel (K4's with the chroma scale among them), the MIP, MTS, LFNST and
+   transform-skip luma CUs, the LM chroma CUs and joint Cb-Cr TUs, hash SEI
+   against an MD5 of the returned recon, luma PSNR.
 8. The same kernels against their plain versions on the real schedule rows
    of the main path's first 48 wave steps and of its first 16 with chroma
    rows.
-9. Frames encoded with ``device="cpu"`` (plain versions) and on the card
-   in five configurations: no tools at 208x120; MIP and SDH, and MIP, SDH,
-   MTS, LFNST and transform skip, at 416x240 on natural content; this
-   slice's at 416x240 in dual tree and at 208x120 in single tree, on
-   content where LM and the joint Cb-Cr trial win (both must fire). The
-   bitstreams must be byte-identical.
-10. One warm frame's wave scan under torch.profiler: device time by kernel
+9. The bench's configuration (``bench.py:186-197`` without the device RDO:
+   the main path's tools plus ALF, its chroma filter and CC-ALF, at QP 32)
+   at 416x240 x 2 frames of natural content, with the QP 22 maps, cold then
+   warm, with the stage times (``alf`` among them); hash SEI, and the CTUs
+   with each ALF and CC-ALF filter on (luma ALF must be on somewhere).
+10. Frames encoded with ``device="cpu"`` (plain versions) and on the card
+    in seven configurations: no tools at 208x120; MIP and SDH, and MIP, SDH,
+    MTS, LFNST and transform skip, at 416x240 on natural content; those plus
+    CCLM and joint Cb-Cr at 416x240 in dual tree and at 208x120 in single
+    tree, on content where LM and the joint Cb-Cr trial win (both must
+    fire); the bench's tools at 416x240 in dual tree on natural content and
+    at 208x120 in single tree on that chroma content (VPDUs cut by both
+    frame edges). The bitstreams must be byte-identical.
+11. One warm frame's wave scan under torch.profiler: device time by kernel
     and the device's idle share.
 
 Prints the kernels' numbers as one JSON line, the card's name and power
@@ -85,6 +96,8 @@ from pmp_vvc_tpu_torch.ops.cclm_generic import (
     cclm_costs, cclm_models, cclm_neighbours, cclm_select, cclm_select_reference)
 from pmp_vvc_tpu_torch.ops.intra_generic import (
     gather_plane, intra_rmd, intra_rmd_reference, ref_gather, ref_gather_reference)
+from pmp_vvc_tpu_torch.ops.lmcs_generic import (
+    UNIT_SCALE, crs_forward, crs_lut, crs_neighbours, crs_scale_reference)
 from pmp_vvc_tpu_torch.ops.mip_generic import mip_select, mip_select_reference
 from pmp_vvc_tpu_torch.ops.rows import unpack_rows
 from pmp_vvc_tpu_torch.ops.sdh_generic import _cg_tables, sdh_moves
@@ -375,6 +388,9 @@ ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
     "wave_scatter": (wf.wave_scatter, "pmp_vvc_tpu_torch/csrc/wave_scatter.cu",
                      "pmp_vvc_tpu/codec/wavefront.py:655"),
 }
+# K4 with the LMCS chroma residual scale (K6b) is listed on its own: the same
+# wrapper, whose launches with the scale also count on ``tq.crs_launches``.
+K6B = ("tq_crs", "pmp_vvc_tpu_torch/csrc/tq.cu", "pmp_vvc_tpu/codec/wavefront.py:558")
 # Scalar integer operations per sample, counted from the kernels' inner
 # loops: an angular / planar sample of K2 (4 taps, rounding, clip, PDPC);
 # one sample's share of K2's 8x8 Hadamard SATD (6 butterfly stages, abs,
@@ -389,11 +405,15 @@ ENC_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
 # (``k5_ops``). K6a downsamples one luma sample pair per chroma sample (7
 # operations), predicts U and V (4 each) and scores four SATDs; the joint
 # Cb-Cr trial adds a third round trip and, per sample, the joint residual and
-# two reconstructions with their SSE. Bounded against the float32 rate
-# outside the tensor cores, which the int32 rate does not exceed.
+# two reconstructions with their SSE. K6b adds per CU the 128 neighbour
+# samples' sum, and per sample of each round trip the forward scale (shift,
+# add, division, clip, sign) and the inverse (clip, product, add, shift,
+# clip, sign). Bounded against the float32 rate outside the tensor cores,
+# which the int32 rate does not exceed.
 OPS_PRED, OPS_SATD, OPS_QUANT, OPS_SAMPLE = 12, 8, 30, 10
 OPS_UPSAMPLE, OPS_REDUCED, OPS_SDH_SLOT, OPS_SDH_MOVE = 10, 20, 5, 14
 OPS_DOWNSAMPLE, OPS_LM = 7, 4
+OPS_CRS_NEIGHBOUR, OPS_CRS_SAMPLE = 2, 12
 
 
 # The coding tools of each slice's configuration, oldest first; the last is
@@ -406,19 +426,28 @@ TOOLS = {
     "MIP + SDH + MTS + LFNST + TS + CCLM + JCCR": dict(
         mip=True, sign_hiding=True, mts_intra=True, lfnst=True, transform_skip=True,
         cclm=True, joint_cbcr=True),
+    "MIP + SDH + MTS + LFNST + TS + CCLM + JCCR + LMCS": dict(
+        mip=True, sign_hiding=True, mts_intra=True, lfnst=True, transform_skip=True,
+        cclm=True, joint_cbcr=True, lmcs=True, lmcs_chroma_scaling=True),
 }
 MAIN, PREVIOUS = list(TOOLS)[-1], list(TOOLS)[-2]
+# the bench's configuration (bench.py:186-197 without rdo_fallback): the main
+# path's tools, the host-only ALF with its chroma filter and CC-ALF, QP 32
+BENCH = "bench tools"
+TOOLS[BENCH] = dict(TOOLS[MAIN], alf=True, alf_chroma=True, ccalf=True, qp=32)
 
 
 def enc_cfg(w: int, h: int, tools: str = MAIN, dual_tree: bool = True) -> VVCConfig:
     """The slices' configuration: dual tree (or single), map-driven MTT at
-    L3, the bench's chroma QP table, deblocking and SAO, and the coding tools
-    ``TOOLS[tools]`` (transform skip up to 32x32); every other tool off."""
-    return VVCConfig(width=w, height=h, qp=ENC_QP, dual_tree=dual_tree, sao=True,
+    L3, the bench's chroma QP table, deblocking and SAO, QP 22, and the coding
+    tools ``TOOLS[tools]`` (transform skip up to 32x32; the bench's also its
+    QP); every other tool off."""
+    kw = {"qp": ENC_QP, **TOOLS[tools]}
+    return VVCConfig(width=w, height=h, dual_tree=dual_tree, sao=True,
                      deblocking_disabled=False, chroma_qp_start_minus26=-9,
                      chroma_qp_points=((9, 12), (4, 5), (11, 7)),
                      log2_min_cb=2, max_mtt_depth_intra=3, max_bt_intra=32,
-                     max_tt_intra=32, **TOOLS[tools])
+                     max_tt_intra=32, **kw)
 
 
 def kernel_rows(pad: int, scale: int, seed: int, width: int, height: int):
@@ -515,8 +544,14 @@ def checked_step(scan, kind: str, P: int, row, errs: dict) -> None:
         _cmp("cclm", [pred, code], list(cclm_select_reference(*args)), errs)
     args = ([scan.ou, scan.ov], pred, row, Pc, 2, scan.qp_c, bd, scan.rd_quant,
             scan.lam, scan.dw_c, scan.sdh, lf, scan.jccr, scan.qp_j)
-    out = tq(*args)
-    _cmp("tq", list(out), list(tq_reference(*args)), errs)
+    if scan.crs_lut is None:
+        out = tq(*args)
+        _cmp("tq", list(out), list(tq_reference(*args)), errs)
+    else:
+        scale = torch.empty_like(row[:, 0])
+        out = tq(*args, crs_src=(ry, scan.og4c, scan.crs_lut), crs_out=scale)
+        want = crs_scale_reference(ry, scan.og4c, row, scan.crs_lut, bd)
+        _cmp(K6B[0], list(out) + [scale], list(tq_reference(*args, crs=want)) + [want], errs)
     if scan.jccr:
         code = code + 2 * out[2]
     grids = [(cg, code)] if scan.cclm or scan.jccr else []
@@ -593,7 +628,9 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
     groups corrected) of a K4 call with sign-data hiding; ``jccr``: the same
     for the joint Cb-Cr TU of a K4 call with the trial ((0, 0) without
     sign-data hiding); ``k5``: what ``k5_ops`` reads of a K5 call;
-    ``ngrids``: K7's code grids."""
+    ``ngrids``: K7's code grids. ``tq_crs`` is K4 with the chroma residual
+    scale: each live CU's 128 luma neighbours, two order-grid cells and one
+    LUT entry in, each round trip's samples scaled forward and back."""
     live = rows[rows[:, 6] > 0]
     w, h = live[:, 3] // scale, live[:, 4] // scale
     B, pad_rows = len(rows), len(rows) - len(live)
@@ -624,7 +661,7 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
                     for k in set(sid.tolist()))
         nbytes = int((w + h).sum()) * 4 + int((w * h).sum()) * 8 + table + \
             B * P * P * 4 + B * (32 + 4 * 3)
-    elif name == "tq":
+    elif name in ("tq", K6B[0]):
         kw, kh = np.minimum(w, 32), np.minimum(h, 32)
         macs = h * kw * w + kh * kw * h + h * kw * kh + h * w * kw
         n_tq = n + (jccr is not None)   # the joint TU is a third round trip
@@ -637,6 +674,10 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
             ops += jccr[0] * 16 * OPS_SDH_SLOT + jccr[1] * 32 * OPS_SDH_MOVE + \
                 2 * OPS_SAMPLE * int((w * h).sum())
             nbytes += B * 4
+        if name == K6B[0]:
+            ops += len(live) * 128 * OPS_CRS_NEIGHBOUR + \
+                n_tq * OPS_CRS_SAMPLE * int((w * h).sum())
+            nbytes += len(live) * (128 + 3) * 4
     elif name == "cclm":
         # the luma window (rows ly-2 .. ly+2h-1, columns lx-3 .. lx+2w-1), two
         # originals and two DM predictions in, four template samples per
@@ -761,6 +802,87 @@ def jccr_cases(orgs, pred, rows, P: int, qp_j: int, lam: float, dw: float, sdh: 
                      int((odd & (d < 0)).sum())])
 
 
+CRS_W, CRS_H = 208, 120               # VPDUs cut by the right and bottom edges
+CRS_CASES = ("left+above", "left only", "above only", "neither", "cut by the right edge",
+             "cut by the bottom edge", "<= 4 samples", "scale != 1 << 11")
+
+
+def device_crs_lut() -> torch.Tensor:
+    """The main path's CRS LUT (``crs_lut`` at its ``lmcs_offset``) on the card."""
+    return torch.from_numpy(crs_lut(BD, enc_cfg(64, 64).lmcs_offset)).to(DEVICE)
+
+
+def crs_kernel_rows(pad: int, seed: int, n: int = 40) -> np.ndarray:
+    """(n + 2, 8) int32 rows of chroma CUs of the pad class (luma units:
+    sides up to 2 * pad, and above 32 in the 32-pad class) at random 4-aligned
+    positions of a CRS_W x CRS_H frame, random order ids, then two padding
+    rows; in the 16-pad class the first four are 4x4 (2x2 chroma samples,
+    which are not scaled)."""
+    rng = np.random.RandomState(seed)
+    sides = [s for s in (4, 8, 16, 32, 64) if s <= 2 * pad]
+    sizes = [(w, h) for w, h in itertools.product(sides, sides) if pad == 16 or max(w, h) > 32]
+    rows = []
+    for i in range(n):
+        w, h = (4, 4) if pad == 16 and i < 4 else sizes[rng.randint(len(sizes))]
+        x = rng.randint(0, (CRS_W - w) // 4 + 1) * 4
+        y = rng.randint(0, (CRS_H - h) // 4 + 1) * 4
+        rows.append((rng.randint(2), x, y, w, h, rng.randint(0, 200), 1, 0))
+    rows += [(0, 0, 0, 0, 0, 0, 0, 0)] * 2
+    return np.array(rows, np.int32)
+
+
+def crs_cases(og, rows, scale) -> np.ndarray:
+    """Counts of ``CRS_CASES`` over the live rows of one K4 call, from the
+    plain pieces and the call's scales."""
+    left, above = (t.cpu().numpy() for t in crs_neighbours(og, rows))
+    r = rows.cpu().numpy()
+    ok = r[:, 6] > 0
+    vx, vy = r[:, 1] // 64 * 64, r[:, 2] // 64 * 64
+    masks = (left & above, left & ~above, ~left & above, ~left & ~above,
+             vx + 64 > CRS_W, vy + 64 > CRS_H, (r[:, 3] // 2) * (r[:, 4] // 2) <= 4,
+             scale.cpu().numpy() != UNIT_SCALE)
+    return np.array([int((m & ok).sum()) for m in masks])
+
+
+def crs_kernel_checks(P: int, qp: int, lam: float, lut, errs: dict) -> np.ndarray:
+    """K4 with the chroma residual scale against its plain version on a
+    CRS_W x CRS_H frame: U and V alone and with the joint Cb-Cr trial, with
+    and without sign-data hiding, and once with the single-tree LFNST
+    region; the scales K4 returns held to ``crs_scale_reference``. Returns
+    the ``CRS_CASES`` counts."""
+    rows_np = crs_kernel_rows(P, seed=P + qp)
+    rec, org, _ = kernel_planes(P + qp + 1, CRS_W, CRS_H, 2)
+    # order ids mostly below the rows' (0..199): most neighbours precede
+    og = np.random.RandomState(P + qp).randint(-1, 120, (2, CRS_H // 4, CRS_W // 4)).astype(
+        np.int32)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    rows, og_t = dev(rows_np), dev(og)
+    # a luma recon: the chroma one upsampled 2x, with noise
+    up = np.repeat(np.repeat(rec, 2, 1), 2, 2)
+    ry = dev((up + np.random.RandomState(qp).randint(-40, 41, up.shape)).clip(0, 1023)
+             .astype(np.int32))
+    orgs = [dev(org), dev(1023 - org)]
+    fi, xs, ys, _, _, _, _ = unpack_rows(rows, 2)
+    d = torch.arange(P, device=DEVICE, dtype=torch.int32)
+    tile = lambda p: gather_plane(p, fi[:, None, None], ys[:, None, None] + d[None, :, None],
+                                  xs[:, None, None] + d[None, None, :])
+    noise = torch.from_numpy(np.random.RandomState(qp).randint(
+        -60, 61, (2, len(rows_np), P, P)).astype(np.int32)).to(DEVICE)
+    pred = (torch.stack([tile(dev(rec)), tile(dev(1023 - rec))]) + noise).clamp(0, 1023)
+    pred = pred.int().contiguous()
+    active = dev((np.arange(len(rows_np)) % 3 == 0).astype(np.int32))
+    want = crs_scale_reference(ry, og_t, rows, lut, BD)
+    seen = np.zeros(len(CRS_CASES), np.int64)
+    for sdh, jccr, act in ((False, False, None), (True, False, None), (False, True, None),
+                           (True, True, None), (True, True, active)):
+        args = (orgs, pred, rows, P, 2, qp + 12, BD, True, lam, 1.2599, sdh, act, jccr, qp + 13)
+        scale = torch.empty_like(rows[:, 0])
+        got = tq(*args, crs_src=(ry, og_t, lut), crs_out=scale)
+        _cmp(K6B[0], list(got) + [scale], list(tq_reference(*args, crs=want)) + [want], errs)
+        seen += crs_cases(og_t, rows, scale)
+    return seen
+
+
 def phase_encode_kernels() -> tuple[dict, dict]:
     """K1/K2/K3/K4/K5/K6a/K7 against their plain versions on seeded inputs,
     then their times at the main path's batch shapes."""
@@ -769,6 +891,8 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     k5_won = np.zeros(5, np.int64)
     cclm_seen = np.zeros(len(CCLM_CASES), np.int64)
     jccr_seen = np.zeros(len(JCCR_CASES), np.int64)
+    crs_seen = np.zeros(len(CRS_CASES), np.int64)
+    lut = device_crs_lut()
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
         rows_np = kernel_rows(P, scale, seed=P + qp, width=width, height=height)
@@ -862,6 +986,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
                 _cmp("tq", list(got), list(tq_reference(*args)), errs)
                 jccr_seen += jccr_cases(o, p, rows, P, qp_j, lam, 1.2599, sdh, act, got[2])
             grids = [(torch.zeros_like(mg), use_lm + 2 * got[2])]
+            crs_seen += crs_kernel_checks(P, qp, lam, lut, errs)
         # the predictions, noisy ones, and full-swing residuals (original
         # 1023 against a zero prediction) for the largest levels; the DCT-2
         # TQ (luma: K5 with its tools off; chroma: K4) with sign-data hiding
@@ -896,7 +1021,9 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     check((k5_won > 0).all(), f"some K5 candidate kind never won: {k5_won}")
     check((cclm_seen > 0).all(), f"some K6a case never occurred: {cclm_seen}")
     check((jccr_seen > 0).all(), f"some joint Cb-Cr case never occurred: {jccr_seen}")
-    log(f"[encode-kernels] K1/K2/K3/K4/K5/K6a/K7 equal to their plain versions on every "
+    check((crs_seen > 0).all(), f"some chroma residual scaling case never occurred: {crs_seen}")
+    log(f"[encode-kernels] K1/K2/K3/K4 (with K6b, K6c)/K5/K6a/K7 equal to their plain "
+        f"versions on every "
         f"CU size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
         f"largest |level| {max_level}; K3 chose MIP for {mip_wins} of {mip_rows} CUs; "
         f"sign-data hiding changed {sdh_changed} levels; the LFNST region removed "
@@ -904,7 +1031,8 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         + ", ".join(f"{k} {int(c)}" for k, c in zip(K5_KINDS, k5_won))
         + "; K6a cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CCLM_CASES, cclm_seen))
         + "; joint Cb-Cr cases: "
-        + ", ".join(f"{k} {int(c)}" for k, c in zip(JCCR_CASES, jccr_seen)))
+        + ", ".join(f"{k} {int(c)}" for k, c in zip(JCCR_CASES, jccr_seen))
+        + "; K6b cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CRS_CASES, crs_seen)))
     return errs, phase_encode_kernel_times(width, height)
 
 
@@ -982,9 +1110,24 @@ def phase_encode_kernel_times(width: int, height: int) -> dict:
             calls["tq_no_jccr"] = (lambda: tq(*tq_args, sdh=True),
                                    lambda: tq_reference(*tq_args, sdh=True))
             calls["tq_no_jccr_no_sdh"] = (lambda: tq(*tq_args), lambda: tq_reference(*tq_args))
+            # and with the chroma residual scale (K6b), the LMCS main path's
+            # K4: the plain version derives the scales too
+            crs_src = (ry, og_t, device_crs_lut())
+            kw_main = dict(sdh=True, jccr=True, qp_j=qp_c)
+            calls[K6B[0]] = (
+                lambda: tq(*tq_args, **kw_main, crs_src=crs_src),
+                lambda: tq_reference(*tq_args, **kw_main,
+                                     crs=crs_scale_reference(*crs_src[:2], rows, crs_src[2], BD)))
             sdh = sdh_groups(resid_tiles(orgs, pred, rows, P, scale), rows, P, scale, qp_c, lam)
             extra["tq"] = dict(sdh=sdh, jccr=sdh_groups(
                 resid_tiles(orgs, pred, rows, P, scale, joint=True), rows, P, scale, qp_c, lam))
+            crs = crs_scale_reference(*crs_src[:2], rows, crs_src[2], BD)
+            scaled = lambda res: [crs_forward(r, crs, BD) for r in res]
+            extra[K6B[0]] = dict(
+                sdh=sdh_groups(scaled(resid_tiles(orgs, pred, rows, P, scale)), rows, P, scale,
+                               qp_c, lam),
+                jccr=sdh_groups(scaled(resid_tiles(orgs, pred, rows, P, scale, joint=True)),
+                                rows, P, scale, qp_c, lam))
             extra["tq_no_jccr"] = dict(sdh=sdh)
             grids = [(pg, use_lm + 2 * joint)]
         planes = list(zip(recs, levs))
@@ -997,7 +1140,7 @@ def phase_encode_kernel_times(width: int, height: int) -> dict:
                                                    P, scale, n, **extra.get(name, {}))
             ms, call = graph_ms(kernel), call_ms(kernel, 500)
             plain_ms = call_ms(plain, 20)
-            if (P, scale) == ((16, 2) if name in ("tq", "cclm") else (32, 1)):
+            if (P, scale) == ((16, 2) if name in ("tq", K6B[0], "cclm") else (32, 1)):
                 times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             log(f"[encode-kernels] {name}: {B} CUs, {P}-pad {'luma' if luma else 'chroma'}: "
                 f"device time per call (CUDA graph) {ms:.6f} ms; called from Python "
@@ -1043,6 +1186,7 @@ def sei_md5s(bitstream: bytes) -> list[bytes]:
 def reset_counts() -> None:
     for fn, _, _ in ENC_KERNELS.values():
         fn.launches = 0
+    tq.crs_launches = 0
 
 
 def timed_encode(enc, frames, maps_l, maps_c, label: str):
@@ -1113,10 +1257,11 @@ def chroma_tool_frames(w: int, h: int, n: int, seed0: int = 3) -> list:
 
 def phase_encode(preds: dict):
     """The map-driven encode at 1920x1080: this slice's configuration (MIP,
-    SDH, MTS, LFNST, TS, CCLM, JCCR) and the previous slice's (without CCLM
-    and JCCR), a cold run of one frame each, then warm runs of both frames in
-    the order old, new, new, old; the first warm run of this slice's is the
-    main path's, with every kernel's launches counted."""
+    SDH, MTS, LFNST, TS, CCLM, JCCR, LMCS with chroma scaling) and the
+    previous slice's (without LMCS), a cold run of one frame each, then warm
+    runs of both frames in the order old, new, new, old; the first warm run
+    of this slice's is the main path's, with every kernel's launches counted
+    (K4's with the chroma scale apart)."""
     frames = natural_sequence(ENC_W, ENC_H, ENC_FRAMES, seed0=7, bit_depth=BD)
     t0 = time.perf_counter()
     maps_l, maps_c = frame_maps(preds, frames, ENC_W, ENC_H)
@@ -1132,8 +1277,10 @@ def phase_encode(preds: dict):
     reset_counts()
     outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} (1), the main path")
     launches = {name: fn.launches for name, (fn, _, _) in ENC_KERNELS.items()}
+    launches[K6B[0]] = tq.crs_launches
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the encode path")
+    check(tq.crs_launches == tq.launches, "K4 ran without the chroma scale on the LMCS path")
     codes = luma_codes(enc, maps_l, maps_c, ENC_FRAMES)
     for tool in ("mip", "mts", "lfnst"):
         check(codes[tool] > 0, f"no CU of the encode was coded with {tool}")
@@ -1170,7 +1317,7 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48,
     enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=3, device=DEVICE)
     leaves = [enc._collect_all(None, maps_l[f], maps_c[f]) for f in range(len(frames))]
     active, step_arr, ogs, ogcs = wf._pack_schedule(leaves, ENC_W, ENC_H, enc.batch,
-                                                    enc.cfg.cclm)
+                                                    enc.cfg.cclm, enc.crs_lut is not None)
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)
     F, H, W = len(frames), ENC_H, ENC_W
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=DEVICE)
@@ -1180,11 +1327,13 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48,
         [z((F, H // 4, W // 4), torch.uint8) for _ in range(5)]
     qp_y, qp_c, qp_j = enc._qps()
     cfg = enc.cfg
-    scan = wf._Scan(state, *(up(np.stack([fr[i] for fr in frames])) for i in range(3)),
+    # the luma coded in the mapped domain, as _batched_pass uploads it
+    luma = np.stack([enc.reshaper.fwd(fr[0]) for fr in frames])
+    scan = wf._Scan(state, up(luma), *(up(np.stack([fr[i] for fr in frames])) for i in (1, 2)),
                     up(ogs), up(ogcs), qp_y, qp_c, BD, float(enc.lam), float(enc.dw_c), True,
                     mip=cfg.mip, sdh=cfg.sign_hiding, mts=cfg.mts_intra, lfnst=cfg.lfnst,
                     ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0,
-                    cclm=cfg.cclm, jccr=cfg.joint_cbcr, qp_j=qp_j)
+                    cclm=cfg.cclm, jccr=cfg.joint_cbcr, qp_j=qp_j, crs_lut=up(enc.crs_lut))
     errs: dict = {}
     rows = checked = chroma_checked = 0
     for t in range(next(iter(step_arr.values())).shape[0]):
@@ -1202,24 +1351,53 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48,
         chroma_checked += check_t and chroma
         if t >= n_steps and chroma_checked >= n_chroma:
             break
-    check(set(ENC_KERNELS) <= set(errs),
-          f"kernels not run on the first steps: {set(ENC_KERNELS) - set(errs)}")
+    # the main path's K4 runs with the chroma scale
+    want = set(ENC_KERNELS) - {"tq"} | {K6B[0]}
+    check(want <= set(errs), f"kernels not run on the first steps: {want - set(errs)}")
     log(f"[first-steps] the main path's first {n_steps} wave steps and first {n_chroma} "
         f"with chroma rows ({checked} steps, {rows} CU rows): every kernel equal to its "
         f"plain version (max_abs_err {errs})")
     return errs
 
 
-# Phase 9's encodes, CPU against card: (tools, dual tree, width, height,
+def phase_encode_bench_tools(preds: dict) -> None:
+    """The bench's configuration at 416x240 x 2 frames of natural content with
+    the QP 22 maps (the only QP with chroma checkpoints): a cold run, then a
+    warm one with its stage times; hash SEI against the recon's MD5, some CTU
+    with luma ALF on, and the CTUs with each ALF and CC-ALF filter on."""
+    frames = natural_sequence(SMALL_W, SMALL_H, 2, seed0=7, bit_depth=BD)
+    maps_l, maps_c = frame_maps(preds, frames, SMALL_W, SMALL_H)
+    enc = wf.WavefrontEncoder(enc_cfg(SMALL_W, SMALL_H, BENCH), accel_level=3, device=DEVICE)
+    t0 = time.perf_counter()
+    enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+    log(f"[bench-tools] {SMALL_W}x{SMALL_H} x 2, {BENCH}: cold run "
+        f"{time.perf_counter() - t0:.3f} s")
+    enc.alf_ctus = {}
+    outs = timed_encode(enc, frames, maps_l, maps_c, f"{BENCH} at {SMALL_W}x{SMALL_H}")
+    alf_ctus = enc.alf_ctus
+    for f, (bs, recon) in enumerate(outs):
+        want = [hashlib.md5(p.astype("<u2").tobytes()).digest() for p in recon]
+        check(sei_md5s(bs) == [want], f"frame {f}: hash SEI differs from the recon's MD5")
+    check(alf_ctus["luma"] > 0, f"no CTU with luma ALF on: {alf_ctus}")
+    log(f"[bench-tools] {[len(o[0]) for o in outs]} bytes, {enc.steps} wave steps; CTUs "
+        f"with each ALF filter over both frames {alf_ctus}; hash SEI equal to the recon's "
+        f"MD5")
+
+
+# Phase 10's encodes, CPU against card: (tools, dual tree, width, height,
 # content); the oldest at a quarter of 416x240, which keeps the plain
-# versions' CPU time down, and this slice's in both trees on content where LM
-# and the joint Cb-Cr trial win.
+# versions' CPU time down, the CCLM and joint Cb-Cr slice's in both trees on
+# content where LM and the joint Cb-Cr trial win, and the bench's tools in
+# dual tree on natural content and in single tree on that chroma content at
+# 208x120, whose VPDUs both frame edges cut.
 CPU_VS_CARD = (
     ("no tools", True, SMALL_W // 2, SMALL_H // 2, "natural"),
     ("MIP + SDH", True, SMALL_W, SMALL_H, "natural"),
-    (PREVIOUS, True, SMALL_W, SMALL_H, "natural"),
-    (MAIN, True, SMALL_W, SMALL_H, "chroma tools"),
-    (MAIN, False, SMALL_W // 2, SMALL_H // 2, "chroma tools"),
+    ("MIP + SDH + MTS + LFNST + TS", True, SMALL_W, SMALL_H, "natural"),
+    (PREVIOUS, True, SMALL_W, SMALL_H, "chroma tools"),
+    (PREVIOUS, False, SMALL_W // 2, SMALL_H // 2, "chroma tools"),
+    (BENCH, True, SMALL_W, SMALL_H, "natural"),
+    (BENCH, False, SMALL_W // 2, SMALL_H // 2, "chroma tools"),
 )
 
 
@@ -1250,7 +1428,8 @@ def phase_encode_cpu_vs_card(preds: dict) -> None:
                   f"{tools}, dual tree {dual}: LM or the joint Cb-Cr trial never won ({cc})")
         log(f"[encode-cpu-vs-card] {tools}: bitstreams byte-identical "
             f"({[len(o[0]) for o in out[DEVICE]]} bytes); luma CUs "
-            f"{luma_codes(enc, maps_l, maps_c, 2)}; chroma CUs {cc}")
+            f"{luma_codes(enc, maps_l, maps_c, 2)}; chroma CUs {cc}"
+            + (f"; CTUs with each ALF filter {enc.alf_ctus}" if enc.cfg.alf else ""))
 
 
 def phase_encode_profile(frames, maps_l, maps_c) -> None:
@@ -1295,6 +1474,7 @@ def main() -> int:
     phase_profile(preds, blocks)
     _, frames, maps_l, maps_c, enc_launches = phase_encode(preds)
     step_errs = phase_encode_first_steps(frames, maps_l, maps_c)
+    phase_encode_bench_tools(preds)
     phase_encode_cpu_vs_card(preds)
     phase_encode_profile(frames, maps_l, maps_c)
 
@@ -1308,15 +1488,18 @@ def main() -> int:
     # library_ms is null: no single PyTorch call computes any of these
     # functions (the reference substitution, the 67-mode predictor with its
     # SATD argmin, the MIP candidates with their SATD argmin, the integer
-    # transform-quantisation round trip with sign-data hiding and the joint
-    # Cb-Cr trial, the candidate round trips of MTS, LFNST and transform skip
-    # with their cost argmin, the CCLM template fit with its SATD choice, or
-    # the step's masked scatters with their index arithmetic).
-    for name, (_, source, replaces) in ENC_KERNELS.items():
+    # transform-quantisation round trip with sign-data hiding, the joint
+    # Cb-Cr trial and the chroma residual scale from its VPDU's neighbours,
+    # the candidate round trips of MTS, LFNST and transform skip with their
+    # cost argmin, the CCLM template fit with its SATD choice, or the step's
+    # masked scatters with their index arithmetic).
+    sources = {name: (source, replaces) for name, (_, source, replaces) in ENC_KERNELS.items()}
+    sources[K6B[0]] = K6B[1:]
+    for name, (source, replaces) in sources.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": enc_launches[name],
-            "max_abs_err": max(enc_errs[name], step_errs[name]),
+            "max_abs_err": max(enc_errs[name], step_errs.get(name, 0.0)),
             **enc_times[name], "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

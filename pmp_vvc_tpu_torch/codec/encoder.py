@@ -6,7 +6,8 @@ A port of the part of the JAX package's ``codec/encoder.py`` that its
 distortion weight; the neighbour state; split, intra-mode, residual
 (transform-skip residual included), LFNST and MTS syntax; the coding-tree walks and split deciders; the bin-op
 recorder and the native CABAC finalizer; and ``encode_frame``'s tail
-(deblocking, SAO, NAL units, decoded-picture-hash SEI).
+(LMCS inverse mapping, deblocking, SAO, ALF and CC-ALF, NAL units with the
+LMCS and ALF APS, decoded-picture-hash SEI).
 
 Syntax contracts: CABACWriter.cpp coding_tree_unit :158 / coding_tree :394 /
 split_cu_mode :567 / coding_unit :660 / intra_luma_pred_modes :1057 /
@@ -15,7 +16,7 @@ MPM list UnitTools.cpp:591; QP derivation Quant.cpp QpParam :54.
 
 Not ported: the sequential CU coding (mode choice, per-TU RD, ISP, MRL,
 dependent quantization), whose ``_encode_cu`` raises here; the CABAC rate
-estimator that only the sequential path reads; LMCS and ALF/CC-ALF.
+estimator that only the sequential path reads.
 """
 from __future__ import annotations
 
@@ -24,10 +25,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import alf
 from .cabac import ContextStore
 from .deblock import deblock_frame
 from .headers import (VVCConfig, decoded_picture_hash_sei, pps_nal, slice_nal,
                       sps_nal)
+from .lmcs import Reshaper, derive_ai_model, lmcs_aps_nal
 from .mtt import (SplitState, can_split_set, get_implicit_split,
                   write_split_cu_mode)
 from .partition import MapPartitioner, PartitionConstraints, Split
@@ -126,9 +129,12 @@ class FrameEncoder:
     """Encodes one intra frame to a slice-data CABAC payload + recon.
 
     ``timings`` accumulates host seconds per stage of ``encode_frame``:
-    ``replay`` (coding-tree walk and CABAC bin recording), ``deblock``,
-    ``sao`` (decision and filtering) and ``finalize`` (SAO syntax splice,
-    native CABAC finalizer, NAL units, hash SEI)."""
+    ``replay`` (coding-tree walk and CABAC bin recording), ``deblock`` (with
+    LMCS, the inverse luma mapping first), ``sao`` (decision and filtering),
+    ``alf`` (with ALF: the filters' derivation, decision and filtering, and
+    CC-ALF's) and ``finalize`` (SAO and ALF syntax splice, native CABAC
+    finalizer, NAL units, hash SEI). ``alf_ctus`` accumulates alike the CTUs
+    with each ALF filter on: luma, Cb, Cr, CC-ALF Cb, CC-ALF Cr."""
 
     def __init__(self, cfg: VVCConfig, *, accel_level: int = 3,
                  rdo_fallback: bool = False, ablation_skip_mtt: bool = False,
@@ -159,7 +165,10 @@ class FrameEncoder:
             + cfg.chroma_qp_offset
         qp_c = max(-self.qp_bd_offset, min(63, qp_c))
         self.dw_c = 2.0 ** ((cfg.qp - qp_c) / 3.0)
+        self.reshaper = Reshaper(derive_ai_model(cfg.bit_depth, cfg.lmcs_offset),
+                                 cfg.bit_depth) if cfg.lmcs else None
         self.timings = {}
+        self.alf_ctus = {}
 
     def _time(self, stage, t0):
         self.timings[stage] = self.timings.get(stage, 0.0) + time.perf_counter() - t0
@@ -688,6 +697,57 @@ class FrameEncoder:
         from ..native import cabac_finalize
         return cabac_finalize(ops, ContextStore.standard_init(self.cfg.qp, 2))
 
+    # ---- ALF and CC-ALF ------------------------------------------------------
+
+    def _alf_frame(self, y_orig, org_u, org_v):
+        """Decide and apply ALF (and with ``alf_chroma`` its chroma filter,
+        with ``ccalf`` CC-ALF) on the frame's recon, in place. Returns (the
+        CTU syntax's inputs: luma flags, filter sets, Cb and Cr flags, CC-ALF
+        Cb and Cr filter indices; the ALF APS bytes or None). With
+        ``alf_chroma`` the frame's Wiener filters are derived and signalled in
+        the APS; CC-ALF reads the pre-ALF luma (tmpYuv in ALFProcess)."""
+        cfg, bd, lam = self.cfg, self.cfg.bit_depth, self.lam
+        extra = luma_raw = chroma_raw = None
+        luma_pre_pad = alf.pad4(self.recon_y) if cfg.ccalf else None
+        if cfg.alf_chroma:
+            luma_raw = alf.derive_luma_filters(y_orig, self.recon_y, bd, 128)
+            chroma_raw = alf.derive_chroma_filter(org_u, org_v, self.recon_u,
+                                                  self.recon_v, bd, 128)
+            extra = [alf.reconstruct_coeff(luma_raw, None, bd, 25,
+                                           delta_idx=np.arange(25))]
+        flags, sets, new_y = alf.decide_alf_luma(y_orig, self.recon_y, bd, 128, lam,
+                                                 extra_sets=extra)
+        self.recon_y = new_y.astype(np.int32)
+        cb = cr = cc_cb = cc_cr = cc_cb_coeff = cc_cr_coeff = None
+        if cfg.alf_chroma:
+            ccoeff, cclip = alf.reconstruct_coeff(chroma_raw[None, :], None, bd, 1)
+            cb, new_u = alf.decide_alf_chroma(org_u, self.recon_u, ccoeff[0],
+                                              cclip[0], bd, 128, lam)
+            cr, new_v = alf.decide_alf_chroma(org_v, self.recon_v, ccoeff[0],
+                                              cclip[0], bd, 128, lam)
+            self.recon_u = new_u.astype(np.int32)
+            self.recon_v = new_v.astype(np.int32)
+        if cfg.ccalf:
+            cc_cb_coeff = alf.derive_ccalf_filter(org_u, self.recon_u, luma_pre_pad,
+                                                  bd, 128)
+            cc_cr_coeff = alf.derive_ccalf_filter(org_v, self.recon_v, luma_pre_pad,
+                                                  bd, 128)
+            cc_cb, new_u = alf.decide_ccalf(org_u, self.recon_u, luma_pre_pad,
+                                            cc_cb_coeff, bd, 128, lam)
+            cc_cr, new_v = alf.decide_ccalf(org_v, self.recon_v, luma_pre_pad,
+                                            cc_cr_coeff, bd, 128, lam)
+            self.recon_u = new_u.astype(np.int32)
+            self.recon_v = new_v.astype(np.int32)
+        aps = None
+        if cfg.alf_chroma or cfg.ccalf:
+            aps = alf.alf_aps_nal(luma_raw, chroma_raw, ccalf_cb=cc_cb_coeff,
+                                  ccalf_cr=cc_cr_coeff)
+        for key, on in (("luma", flags), ("cb", cb), ("cr", cr), ("ccalf_cb", cc_cb),
+                        ("ccalf_cr", cc_cr)):
+            n = 0 if on is None else int(np.count_nonzero(on))
+            self.alf_ctus[key] = self.alf_ctus.get(key, 0) + n
+        return (flags, sets, cb, cr, cc_cb, cc_cr), aps
+
     # ---- frame -----------------------------------------------------------
 
     def encode_frame(self, y, u, v, qt_map=None, maps=None,
@@ -773,6 +833,10 @@ class FrameEncoder:
                                          st, decide_c, True)
         self._time("replay", t0)
         t0 = time.perf_counter()
+        if self.reshaper is not None:
+            # picture-level inverse mapping before the in-loop filters
+            # (DecLib::executeLoopFilters order: inverse LUT, deblock, SAO)
+            self.recon_y = self.reshaper.inv(self.recon_y).astype(np.int32)
         if not cfg.deblocking_disabled:
             qpi = max(-self.qp_bd_offset, min(63, cfg.qp))
             qp_c_db = max(-self.qp_bd_offset,
@@ -789,6 +853,7 @@ class FrameEncoder:
         t0 = time.perf_counter()
         final_ops = enc.ops
         if cfg.sao:
+            # SAO compares against the ORIGINAL (unmapped) planes
             recs = [self.recon_y, self.recon_u, self.recon_v]
             sao_params = decide_sao_frame((y_orig, org[1], org[2]),
                                           recs, 128, cfg.qp,
@@ -796,16 +861,30 @@ class FrameEncoder:
                                           lam=self.lam)
             apply_sao_frame(recs, sao_params, 128, bit_depth=cfg.bit_depth)
         self._time("sao", t0)
+        alf_aps = None
+        if cfg.alf:
+            t0 = time.perf_counter()
+            (flags, sets, cb, cr, cc_cb, cc_cr), alf_aps = self._alf_frame(
+                y_orig, org[1], org[2])
+            self._time("alf", t0)
         t0 = time.perf_counter()
-        if cfg.sao:
-            # pass 2: splice the SAO CTU syntax into the op stream
+        if cfg.sao or cfg.alf:
+            # pass 2: splice the SAO and ALF CTU syntax into the op stream
+            # (CABACWriter::coding_tree_unit: sao(), then the ALF flags)
             pass2 = RecordingEncoder()
             marks = enc.ctu_marks + [len(enc.ops)]
             i = 0
             for cty in range(n_ctu_y):
                 for cx_i in range(n_ctu_x):
-                    write_sao_ctu(pass2, sao_params[i], cx_i > 0,
-                                  cty > 0, cfg.bit_depth)
+                    if cfg.sao:
+                        write_sao_ctu(pass2, sao_params[i], cx_i > 0,
+                                      cty > 0, cfg.bit_depth)
+                    if cfg.alf:
+                        alf.write_alf_ctu(pass2, ctx, cty, cx_i, flags, sets,
+                                          num_aps=1 if cfg.alf_chroma else 0,
+                                          flags_cb=cb, flags_cr=cr)
+                        if cfg.ccalf:
+                            alf.write_ccalf_ctu(pass2, ctx, cty, cx_i, cc_cb, cc_cr)
                     pass2.ops.extend(enc.ops[marks[i]:marks[i + 1]])
                     i += 1
             final_ops = pass2.ops
@@ -815,6 +894,10 @@ class FrameEncoder:
         if poc == 0:
             out += sps_nal(cfg)
             out += pps_nal(cfg)
+            if self.reshaper is not None:
+                out += lmcs_aps_nal(self.reshaper.model)
+        if alf_aps:
+            out += alf_aps              # the frame's derived ALF filters
         out += slice_nal(cfg, poc, slice_data)
         out += decoded_picture_hash_sei(
             (self.recon_y, self.recon_u, self.recon_v), cfg.bit_depth)

@@ -24,6 +24,9 @@ launches, for each tile class with live rows, the wave-step kernels:
   K4 ``tq``           (chroma) transform / quant / RD zeroing / sign-data
                       hiding / inverse, coded vs zero; with ``joint_cbcr``
                       the joint Cb-Cr trial (K6c) after the U and V TUs;
+                      with LMCS chroma scaling, each CU's chroma residual
+                      scale (K6b) from its VPDU's mapped luma neighbours,
+                      applied in every round trip;
   K7 ``wave_scatter`` masked writes into the recon and level planes and
                       the mode, MIP, mts_idx and lfnst_idx code grids (luma)
                       or the CCLM / joint Cb-Cr grid (chroma).
@@ -38,11 +41,16 @@ The JAX module's ``_refs_generic``, ``_avail_from_order`` and
 ``avail_from_order``, ``gather_plane``) and its ``_bits_proxy`` in
 ``ops/tq_generic.py`` (``bits_proxy``), beside the kernels that use them.
 
+With LMCS the luma is coded in the mapped domain: the original is
+forward-mapped on upload and the recon planes stay mapped; ``FrameEncoder``
+inverse-maps the recon before the in-loop filters.
+
 Supported: single or dual tree, map- or QT-driven partitioning, luma
 MIP, chroma CCLM (LM_CHROMA), TU coding with DCT-2, MTS (DST-7/DCT-8),
 LFNST and transform skip, joint Cb-Cr residuals, scalar quantisation,
-RDOQ-lite zeroing and sign-data hiding, deblocking and SAO. Every other
-tool raises ``NotImplementedError``.
+RDOQ-lite zeroing and sign-data hiding, LMCS with chroma residual scaling,
+deblocking, SAO, ALF and CC-ALF. The sequential-only tools (MRL, ISP,
+dependent quantisation) and the device RDO raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ from .. import _build
 from .._device import resolve_device
 from ..ops.cclm_generic import cclm_select
 from ..ops.intra_generic import intra_rmd, ref_gather
+from ..ops.lmcs_generic import crs_lut
 from ..ops.mip_generic import mip_select
 from ..ops.rows import check_rows
 from ..ops.tq_generic import tq, tq_mts
@@ -66,9 +75,7 @@ from .mtt import Split, SplitState, get_implicit_split
 from .residual import ctx
 
 DEFAULT_BATCH = {32: 16, 64: 8}   # CUs per step of the 32- and 64-pad classes
-# Tools not ported yet (LMCS with its chroma scaling K6b, ALF/CC-ALF on the
-# host), and the sequential-only tools the wave path never supported.
-UNPORTED_TOOLS = ("lmcs", "alf", "ccalf")
+# the sequential-only tools the wave path never supported
 UNSUPPORTED_TOOLS = ("mrl", "isp", "dep_quant")
 MAX_GRIDS = 4     # code grids K7 writes in one launch: mode, MIP, mts_idx, lfnst_idx
 
@@ -169,11 +176,12 @@ class _Scan:
     """What the steps of one ``_wave_scan`` share: the state planes
     (updated in place), originals, order grids and the coding parameters.
     ``ts_max``: the largest transform-skip side, 0 with transform skip off;
-    ``qp_j``: the internal QP of the joint Cb-Cr TU."""
+    ``qp_j``: the internal QP of the joint Cb-Cr TU; ``crs_lut``: with LMCS
+    chroma scaling, the (1 << bd,) int32 ``crs_lut`` on the device."""
 
     def __init__(self, state, oy, ou, ov, og4, og4c, qp_y, qp_c, bd, lam,
                  dw_c, rd_quant, mip=False, sdh=False, mts=False, lfnst=False,
-                 ts_max=0, cclm=False, jccr=False, qp_j=0):
+                 ts_max=0, cclm=False, jccr=False, qp_j=0, crs_lut=None):
         self.state = state
         self.oy, self.ou, self.ov = oy, ou, ov
         self.og4, self.og4c = og4, og4c
@@ -182,6 +190,7 @@ class _Scan:
         self.mip, self.sdh = mip, sdh
         self.mts, self.lfnst, self.ts_max = mts, lfnst, ts_max
         self.cclm, self.jccr, self.qp_j = cclm, jccr, qp_j
+        self.crs_lut = crs_lut
 
     def luma_tools(self, P):
         """(mts, lfnst, ts_max) of the P-pad class: MTS and transform skip
@@ -220,7 +229,9 @@ class _Scan:
         # tree's order grid (the luma one for single tree), then LM against
         # DM (cclm) and the joint Cb-Cr trial (jccr); their choices go into
         # the code grid, bit 0 LM, bit 1 joint. A single-tree CU whose luma
-        # chose LFNST keeps its chroma levels in LFNST's region.
+        # chose LFNST keeps its chroma levels in LFNST's region. With LMCS
+        # chroma scaling, K4 derives each CU's scale from the mapped luma
+        # recon and the same order grid.
         Pc = P // 2
         refs = ref_gather([ru, rv], self.og4c, row, Pc, 2, bd)
         _, pred = intra_rmd(refs, None, mg, row, Pc, False, bd)
@@ -228,9 +239,10 @@ class _Scan:
         if self.cclm:
             pred, use_lm = cclm_select(refs, ry, [self.ou, self.ov], self.og4c, row, pred,
                                        Pc, bd)
+        crs_src = None if self.crs_lut is None else (ry, self.og4c, self.crs_lut)
         out = tq([self.ou, self.ov], pred, row, Pc, 2, self.qp_c, bd, self.rd_quant,
                  self.lam, self.dw_c, sdh=self.sdh, lfnst_active=lf, jccr=self.jccr,
-                 qp_j=self.qp_j)
+                 qp_j=self.qp_j, crs_src=crs_src)
         grids = []
         if self.cclm or self.jccr:
             grids = [(cg, use_lm + (2 * out[2] if self.jccr else 0))]
@@ -356,21 +368,25 @@ def _schedule_waves(leaves, order, width, height, vpdu_dep=False):
     return wave
 
 
-def _pack_schedule(frames, width, height, batch, cclm=False):
+def _pack_schedule(frames, width, height, batch, cclm=False, crs=False):
     """Greedy cross-frame packing of the frames' wave levels.
 
     frames: list of (leaves_luma, leaves_chroma_or_None).  Dual tree
     appends the chroma tree's levels after the frame's luma levels (DM
-    reads the luma mode grid).  CUs only depend on earlier levels of their
-    OWN frame, so a step mixes frame A's level 3 with frame B's level 7; a
-    frame's next level becomes schedulable the step after its current one
-    finishes.  Returns (active classes, {class: (S, B, 8) int32}, order
+    reads the luma mode grid).  ``crs``: LMCS chroma scaling is on, so a
+    single-tree CU, whose chroma is coded in its luma step, also waits for
+    its VPDU's luma neighbours (``vpdu_dep``); the dual-tree chroma levels
+    run after the whole luma plane and need no such wait.  CUs only depend
+    on earlier levels of their OWN frame, so a step mixes frame A's level 3
+    with frame B's level 7; a frame's next level becomes schedulable the
+    step after its current one finishes.  Returns (active classes, {class: (S, B, 8) int32}, order
     grids, chroma order grids); a row is (frame, x, y, w, h, order id,
     live, flags)."""
     ogs, ogcs, per_frame = [], [], []
     for f, (leaves, cleaves) in enumerate(frames):
         order = _order_grid(leaves, width, height)
-        wave = _schedule_waves(leaves, order, width, height)
+        wave = _schedule_waves(leaves, order, width, height,
+                               vpdu_dep=crs and cleaves is None)
         ogs.append(order)
         by_lvl = collections.defaultdict(list)
         kind = "st" if cleaves is None else "luma"
@@ -433,7 +449,7 @@ class WavefrontEncoder(FrameEncoder):
 
     def __init__(self, cfg, *, batch=None, device=None, **kw):
         super().__init__(cfg, **kw)
-        bad = [f for f in UNPORTED_TOOLS + UNSUPPORTED_TOOLS if getattr(cfg, f)]
+        bad = [f for f in UNSUPPORTED_TOOLS if getattr(cfg, f)]
         if bad:
             raise NotImplementedError(
                 f"the port's wavefront path does not support: {bad}")
@@ -441,6 +457,8 @@ class WavefrontEncoder(FrameEncoder):
             raise NotImplementedError(
                 "rdo_fallback needs the device RDO, which is not ported")
         self.device = resolve_device(device)
+        self.crs_lut = crs_lut(cfg.bit_depth, cfg.lmcs_offset) \
+            if cfg.lmcs and cfg.lmcs_chroma_scaling else None
         self.batch = dict(DEFAULT_BATCH)
         if batch:
             self.batch.update(batch)
@@ -517,13 +535,16 @@ class WavefrontEncoder(FrameEncoder):
         dev = self.device
         t0 = time.perf_counter()
         active, step_arr, ogs, ogcs = _pack_schedule(
-            [fr[:2] for fr in frames], W, H, self.batch, cfg.cclm)
+            [fr[:2] for fr in frames], W, H, self.batch, cfg.cclm,
+            self.crs_lut is not None)
         self.steps = next(iter(step_arr.values())).shape[0] if step_arr else 0
         self._time("schedule", t0)
 
         t0 = time.perf_counter()
         up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-        oy = up(np.stack([fr[2] for fr in frames]))
+        # with LMCS the luma is coded in the mapped domain
+        fwd = self.reshaper.fwd if self.reshaper is not None else (lambda p: p)
+        oy = up(np.stack([fwd(np.asarray(fr[2], np.int32)) for fr in frames]))
         ou = up(np.stack([fr[3] for fr in frames]))
         ov = up(np.stack([fr[4] for fr in frames]))
         og4, og4c = up(ogs), up(ogcs)
@@ -540,7 +561,8 @@ class WavefrontEncoder(FrameEncoder):
                      mip=bool(cfg.mip), sdh=bool(cfg.sign_hiding),
                      mts=bool(cfg.mts_intra), lfnst=bool(cfg.lfnst),
                      ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0,
-                     cclm=bool(cfg.cclm), jccr=bool(cfg.joint_cbcr), qp_j=qp_j)
+                     cclm=bool(cfg.cclm), jccr=bool(cfg.joint_cbcr), qp_j=qp_j,
+                     crs_lut=None if self.crs_lut is None else up(self.crs_lut))
         self._time("upload", t0)
 
         t0 = time.perf_counter()

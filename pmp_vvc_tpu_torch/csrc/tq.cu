@@ -37,6 +37,20 @@
 // is coded and its cost is strictly lower: both planes then take its levels
 // and reconstructions, and use_joint is 1.
 //
+// With ``crs_on`` (K6b, LMCS chroma residual scaling, codec/wavefront.py:
+// _chroma_part 558-590 and _tq_generic 146-171), the block first derives its
+// CU's scale: the 64x64 VPDU's left column and above row of mapped luma
+// recon ``ry``, 64 samples each read clamped to the frame, summed by a block
+// reduction where the chroma coding-order grid ``og`` says the side's first
+// sample precedes the CU; their average (s + (32 << max(n - 1, 0))) >>
+// (5 + n), or 1 << (bd - 1) with no side; the scale lut[average], or 1 << 11
+// for CUs of 4 or fewer chroma samples. Every round trip (U, V and the joint
+// TU) then codes sgn * min(((|r| << 11) + c / 2) / c, 2^bd - 1) and scales
+// its reconstructed residual back, sgn * ((|rr| * c + 2^10) >> 11) after a
+// clip to [-2^bd, 2^bd - 1], clipped to 16 bits; both costs measure the
+// unscaled residual, kept in a fifth tile. ``crs_out`` (may be null)
+// receives the scales.
+//
 // The stages, sign-data hiding (one thread per coefficient group) and the
 // exact cost sums are the device code of csrc/tq.cuh, shared with K5.
 //
@@ -46,24 +60,76 @@
 // largest CUs. chip_smoke.py computes the bound of each call it times.
 #include "tq.cuh"
 
-// The CU's residual org - pred into S0 (zero outside the CU); S3 cleared.
+#define CRS_UNIT (1 << 11)             // CSCALE_FP_PREC: the identity scale
+#define VPDU 64
+
+// LMCS chroma residual scaling of one residual sample before the forward
+// transform, and of one reconstructed residual sample after the inverse.
+static __device__ __forceinline__ int crs_fwd(int r, int c, int bd) {
+    const int m = min(((abs(r) << 11) + (c >> 1)) / c, (1 << bd) - 1);
+    return r < 0 ? -m : m;
+}
+
+static __device__ __forceinline__ int crs_inv(int r, int c, int bd) {
+    const int rs = clampi(r, -(1 << bd), (1 << bd) - 1);
+    const int m = (abs(rs) * c + (1 << 10)) >> 11;
+    return clampi(rs < 0 ? -m : m, COEFF_MIN, COEFF_MAX);
+}
+
+// The CU's CRS scale (row ``r`` in luma units), returned to every thread.
+static __device__ int crs_scale(const int32_t* ry, const int32_t* og, const int32_t* lut,
+                                const int32_t* r, int HL, int WL, int bd, int* red32,
+                                int* s_val) {
+    const int fi = r[0], vx = r[1] / VPDU * VPDU, vy = r[2] / VPDU * VPDU, oi = r[5];
+    const int GH = HL / 4, GW = WL / 4;
+    const int32_t* g = og + (size_t)fi * GH * GW;
+    const int32_t* p = ry + (size_t)fi * HL * WL;
+    // a side counts where the leaf covering its first sample precedes the CU
+    const int id_l = g[clampi(vy / 4, 0, GH - 1) * GW + clampi(max(vx - 4, 0) / 4, 0, GW - 1)];
+    const int id_a = g[clampi(max(vy - 4, 0) / 4, 0, GH - 1) * GW + clampi(vx / 4, 0, GW - 1)];
+    const bool left = vx > 0 && id_l >= 0 && id_l < oi;
+    const bool above = vy > 0 && id_a >= 0 && id_a < oi;
+    const int i = threadIdx.x;
+    int v = 0;
+    if (i < VPDU && left)
+        v = p[min(vy + i, HL - 1) * WL + max(vx - 1, 0)];
+    else if (i >= VPDU && i < 2 * VPDU && above)
+        v = p[max(vy - 1, 0) * WL + min(vx + i - VPDU, WL - 1)];
+    const int s = block_sum(v, red32);
+    if (threadIdx.x == 0) {
+        const int n = left + above;
+        const int avg = n == 0 ? 1 << (bd - 1) : (s + (32 << max(n - 1, 0))) >> (5 + n);
+        *s_val = (r[3] / 2) * (r[4] / 2) > 4 ? lut[clampi(avg, 0, (1 << bd) - 1)] : CRS_UNIT;
+    }
+    __syncthreads();
+    return *s_val;
+}
+
+// The CU's residual org - pred into R (zero outside the CU), scaled by ``crs``
+// (0: none) into S0, which may be R; S3 cleared.
 static __device__ void load_resid(const Tile& t, const int32_t* org, int H, int W,
-                                  int xs, int ys, const int32_t* pr, int32_t* S0,
-                                  int32_t* S3) {
+                                  int xs, int ys, const int32_t* pr, int crs, int32_t* R,
+                                  int32_t* S0, int32_t* S3) {
     for (int i = threadIdx.x; i < t.P * t.P; i += blockDim.x) {
         const int y = i / t.P, x = i % t.P;
-        S0[i] = (y < t.h && x < t.w)
-                    ? org[clampi(ys + y, 0, H - 1) * W + clampi(xs + x, 0, W - 1)] - pr[i]
-                    : 0;
+        const int res = (y < t.h && x < t.w)
+                            ? org[clampi(ys + y, 0, H - 1) * W + clampi(xs + x, 0, W - 1)] -
+                                  pr[i]
+                            : 0;
+        R[i] = res;
+        S0[i] = crs ? crs_fwd(res, crs, t.bd) : res;
         S3[i] = 0;
     }
     __syncthreads();
 }
 
-// One round trip of the residual in S0: the levels in S3 and the
-// reconstructed residual in S1, before the coded-vs-zero decision, which it
-// returns to every thread; ``bits`` (thread 0) is the levels' rate proxy.
-static __device__ int round_trip(const Tile& t, int32_t* S0, int32_t* S1, int32_t* S2,
+// One round trip of the (scaled) residual in S0: the levels in S3 and the
+// reconstructed residual, scaled back by ``crs`` (0: none), in S1, before
+// the coded-vs-zero decision, which it returns to every thread; both costs
+// measure the unscaled residual R. ``bits`` (thread 0) is the levels' rate
+// proxy.
+static __device__ int round_trip(const Tile& t, int32_t* S0, const int32_t* R, int crs,
+                                 int32_t* S1, int32_t* S2,
                                  int32_t* S3, const int32_t* d64, const int32_t* cgtab,
                                  int ncg, bool region, int rd_quant, int sdh_on,
                                  float lam, float lam2, float lam3, float dw,
@@ -85,10 +151,17 @@ static __device__ int round_trip(const Tile& t, int32_t* S0, int32_t* S1, int32_
     if (sdh_on) sdh(t, cgtab, ncg, S2, S3);
     dequantize(t, S3, S1, kh, kw);
     inv_transform(t, S1, S2, S1, 0, 0, d64, nullptr);
+    if (crs) {
+        for (int e = threadIdx.x; e < h * w; e += blockDim.x) {
+            const int o = (e / w) * P + e % w;
+            S1[o] = crs_inv(S1[o], crs, t.bd);
+        }
+        __syncthreads();
+    }
     long long sse, sse0;
     int unused;
-    tile_sums(t, S0, S1, S3, red64, red32, &sse, bits);
-    tile_sums(t, S0, nullptr, nullptr, red64, red32, &sse0, &unused);
+    tile_sums(t, R, S1, S3, red64, red32, &sse, bits);
+    tile_sums(t, R, nullptr, nullptr, red64, red32, &sse0, &unused);
     if (threadIdx.x == 0) {
         const float cost_code =
             __fadd_rn(__fmul_rn(dw, __ll2float_rn(sse)), __fmul_rn(lam, (float)*bits));
@@ -104,16 +177,18 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
                           const int32_t* __restrict__ rows,
                           const int32_t* __restrict__ d64,
                           const int32_t* __restrict__ cgtab,
-                          const int32_t* __restrict__ lfnst_active, int B, int P,
+                          const int32_t* __restrict__ lfnst_active,
+                          const int32_t* __restrict__ ry, const int32_t* __restrict__ og,
+                          const int32_t* __restrict__ lut, int B, int P,
                           int scale, int qp, int bd, int rd_quant,
-                          int H, int W, int sdh_on, int ncg, int jccr, int qp_j,
+                          int H, int W, int sdh_on, int ncg, int jccr, int qp_j, int crs_on,
                           float lam, float lam2, float lam3, float dw,
                           int32_t* __restrict__ lev_out, int32_t* __restrict__ rec_out,
-                          int32_t* __restrict__ joint_out) {
+                          int32_t* __restrict__ joint_out, int32_t* __restrict__ crs_out) {
     extern __shared__ int32_t smem[];
     __shared__ long long red64[NT / 32];
     __shared__ int red32[NT / 32];
-    __shared__ int s_coded, s_use;
+    __shared__ int s_coded, s_use, s_crs;
     __shared__ long long s_sse[2];
     __shared__ int s_bits[2];
     const int b = blockIdx.x, PP = P * P;
@@ -127,13 +202,21 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
             for (int i = threadIdx.x; i < PP; i += blockDim.x)
                 lev_out[tile + i] = rec_out[tile + i] = 0;
         }
-        if (jccr && threadIdx.x == 0) joint_out[b] = 0;
+        if (threadIdx.x == 0 && pl0 == 0) {
+            if (jccr) joint_out[b] = 0;
+            if (crs_out) crs_out[b] = CRS_UNIT;
+        }
         return;
     }
-    int32_t* S0 = smem;                // residual
+    int32_t* S0 = smem;                // residual (scaled with CRS)
     int32_t* S1 = smem + PP;           // stage 1 / dequantised / inverse
     int32_t* S2 = smem + 2 * PP;       // coefficients / inverse stage 1
     int32_t* S3 = smem + 3 * PP;       // levels
+    int32_t* R = crs_on ? smem + 4 * PP : S0;   // the unscaled residual
+    const int crs = crs_on ? crs_scale(ry, og, lut, r, H * scale, W * scale, bd, red32,
+                                       &s_crs)
+                           : 0;
+    if (crs_out && threadIdx.x == 0 && pl0 == 0) crs_out[b] = crs;
     const int fi = r[0], xs = r[1] / scale, ys = r[2] / scale;
     const Tile t = make_tile(P, r[3] / scale, r[4] / scale, qp, bd);
     const int w = t.w, h = t.h;
@@ -143,9 +226,9 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
     for (int pl = pl0; pl < pl0 + npl; ++pl) {
         const size_t tile = ((size_t)pl * B + b) * PP;
         const int32_t* pr = pred + tile;
-        load_resid(t, org[pl], H, W, xs, ys, pr, S0, S3);
+        load_resid(t, org[pl], H, W, xs, ys, pr, crs, R, S0, S3);
         int bits;
-        const int coded = round_trip(t, S0, S1, S2, S3, d64, cgtab, ncg, region, rd_quant,
+        const int coded = round_trip(t, S0, R, crs, S1, S2, S3, d64, cgtab, ncg, region, rd_quant,
                                      sdh_on, lam, lam2, lam3, dw, red64, red32, &s_coded,
                                      &bits);
         long long sse = 0;             // JCCR: reconstruction against the original
@@ -156,7 +239,7 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
             lev_out[tile + i] = in && coded ? S3[i] : 0;
             rec_out[tile + i] = rec;
             if (jccr && in) {
-                const long long d = (long long)rec - (S0[i] + pr[i]);
+                const long long d = (long long)rec - (R[i] + pr[i]);
                 sse += d * d;
             }
         }
@@ -182,13 +265,14 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
             j = d >> 1;
             if ((d & 1) && (j & 1)) ++j;
         }
-        S0[i] = j;
+        R[i] = j;
+        S0[i] = crs ? crs_fwd(j, crs, bd) : j;
         S3[i] = 0;
     }
     __syncthreads();
     const Tile tj = make_tile(P, w, h, qp_j, bd);
     int bits_j;
-    const int coded_j = round_trip(tj, S0, S1, S2, S3, d64, cgtab, ncg, region, rd_quant,
+    const int coded_j = round_trip(tj, S0, R, crs, S1, S2, S3, d64, cgtab, ncg, region, rd_quant,
                                    sdh_on, lam, lam2, lam3, dw, red64, red32, &s_coded,
                                    &bits_j);
     long long sse_ju = 0, sse_jv = 0;
@@ -231,21 +315,25 @@ __global__ void tq_kernel(const int32_t* __restrict__ o0,
 extern "C" int pmp_tq(const int32_t* o0, const int32_t* o1, const int32_t* pred,
                       const int32_t* rows, const int32_t* d64,
                       const int32_t* cgtab, const int32_t* lfnst_active,
+                      const int32_t* ry, const int32_t* og, const int32_t* lut,
                       int nplanes, int B, int P,
                       int scale, int qp, int bd, int rd_quant,
-                      int H, int W, int sdh, int ncg, int jccr, int qp_j, float lam,
-                      float lam2, float lam3, float dw, int32_t* lev, int32_t* rec,
-                      int32_t* joint, cudaStream_t stream) {
+                      int H, int W, int sdh, int ncg, int jccr, int qp_j, int crs_on,
+                      float lam, float lam2, float lam3, float dw, int32_t* lev, int32_t* rec,
+                      int32_t* joint, int32_t* crs_out, cudaStream_t stream) {
     if (B == 0) return 0;
-    if (P > 64 || P < 4 || (jccr && nplanes != 2)) return (int)cudaErrorInvalidValue;
-    const int smem = 4 * P * P * (int)sizeof(int32_t);
+    if (P > 64 || P < 4 || (jccr && nplanes != 2) ||
+        (crs_on && (!ry || !og || !lut)) || (crs_out && !crs_on))
+        return (int)cudaErrorInvalidValue;
+    const int smem = (crs_on ? 5 : 4) * P * P * (int)sizeof(int32_t);
     cudaError_t err = cudaFuncSetAttribute(
         tq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(B, jccr ? 1 : nplanes);
     tq_kernel<<<grid, NT, smem, stream>>>(o0, o1, pred, rows, d64, cgtab,
-                                          lfnst_active, B, P, scale, qp, bd,
-                                          rd_quant, H, W, sdh, ncg, jccr, qp_j,
-                                          lam, lam2, lam3, dw, lev, rec, joint);
+                                          lfnst_active, ry, og, lut, B, P, scale, qp,
+                                          bd, rd_quant, H, W, sdh, ncg, jccr, qp_j,
+                                          crs_on, lam, lam2, lam3, dw, lev, rec, joint,
+                                          crs_out);
     return (int)cudaGetLastError();
 }

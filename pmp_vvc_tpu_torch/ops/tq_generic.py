@@ -23,7 +23,9 @@ single-tree LFNST region when asked, sign-data hiding when asked
 (``ops/sdh_generic.py``), dequant, inverse, the rate proxy and the
 coded-vs-zero TU decision (``wavefront.py:_tq_luma_mts`` with DCT-2 only,
 and ``_tq_generic``); with ``jccr``, the joint Cb-Cr trial
-(``wavefront.py:_chroma_part`` 598-633) after the U and V round trips.
+(``wavefront.py:_chroma_part`` 598-633) after the U and V round trips;
+with LMCS, the chroma residual scale (K6b, ``ops/lmcs_generic.py``) in all
+three round trips, derived in K4's prologue.
 **K5** ``tq_mts`` (``csrc/tq_mts.cu``) is the luma TQ with candidate
 transforms (``_tq_luma_mts``): DCT-2, DST-7/DCT-8, DCT-2 +
 LFNST (``ops/lfnst_generic.py``) and transform skip, their cost argmin, then
@@ -42,6 +44,7 @@ import torch
 
 from .. import _build
 from .distortion import hadamard
+from .lmcs_generic import crs_forward, crs_inverse, crs_scale_reference
 from .quant import INV_QUANT_SCALES, IQUANT_SHIFT, QUANT_SCALES, QUANT_SHIFT
 from .rows import check_rows, unpack_rows
 from .transforms import COEFF_MAX, COEFF_MIN, MATRIX_SHIFT, core_matrix
@@ -269,12 +272,15 @@ def _orgs_inside(org, rows, P, scale):
 
 
 def _tq_tile(orgt, pred, inside, ws, hs, ok, qp, bd, rd_quant, lam, dw, sdh,
-             lfnst_active=None):
+             lfnst_active=None, crs=None):
     """One chroma TQ round trip of the original tiles ``orgt`` against
     ``pred``: (lev, rec, rr), rr the reconstructed residual after the
     coded-vs-zero decision, each zero outside the (h, w) mask and for
-    padding rows."""
-    resid = (orgt - pred) * inside
+    padding rows. ``crs``: optional (B,) LMCS chroma residual scale; the
+    residual is scaled before the transform and the reconstructed one scaled
+    back after the inverse, and both costs measure the unscaled residual."""
+    resid_u = (orgt - pred) * inside
+    resid = resid_u if crs is None else crs_forward(resid_u, crs, bd)
     coef = forward_transform_generic(resid, ws, hs, bit_depth=bd)
     lev = quantize_generic(coef, ws, hs, qp, bit_depth=bd)
     if rd_quant:
@@ -286,9 +292,11 @@ def _tq_tile(orgt, pred, inside, ws, hs, ok, qp, bd, rd_quant, lam, dw, sdh,
         lev = apply_sdh_generic(lev, coef, ws, hs, qp, bit_depth=bd)
     deq = dequantize_generic(lev, ws, hs, qp, bit_depth=bd)
     rr = inverse_transform_generic(deq, ws, hs, bit_depth=bd)
-    err = ((rr - resid) * inside).long()
+    if crs is not None:
+        rr = crs_inverse(rr, crs, bd)
+    err = ((rr - resid_u) * inside).long()
     sse = (err * err).sum((-1, -2)).float()
-    rz = resid.long()
+    rz = resid_u.long()
     sse0 = (rz * rz).sum((-1, -2)).float()
     lam32 = torch.tensor(lam, dtype=torch.float32)
     dw32 = torch.tensor(dw, dtype=torch.float32)
@@ -301,7 +309,7 @@ def _tq_tile(orgt, pred, inside, ws, hs, ok, qp, bd, rd_quant, lam, dw, sdh,
     return lev, torch.where(inside & ok[:, None, None], rec, 0), rr
 
 
-def _joint_trial(tiles, pred, outs, qp_j, bd, rd_quant, lam, dw, sdh, act):
+def _joint_trial(tiles, pred, outs, qp_j, bd, rd_quant, lam, dw, sdh, act, crs=None):
     """JCCR mask 3 (Cr = -Cb) against the separate U and V TUs ``outs``
     (``wavefront.py:_chroma_part`` 598-633): the joint residual
     round((res_u - res_v) / 2), half to even, takes a third round trip at
@@ -310,12 +318,14 @@ def _joint_trial(tiles, pred, outs, qp_j, bd, rd_quant, lam, dw, sdh, act):
     lam * bits over the reconstructions: separate bits are each coded TU's
     rate proxy (1 for an uncoded one) + 1, joint bits the joint TU's + 3.
     Joint wins where its TU is coded and its cost is strictly lower; then
-    both planes take its levels. Returns (lev, rec, use_joint (B,) int32)."""
+    both planes take its levels. The joint TU takes the CRS scale ``crs`` as
+    the separate ones do, and Cr's residual is the scaled-back one. Returns
+    (lev, rec, use_joint (B,) int32)."""
     (ou, inside, ws, hs, ok), (ov, *_) = tiles
     (lev_u, rec_u, _), (lev_v, rec_v, _) = outs
     joint = torch.round(((ou - pred[0]) * inside - (ov - pred[1]) * inside).double() / 2).int()
     lev_j, rec_ju, rr_j = _tq_tile(pred[0] + joint, pred[0], inside, ws, hs, ok, qp_j, bd,
-                                   rd_quant, lam, dw, sdh, act)
+                                   rd_quant, lam, dw, sdh, act, crs)
     rec_jv = torch.where(inside & ok[:, None, None], (pred[1] - rr_j).clamp(0, (1 << bd) - 1), 0)
     sse = lambda rec, org: (((rec - org) * inside).long() ** 2).sum((-1, -2)).float()
     cbf = lambda lev: (lev != 0).flatten(1).any(1)
@@ -334,7 +344,7 @@ def _joint_trial(tiles, pred, outs, qp_j, bd, rd_quant, lam, dw, sdh, act):
 
 
 def tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam,
-                 dw, sdh=False, lfnst_active=None, jccr=False, qp_j=0):
+                 dw, sdh=False, lfnst_active=None, jccr=False, qp_j=0, crs=None):
     """Plain version of K4, the chroma TQ (luma runs K5, ``tq_mts``).
 
     orgs: one or two (F, H, W) int32 original planes (U and V);
@@ -350,67 +360,89 @@ def tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam,
     confined to ``lfnst_region`` after the RD zeroing and before sign-data
     hiding. With ``jccr`` (U and V given), the joint Cb-Cr trial
     (``_joint_trial``) at internal QP ``qp_j`` follows, with the same
-    sign-data hiding and LFNST region. Returns lev and rec, (n, B, P, P)
-    int32, zero outside each CU, and with ``jccr`` use_joint (B,) int32."""
+    sign-data hiding and LFNST region. ``crs``: optional (B,) int32 LMCS
+    chroma residual scales (``ops/lmcs_generic.py``), applied in every round
+    trip, the joint one included. Returns lev and rec, (n, B, P, P) int32,
+    zero outside each CU, and with ``jccr`` use_joint (B,) int32."""
     act = None if lfnst_active is None else lfnst_active.bool()
     tiles = [_orgs_inside(o, rows, pad, scale) for o in orgs]
-    outs = [_tq_tile(t[0], pred[i], *t[1:], qp, bit_depth, rd_quant, lam, dw, sdh, act)
+    outs = [_tq_tile(t[0], pred[i], *t[1:], qp, bit_depth, rd_quant, lam, dw, sdh, act, crs)
             for i, t in enumerate(tiles)]
     if jccr:
-        return _joint_trial(tiles, pred, outs, qp_j, bit_depth, rd_quant, lam, dw, sdh, act)
+        return _joint_trial(tiles, pred, outs, qp_j, bit_depth, rd_quant, lam, dw, sdh, act,
+                            crs)
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
 @functools.cache
 def _k4():
     fn = _build.library("tq").pmp_tq
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [
-        ctypes.c_float] * 4 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [
+        ctypes.c_float] * 4 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
 
 
 def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw,
-       sdh=False, lfnst_active=None, jccr=False, qp_j=0):
+       sdh=False, lfnst_active=None, jccr=False, qp_j=0, crs_src=None, crs_out=None):
     """K4: see ``tq_reference``; CPU tensors take it, CUDA tensors launch
-    ``csrc/tq.cu``."""
+    ``csrc/tq.cu``. ``crs_src``: optional (mapped luma recon (F, H, W),
+    chroma coding-order grid (F, H/4, W/4), ``crs_lut`` (1 << bd,)), all
+    int32, from which each CU's LMCS chroma residual scale is derived
+    (``crs_scale_reference``; on the card, K4's prologue); ``crs_out``:
+    optional (B,) int32 tensor that receives those scales."""
     check_rows(rows)
     if len(orgs) != pred.shape[0] or len(orgs) not in (1, 2):
         raise ValueError("tq takes one or two planes, one prediction each")
     if jccr and len(orgs) != 2:
         raise ValueError("the joint Cb-Cr trial takes the U and V planes")
+    if crs_out is not None and crs_src is None:
+        raise ValueError("crs_out needs crs_src")
     if rows.device.type == "cpu":
+        crs = None
+        if crs_src is not None:
+            crs = crs_scale_reference(crs_src[0], crs_src[1], rows, crs_src[2], bit_depth)
+            if crs_out is not None:
+                crs_out.copy_(crs)
         return tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth,
-                            rd_quant, lam, dw, sdh, lfnst_active, jccr, qp_j)
-    _build.check_cuda("tq", *orgs, pred, rows, lfnst_active)
-    if any(t.dtype != torch.int32 for t in (*orgs, pred)):
-        raise TypeError("tq takes int32 planes and predictions")
-    if lfnst_active is not None and (lfnst_active.dtype != torch.int32
-                                     or lfnst_active.shape != (rows.shape[0],)):
-        raise TypeError("lfnst_active must be (B,) int32")
-    n, B = pred.shape[0], pred.shape[1]
+                            rd_quant, lam, dw, sdh, lfnst_active, jccr, qp_j, crs)
+    _build.check_cuda("tq", *orgs, pred, rows, lfnst_active, *(crs_src or ()), crs_out)
+    if any(t.dtype != torch.int32 for t in (*orgs, pred, *(crs_src or ()))):
+        raise TypeError("tq takes int32 planes, predictions and CRS inputs")
+    B = pred.shape[1]
+    for t, name in ((lfnst_active, "lfnst_active"), (crs_out, "crs_out")):
+        if t is not None and (t.dtype != torch.int32 or t.shape != (B,)):
+            raise TypeError(f"{name} must be ({B},) int32")
+    n = pred.shape[0]
     if pred.shape[2:] != (pad, pad):
         raise ValueError(f"prediction tiles {tuple(pred.shape)} do not fit pad {pad}")
     _, H, W = orgs[0].shape
+    if crs_src is not None and (crs_src[0].shape[1:] != (H * scale, W * scale)
+                                or crs_src[2].shape != (1 << bit_depth,)):
+        raise ValueError("crs_src must be the luma plane of these chroma planes and a "
+                         f"{1 << bit_depth}-entry LUT")
     lev = torch.empty_like(pred)
     rec = torch.empty_like(pred)
     joint = torch.empty((B,), dtype=torch.int32, device=rows.device) if jccr else None
-    o1 = orgs[1].data_ptr() if n == 2 else None
     from .sdh_generic import cg_tables
     cgt = cg_tables(pad, rows.device)
-    act = lfnst_active.data_ptr() if lfnst_active is not None else None
-    err = _k4()(orgs[0].data_ptr(), o1, pred.data_ptr(), rows.data_ptr(),
-                _dct2_64(rows.device).data_ptr(), cgt.data_ptr(), act,
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    ry, og, lut = crs_src or (None, None, None)
+    err = _k4()(orgs[0].data_ptr(), ptr(orgs[1] if n == 2 else None), pred.data_ptr(),
+                rows.data_ptr(), _dct2_64(rows.device).data_ptr(), cgt.data_ptr(),
+                ptr(lfnst_active), ptr(ry), ptr(og), ptr(lut),
                 n, B, pad, scale, qp, bit_depth, int(rd_quant),
-                H, W, int(sdh), cgt.shape[1], int(jccr), qp_j,
+                H, W, int(sdh), cgt.shape[1], int(jccr), qp_j, int(crs_src is not None),
                 *(float(np.float32(v)) for v in (lam, lam * 2.0, lam * 3.0, dw)),
-                lev.data_ptr(), rec.data_ptr(),
-                joint.data_ptr() if jccr else None, _build.stream(rows))
+                lev.data_ptr(), rec.data_ptr(), ptr(joint), ptr(crs_out),
+                _build.stream(rows))
     _build.count_launch(tq, err)
+    tq.crs_launches += crs_src is not None
     return (lev, rec, joint) if jccr else (lev, rec)
 
 
 tq.launches = 0
+tq.crs_launches = 0                # the launches with the chroma residual scale
 
 
 # ---------------------------------------------------------------------------

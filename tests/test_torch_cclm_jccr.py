@@ -196,10 +196,11 @@ def _jax_round(res_u, res_v):
 
 
 @functools.partial(jax.jit, static_argnums=(5, 6, 7, 8, 9))
-def _jax_joint(corg, pred, cws, chs, c_in, qp_c, qp_j, lam, dw, sdh, region):
+def _jax_joint(corg, pred, cws, chs, c_in, qp_c, qp_j, lam, dw, sdh, region, crs=None):
     """``_chroma_part``'s separate U and V TUs and its joint trial (598-633)
-    with the JAX functions. Returns (lev, rec, use_joint, cbf_j)."""
-    kw = dict(lev_region=region, sdh=sdh)
+    with the JAX functions, each TU with the LMCS chroma residual scales
+    ``crs`` if given. Returns (lev, rec, use_joint, cbf_j)."""
+    kw = dict(lev_region=region, sdh=sdh, crs=crs)
     lev_u, rec_u = jwf._tq_generic(corg[0], pred[0], cws, chs, qp_c, BD, lam, dw, True, c_in, **kw)
     lev_v, rec_v = jwf._tq_generic(corg[1], pred[1], cws, chs, qp_c, BD, lam, dw, True, c_in, **kw)
     joint_res = _jax_round((corg[0] - pred[0]) * c_in, (corg[1] - pred[1]) * c_in)

@@ -40,6 +40,7 @@ from pmp_vvc_tpu_torch.ops import intra_generic as tig
 from pmp_vvc_tpu_torch.ops import mip_generic as tmip
 from pmp_vvc_tpu_torch.ops import sdh_generic as tsdh
 from pmp_vvc_tpu_torch.ops import tq_generic as ttq
+from pmp_vvc_tpu_torch.ops.lmcs_generic import crs_forward, crs_inverse
 from pmp_vvc_tpu_torch.ops.quant import INV_QUANT_SCALES, IQUANT_SHIFT
 
 torch.set_num_threads(2)
@@ -116,7 +117,8 @@ def jax_refs(plane, og, rows, pad, scale):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["transform_cores.npz", "ctx_init.npz",
-                                  "ctx_sets.json", "mip_matrices.npz", "lfnst.npz"])
+                                  "ctx_sets.json", "mip_matrices.npz", "lfnst.npz",
+                                  "alf_fixed.npz"])
 def test_copied_tables_are_byte_equal(name):
     a = (REPO / "pmp_vvc_tpu" / "codec" / "data" / name).read_bytes()
     b = (REPO / "pmp_vvc_tpu_torch" / "codec" / "data" / name).read_bytes()
@@ -349,9 +351,10 @@ def luma_or_chroma_tq(orgs, pred, rows, pad, scale, qp, lam, dw, sdh=False):
     return ttq.tq_reference(orgs, pred, rows, pad, scale, qp, BD, True, lam, dw, sdh=sdh)
 
 
-def _dct2_coef(org, pred, rows, pad, scale):
+def _dct2_coef(org, pred, rows, pad, scale, crs=None):
     """(residual, its DCT-2 coefficients, (h, w) mask, ws, hs, live rows)
-    of each row's tile."""
+    of each row's tile; with ``crs`` (B,) the coefficients are those of the
+    LMCS-scaled residual."""
     fi, xs, ys, ws, hs, _, ok = (torch.from_numpy(a) for a in _unpack(rows, scale))
     d = torch.arange(pad, dtype=torch.int32)
     orgs = org[fi[:, None, None].long(),
@@ -359,15 +362,16 @@ def _dct2_coef(org, pred, rows, pad, scale):
                (xs[:, None, None] + d[None, None, :]).clamp(0, org.shape[2] - 1).long()]
     inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None])
     resid = (orgs - pred) * inside
-    coef = ttq.forward_transform_generic(resid, ws, hs, bit_depth=BD)
+    coded = resid if crs is None else crs_forward(resid, crs, BD)
+    coef = ttq.forward_transform_generic(coded, ws, hs, bit_depth=BD)
     return resid, coef, inside, ws, hs, ok
 
 
-def region_cut(org, pred, rows, pad, scale, qp, lam, lfnst_active):
+def region_cut(org, pred, rows, pad, scale, qp, lam, lfnst_active, crs=None):
     """How many of K4's RD-zeroed levels on these inputs the single-tree
     LFNST region removes (``ttq.lfnst_region``, on the live rows whose
     ``lfnst_active`` is set)."""
-    _, coef, _, ws, hs, ok = _dct2_coef(org, pred, rows, pad, scale)
+    _, coef, _, ws, hs, ok = _dct2_coef(org, pred, rows, pad, scale, crs)
     lev = ttq.rd_cleanup_generic(ttq.quantize_generic(coef, ws, hs, qp, bit_depth=BD),
                                  coef, ws, hs, qp, lam, bit_depth=BD)
     region = ttq.lfnst_region(ws, hs, lfnst_active.bool(), pad)
@@ -375,21 +379,23 @@ def region_cut(org, pred, rows, pad, scale, qp, lam, lfnst_active):
 
 
 def tq_margin(org, pred, rows, pad, scale, qp, lam, dw=None, sdh=False,
-              lfnst_active=None):
+              lfnst_active=None, crs=None):
     """The smallest relative margin of the DCT-2 TQ's float decisions on
     these inputs (``luma_or_chroma_tq``: K4's, or with ``dw`` None K5's with
     its tools off), recomputed with the port's plain pieces: the zeroing
     decisions of ``quant_margins`` and the coded TU's cost against the zero
     TU's; with ``sdh``, after sign-data hiding (and ``lfnst_active``'s
-    region). Returns (margin, ``sdh_gaps`` of the groups that sign-data
+    region); with ``crs`` (B,), of K4's round trip with LMCS chroma residual
+    scaling. Returns (margin, ``sdh_gaps`` of the groups that sign-data
     hiding corrects)."""
-    return _round_trip_margin(*_dct2_coef(org, pred, rows, pad, scale), qp, lam, dw, sdh,
-                              lfnst_active)
+    return _round_trip_margin(*_dct2_coef(org, pred, rows, pad, scale, crs), qp, lam, dw, sdh,
+                              lfnst_active, crs)
 
 
-def _round_trip_margin(resid, coef, inside, ws, hs, ok, qp, lam, dw, sdh, lfnst_active):
+def _round_trip_margin(resid, coef, inside, ws, hs, ok, qp, lam, dw, sdh, lfnst_active,
+                       crs=None):
     """``tq_margin`` of the residual tiles ``resid`` with DCT-2 coefficients
-    ``coef``."""
+    ``coef`` (of the residual scaled by ``crs``, if given)."""
     region = None if lfnst_active is None else \
         ttq.lfnst_region(ws, hs, lfnst_active.bool(), coef.shape[-1])
     margins, lev2, gaps = quant_margins(coef, ws, hs, qp, lam, ok, sdh, region)
@@ -397,6 +403,8 @@ def _round_trip_margin(resid, coef, inside, ws, hs, ok, qp, lam, dw, sdh, lfnst_
         lev2 = tsdh.apply_sdh_generic(lev2, coef, ws, hs, qp, bit_depth=BD)
     rr = ttq.inverse_transform_generic(
         ttq.dequantize_generic(lev2, ws, hs, qp, bit_depth=BD), ws, hs, bit_depth=BD)
+    if crs is not None:
+        rr = crs_inverse(rr, crs, BD)
     sse = (((rr - resid) * inside).double() ** 2).sum((-1, -2))
     sse0 = (resid.double() ** 2).sum((-1, -2))
     bits = ttq.bits_proxy(lev2).double()
@@ -411,25 +419,27 @@ def _round_trip_margin(resid, coef, inside, ws, hs, ok, qp, lam, dw, sdh, lfnst_
 
 
 def jccr_margin(orgs, pred, rows, pad, scale, qp, qp_j, lam, dw, sdh=False,
-                lfnst_active=None):
+                lfnst_active=None, crs=None):
     """The smallest relative margin of the joint Cb-Cr trial's float decisions
     on these inputs (K4 with ``jccr``; its U and V round trips are
     ``tq_margin``'s): the joint TU's zeroing and coded-vs-zero decisions, as
     in ``tq_margin``, and where the joint TU is coded its cost against the
     separate TUs' (``ttq._joint_trial``), both recomputed in float64 from the
-    exact SSEs. Returns (margin, ``sdh_gaps`` of the joint TU)."""
+    exact SSEs; every round trip with the LMCS scales ``crs`` if given.
+    Returns (margin, ``sdh_gaps`` of the joint TU)."""
     tiles = [ttq._orgs_inside(o, torch.from_numpy(rows), pad, scale) for o in orgs]
     (ou, inside, ws, hs, ok), (ov, *_) = tiles
     act = None if lfnst_active is None else lfnst_active.bool()
     joint = torch.round(((ou - pred[0]) * inside - (ov - pred[1]) * inside).double() / 2).int()
-    coef = ttq.forward_transform_generic(joint, ws, hs, bit_depth=BD)
+    coef = ttq.forward_transform_generic(joint if crs is None else crs_forward(joint, crs, BD),
+                                         ws, hs, bit_depth=BD)
     margin, gaps = _round_trip_margin(joint, coef, inside, ws, hs, ok, qp_j, lam, dw, sdh,
-                                      lfnst_active)
+                                      lfnst_active, crs)
     (lev_u, rec_u, _), (lev_v, rec_v, _) = (
-        ttq._tq_tile(t[0], pred[i], *t[1:], qp, BD, True, lam, dw, sdh, act)
+        ttq._tq_tile(t[0], pred[i], *t[1:], qp, BD, True, lam, dw, sdh, act, crs)
         for i, t in enumerate(tiles))
     lev_j, rec_ju, rr_j = ttq._tq_tile(pred[0] + joint, pred[0], inside, ws, hs, ok, qp_j,
-                                       BD, True, lam, dw, sdh, act)
+                                       BD, True, lam, dw, sdh, act, crs)
     rec_jv = (pred[1] - rr_j).clamp(0, (1 << BD) - 1)
     sse = lambda rec, org: (((rec - org) * inside).double() ** 2).sum((-1, -2))
     cbf = lambda lev: (lev != 0).flatten(1).any(1)

@@ -7,8 +7,9 @@ deblocking + SAO, and the slice's dual-tree configuration with luma and
 chroma MTT maps. The bitstreams and recon must be byte-identical, and the
 port's stream must decode hash-verified with the JAX package's decoder.
 Every K4 and K5 decision keeps a relative margin above MARGIN
-(test_torch_codec_ops.py). Every flag the port does not support raises;
-MIP and sign-data hiding are accepted (test_torch_encode_tools.py encodes
+(test_torch_codec_ops.py). Every flag the port does not support (the
+sequential-only tools, the device RDO) raises; every coding tool of the
+bench configuration is accepted (the test_torch_encode_*.py files encode
 with them).
 """
 import numpy as np
@@ -79,7 +80,7 @@ def test_dual_tree_slice_configuration(margins):
                                 "replay", "deblock", "sao", "finalize"}
 
 
-@pytest.mark.parametrize("flag", twf.UNPORTED_TOOLS + twf.UNSUPPORTED_TOOLS)
+@pytest.mark.parametrize("flag", twf.UNSUPPORTED_TOOLS)
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         twf.WavefrontEncoder(VVCConfig(width=64, height=64, **{flag: True}),
@@ -88,11 +89,11 @@ def test_unported_flags_raise(flag):
 
 def test_mip_and_sign_hiding_are_accepted():
     tools = ("mip", "sign_hiding", "mts_intra", "lfnst", "transform_skip", "cclm",
-             "joint_cbcr")
+             "joint_cbcr", "lmcs", "lmcs_chroma_scaling", "alf", "alf_chroma", "ccalf")
     enc = twf.WavefrontEncoder(VVCConfig(width=64, height=64, **dict.fromkeys(tools, True)),
                                device="cpu")
     assert all(getattr(enc.cfg, t) for t in tools)
-    assert not set(tools) & set(twf.UNPORTED_TOOLS + twf.UNSUPPORTED_TOOLS)
+    assert not set(tools) & set(twf.UNSUPPORTED_TOOLS)
 
 
 def test_rdo_paths_raise():

@@ -24,6 +24,7 @@ from pmp_vvc_tpu.codec.headers import VVCConfig as JaxConfig
 from pmp_vvc_tpu_torch.codec import wavefront as twf
 from pmp_vvc_tpu_torch.codec.headers import VVCConfig
 from pmp_vvc_tpu_torch.ops.cclm_generic import cclm_costs
+from pmp_vvc_tpu_torch.ops.lmcs_generic import crs_scale_reference
 from test_torch_codec_ops import (MARGIN, jccr_margin, k5_margin, mip_margin, region_cut,
                                   tq_margin)
 from test_wavefront import _mtt_maps, _synth
@@ -56,28 +57,34 @@ def margins(monkeypatch):
     above MARGIN too (``seen["jccr"]``, ``jccr_margin``); every K6a call's
     DM and LM joint SATDs must stay below 2^24, where the JAX package's
     float32 sums and its strict comparison are exact (``seen["cclm"]``: the
-    largest SATD per call)."""
-    seen = {"tq": [], "sdh": [], "mip": [], "k5": [], "region": [], "jccr": [], "cclm": []}
+    largest SATD per call). With LMCS chroma scaling, K4's margins are those
+    of its scaled round trips, and ``seen["crs"]`` collects the scales."""
+    seen = {"tq": [], "sdh": [], "mip": [], "k5": [], "region": [], "jccr": [], "cclm": [],
+            "crs": []}
     real_tq, real_mip, real_k5 = twf.tq, twf.mip_select, twf.tq_mts
     real_cclm = twf.cclm_select
 
     def guarded(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw, sdh=False,
-                lfnst_active=None, jccr=False, qp_j=0):
+                lfnst_active=None, jccr=False, qp_j=0, crs_src=None):
+        crs = None
+        if crs_src is not None:
+            crs = crs_scale_reference(crs_src[0], crs_src[1], rows, crs_src[2], bd)
+            seen["crs"] += crs[rows[:, 6] > 0].tolist()
         for i, org in enumerate(orgs):
             m, gaps = tq_margin(org, pred[i], rows.numpy(), pad, scale, qp, lam, dw, sdh,
-                                lfnst_active)
+                                lfnst_active, crs)
             seen["tq"].append(m)
             seen["sdh"] += gaps
             if lfnst_active is not None:
                 seen["region"].append(region_cut(org, pred[i], rows.numpy(), pad, scale,
-                                                 qp, lam, lfnst_active))
+                                                 qp, lam, lfnst_active, crs))
         if jccr:
             m, gaps = jccr_margin(orgs, pred, rows.numpy(), pad, scale, qp, qp_j, lam, dw,
-                                  sdh, lfnst_active)
+                                  sdh, lfnst_active, crs)
             seen["jccr"].append(m)
             seen["sdh"] += gaps
         return real_tq(orgs, pred, rows, pad, scale, qp, bd, rd_quant, lam, dw, sdh,
-                       lfnst_active, jccr, qp_j)
+                       lfnst_active, jccr, qp_j, crs_src)
 
     def guarded_mip(refs, org, rows, pred, best, pad, bd):
         seen["mip"].append(mip_margin(refs, org, rows, pred, pad))
