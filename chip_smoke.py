@@ -44,8 +44,8 @@ Phases, each of which fails the run on error (nothing is caught):
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
    + CCLM + joint Cb-Cr + LMCS with chroma scaling + deblocking + SAO
    configuration at QP 22 through ``WavefrontEncoder.encode_frames``; the
-   previous slice's configuration (without LMCS) beside it, cold runs then
-   warm runs old, new, new, old; stage times, wave steps, launches of every
+   configuration without LMCS beside it, cold runs then one warm run each,
+   old then new; stage times, wave steps, launches of every
    kernel (K4's with the chroma scale among them), the MIP, MTS, LFNST and
    transform-skip luma CUs, the LM chroma CUs and joint Cb-Cr TUs, hash SEI
    against an MD5 of the returned recon, luma PSNR.
@@ -68,12 +68,44 @@ Phases, each of which fails the run on error (nothing is caught):
 11. One warm frame's wave scan under torch.profiler: device time by kernel
     and the device's idle share.
 
+The device RDO (K9: K9a ``rdo_luma_select``, K9b ``rdo_chroma_select``,
+K9c ``rdo_leaf_cost`` in ``csrc/rdo_leaf.cu``), its phases run beside the
+ones above:
+
+12. K9a/K9b/K9c, and K1, K4, K5 and K6a as the RDO calls them, against their
+    plain versions on the card, exactly, on rects of every tile class
+    (``RDO_CASES``: at the frame's top-left and bottom-right corners, chroma
+    sides of 2, the 64 class, LM winning and losing, two QP points in one
+    call, SSEs above 2^24, 2x2 chroma TUs), and the whole
+    ``luma_leaf_costs`` / ``chroma_leaf_costs`` against the CPU's; each new
+    kernel timed on one 16,384-rect chunk of the 8-pad class.
+13. The RDO's main path: the 1080p x 2 encode of phase 7's configuration at
+    accel level 0 with ``rdo_fallback`` (every MTT node deferred to the
+    search, QT splits below the map's banned), cold (the node DAGs built)
+    then warm with every kernel's launches counted; stage times with the
+    RDO's (geometry, leaf costs with their device span, DP), deferred
+    nodes, CUs per size against phase 7's L3 run, hash SEI.
+14. The bench's configuration (``bench.py:186-197`` as it is, with
+    ``rdo_fallback``) at 416x240 x 2: its maps cover 384x192 only, and at L3
+    K9 decides the nodes outside them and no others; on the frames cut to
+    384x192, K9 launches 0 times at L3 and the stream equals the one without
+    the fallback; L0, L1, L2 launch K9 where nodes defer and the four levels
+    give at least three distinct streams; ``encode_frame(rdo=True)`` on one
+    frame.
+15. The label search: ``search_frames`` / ``search_frames_chroma`` with four
+    encoders (QP 22/27/32/37) on 2 frames of 512x512 natural content, equal
+    to four single-QP searches, timed.
+16. CPU against card: 128x128 at L1 with the MTT maps of the JAX package's
+    accel-level test (dual tree) and ``encode_frame(rdo=True)`` at 208x120
+    (single tree), both with the bench's tools: byte-identical streams.
+
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA.
 """
 from __future__ import annotations
 
+import collections
 import hashlib
 import itertools
 import json
@@ -87,10 +119,13 @@ import numpy as np
 import torch
 
 from pmp_vvc_tpu_torch import _build
+from pmp_vvc_tpu_torch.codec import rdo_device as trd
 from pmp_vvc_tpu_torch.codec import wavefront as wf
+from pmp_vvc_tpu_torch.codec.rdo_device import DeviceRDO
 from pmp_vvc_tpu_torch.codec.headers import VVCConfig
-from pmp_vvc_tpu_torch.data.synthcontent import natural_sequence
+from pmp_vvc_tpu_torch.data.synthcontent import natural_frame, natural_sequence
 from pmp_vvc_tpu_torch.data.yuv import blocks_for_sequence, write_yuv420
+from pmp_vvc_tpu_torch.ops import rdo_generic as rg
 from pmp_vvc_tpu_torch.ops import tq_generic as ttq
 from pmp_vvc_tpu_torch.ops.cclm_generic import (
     cclm_costs, cclm_models, cclm_neighbours, cclm_select, cclm_select_reference)
@@ -490,7 +525,8 @@ def _cmp(name: str, got, want, errs: dict) -> None:
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
     for g, w in zip(got, want):
-        err = float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
+        d = g.double() - w.double() if g.is_floating_point() else g.long() - w.long()
+        err = float(d.abs().max()) if g.numel() else 0.0
         errs[name] = max(errs.get(name, 0.0), err)
         check(torch.equal(g, w), f"{name} differs from its plain version (max {err})")
 
@@ -1187,6 +1223,7 @@ def reset_counts() -> None:
     for fn, _, _ in ENC_KERNELS.values():
         fn.launches = 0
     tq.crs_launches = 0
+    reset_rdo_counts()
 
 
 def timed_encode(enc, frames, maps_l, maps_c, label: str):
@@ -1256,12 +1293,12 @@ def chroma_tool_frames(w: int, h: int, n: int, seed0: int = 3) -> list:
 
 
 def phase_encode(preds: dict):
-    """The map-driven encode at 1920x1080: this slice's configuration (MIP,
-    SDH, MTS, LFNST, TS, CCLM, JCCR, LMCS with chroma scaling) and the
-    previous slice's (without LMCS), a cold run of one frame each, then warm
-    runs of both frames in the order old, new, new, old; the first warm run
-    of this slice's is the main path's, with every kernel's launches counted
-    (K4's with the chroma scale apart)."""
+    """The map-driven encode at 1920x1080: the LMCS slice's configuration
+    (MIP, SDH, MTS, LFNST, TS, CCLM, JCCR, LMCS with chroma scaling) and the
+    one before it (without LMCS), a cold run of one frame each, then one
+    warm run of both frames of each, old then new; the new one is the main
+    path's, with every kernel's launches counted (K4's with the chroma scale
+    apart)."""
     frames = natural_sequence(ENC_W, ENC_H, ENC_FRAMES, seed0=7, bit_depth=BD)
     t0 = time.perf_counter()
     maps_l, maps_c = frame_maps(preds, frames, ENC_W, ENC_H)
@@ -1273,9 +1310,9 @@ def phase_encode(preds: dict):
         enc.encode_frames(frames[:1], maps=maps_l[:1], chroma_maps=maps_c[:1])
         log(f"[encode] {tools}: cold run (1 frame) {time.perf_counter() - t0:.3f} s")
     enc = encs[MAIN]
-    timed_encode(encs[PREVIOUS], frames, maps_l, maps_c, f"{PREVIOUS} (1)")
+    timed_encode(encs[PREVIOUS], frames, maps_l, maps_c, PREVIOUS)
     reset_counts()
-    outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} (1), the main path")
+    outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN}, the main path")
     launches = {name: fn.launches for name, (fn, _, _) in ENC_KERNELS.items()}
     launches[K6B[0]] = tq.crs_launches
     for name, n in launches.items():
@@ -1291,8 +1328,6 @@ def phase_encode(preds: dict):
         f"{codes['lfnst']} with LFNST, {codes['ts']} with transform skip; of "
         f"{cc['cus']} chroma CUs, {cc['lm']} coded with LM, {cc['joint']} with a joint "
         f"Cb-Cr TU")
-    timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} (2)")
-    timed_encode(encs[PREVIOUS], frames, maps_l, maps_c, f"{PREVIOUS} (2)")
     nbytes = 0
     for f, (bs, recon) in enumerate(outs):
         nbytes += len(bs)
@@ -1459,6 +1494,425 @@ def phase_encode_profile(frames, maps_l, maps_c) -> None:
             f"{name[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# The device RDO: K9a, K9b, K9c (with K1, K4, K5, K6a) and its paths
+# ---------------------------------------------------------------------------
+
+RDO_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
+    "rdo_luma_select": (rg.rdo_luma_select, "pmp_vvc_tpu_torch/csrc/rdo_leaf.cu",
+                        "pmp_vvc_tpu/codec/rdo_device.py:77"),
+    "rdo_chroma_select": (rg.rdo_chroma_select, "pmp_vvc_tpu_torch/csrc/rdo_leaf.cu",
+                          "pmp_vvc_tpu/codec/rdo_device.py:581"),
+    "rdo_leaf_cost": (rg.rdo_leaf_cost, "pmp_vvc_tpu_torch/csrc/rdo_leaf.cu",
+                      "pmp_vvc_tpu/codec/rdo_device.py:122"),
+}
+RDO_W, RDO_H = 256, 192
+RDO_CASES = ("rect at x = 0, y = 0", "rect on the right and bottom edges", "chroma side of 2",
+             "64-pad rect", "LM won", "LM lost", "two QP points", "SSE above 2^24",
+             "2x2 chroma TU")
+# the label search (tools/gen_dataset.py): 512x512 natural content, four QPs;
+# luma in single tree, the chroma channel in dual tree with CCLM
+LABEL_W = LABEL_H = 512
+LABEL_QPS = (22, 27, 32, 37)
+
+
+def rdo_cfg(w: int, h: int, qp: int, chroma: bool = False, min_cb: int = 2) -> VVCConfig:
+    """The label search's configuration (``tools/gen_dataset.py:mkenc``) at
+    ``qp``: the bench's chroma QP table, MTT depth 3, BT/TT 32; with
+    ``chroma`` the dual tree with CCLM; the minimum CU 2 ** ``min_cb``."""
+    return VVCConfig(width=w, height=h, qp=qp, deblocking_disabled=True,
+                     chroma_qp_start_minus26=-9, chroma_qp_points=((9, 12), (4, 5), (11, 7)),
+                     log2_min_cb=min_cb, max_mtt_depth_intra=3, max_bt_intra=32,
+                     max_tt_intra=32, dual_tree=chroma, cclm=chroma)
+
+
+def rdo_rows(P: int, seed: int, width: int, height: int, n_frames: int = 2) -> np.ndarray:
+    """(B, 8) int32 rows of the P-pad class, as ``DeviceRDO`` builds them:
+    every size with its longer side in the class, at the frame's top-left
+    and bottom-right corners and at random 4-aligned positions, order id 1,
+    live, CCLM gate; then two padding rows."""
+    rng = np.random.RandomState(seed)
+    sides = [s for s in (4, 8, 16, 32, 64) if s <= P]
+    sizes = [(w, h) for w in sides for h in sides if max(w, h) == P or P == 8]
+    rows = []
+    for i, (w, h) in enumerate(sizes * 4):
+        x = rng.randint(0, (width - w) // 4 + 1) * 4
+        y = rng.randint(0, (height - h) // 4 + 1) * 4
+        if i < 2 * len(sizes):
+            x, y = (0, 0) if i % 2 else (width - w, height - h)
+        rows.append((i % n_frames, x, y, w, h, 1, 1, 1))
+    rows += [(0,) * 8] * 2
+    return np.array(rows, np.int32)
+
+
+def rdo_planes(width: int, height: int) -> list:
+    """(F=2, ...) int32 originals: natural content, and natural content with
+    +-400 noise (SSEs above 2^24 in the 64-pad class)."""
+    a = natural_frame(width, height, 21, bit_depth=BD)
+    rng = np.random.RandomState(22)
+    b = [np.clip(p + rng.randint(-400, 401, p.shape), 0, 1023)
+         for p in natural_frame(width, height, 23, bit_depth=BD)]
+    return [np.stack([a[i], b[i]]).astype(np.int32) for i in range(3)]
+
+
+def rdo_qp_points(width: int, height: int, qps) -> tuple:
+    return DeviceRDO._qp_points([wf.WavefrontEncoder(rdo_cfg(width, height, qp), device=DEVICE)
+                                 for qp in qps])
+
+
+def rdo_kernel_checks(P: int, planes, qps, errs: dict, seen: dict) -> None:
+    """K1, K9a, K5, K4, K9c (luma tree) and K1, K9b, K6a, K4, K9c (chroma
+    tree) on the P-pad class's ``rdo_rows``, each held to its plain version
+    on the card, then the whole ``luma_leaf_costs`` / ``chroma_leaf_costs``
+    to the plain one on the CPU."""
+    cpu = [torch.from_numpy(p) for p in planes]
+    oy, ou, ov = (p.to(DEVICE) for p in cpu)
+    og0 = rg._zero_grid(oy)
+    rows_np = rdo_rows(P, seed=P, width=RDO_W, height=RDO_H)
+    rows = torch.from_numpy(rows_np).to(DEVICE)
+    live = rows_np[:, 6] > 0
+    w, h = rows_np[live, 3], rows_np[live, 4]
+    x, y = rows_np[live, 1], rows_np[live, 2]
+    Pc = P // 2
+    seen["rect at x = 0, y = 0"] += int(((x == 0) & (y == 0)).sum())
+    seen["rect on the right and bottom edges"] += int(((x + w == RDO_W) & (y + h == RDO_H)).sum())
+    seen["chroma side of 2"] += int(((w == 4) | (h == 4)).sum())
+    seen["64-pad rect"] += int(live.sum()) if P == 64 else 0
+    seen["two QP points"] += len(qps) == 2
+    refs = ref_gather([oy], og0, rows, P, 1, BD)
+    _cmp("ref_gather", refs, ref_gather_reference([oy], og0, rows, P, 1, BD), errs)
+    crefs = ref_gather([ou, ov], og0, rows, Pc, 2, BD)
+    _cmp("ref_gather", crefs, ref_gather_reference([ou, ov], og0, rows, Pc, 2, BD), errs)
+
+    # the luma tree
+    sel = rg.rdo_luma_select(refs, crefs, oy, rows, P, BD)
+    _cmp("rdo_luma_select", list(sel),
+         list(rg.rdo_luma_select_reference(refs, crefs, oy, rows, P, BD)), errs)
+    modes, pred, cpred = sel
+    tiles = ttq._orgs_inside(oy, rows, P, 1)
+    out = [[], [], [], []]
+    for qp_y, qp_c, lam, dw in qps:
+        args = ([oy], pred, rows, P, qp_y, BD, True, lam, modes, None, P <= 32)
+        lev, rec, tr, lf = tq_mts(*args)
+        _cmp("tq_mts", [lev, rec, tr, lf], list(tq_mts_reference(*args)), errs)
+        args = ([ou, ov], cpred, rows, Pc, 2, qp_c, BD, True, lam, dw)
+        lev_c, rec_c = tq(*args)
+        _cmp("tq", [lev_c, rec_c], list(tq_reference(*args)), errs)
+        seen["2x2 chroma TU"] += int(((w == 4) & (h == 4)).sum())
+        err = ((rec[0] - tiles[0]) * tiles[1]).long()
+        seen["SSE above 2^24"] += int(((err * err).sum((1, 2)) > 2 ** 24).sum())
+        for k, t in enumerate((lev[0], rec[0], lev_c, rec_c)):
+            out[k].append(t)
+    args = (rows, P, [oy, ou, ov], *(torch.stack(t) for t in out), rg.qp_params(qps))
+    _cmp("rdo_leaf_cost", rg.rdo_leaf_cost(*args), rg.rdo_leaf_cost_reference(*args), errs)
+    got = rg.luma_leaf_costs(rows, oy, ou, ov, P, qps, BD, True, True)
+    want = rg.luma_leaf_costs(rows.cpu(), *cpu, P, qps, BD, True, True)
+    _cmp("luma_leaf_costs", [t.cpu() for t in got], list(want), errs)
+
+    # the dual tree's chroma channel
+    cpred, satd = rg.rdo_chroma_select(crefs, [ou, ov], rows, Pc, BD)
+    _cmp("rdo_chroma_select", [cpred, satd],
+         list(rg.rdo_chroma_select_reference(crefs, [ou, ov], rows, Pc, BD)), errs)
+    args = (crefs, oy, [ou, ov], og0, rows, cpred, Pc, BD)
+    cpred, use_lm = cclm_select(*args)
+    _cmp("cclm", [cpred, use_lm], list(cclm_select_reference(*args)), errs)
+    seen["LM won"] += int(use_lm.sum())
+    seen["LM lost"] += int(live.sum() - use_lm.sum())
+    out = [[], []]
+    for _qp_y, qp_c, lam, dw in qps:
+        args = ([ou, ov], cpred, rows, Pc, 2, qp_c, BD, True, lam, dw)
+        lev_c, rec_c = tq(*args)
+        _cmp("tq", [lev_c, rec_c], list(tq_reference(*args)), errs)
+        out[0].append(lev_c)
+        out[1].append(rec_c)
+    args = (rows, P, [None, ou, ov], None, None, *(torch.stack(t) for t in out),
+            rg.qp_params(qps))
+    _cmp("rdo_leaf_cost", rg.rdo_leaf_cost(*args), rg.rdo_leaf_cost_reference(*args), errs)
+    got = rg.chroma_leaf_costs(rows, oy, ou, ov, P, qps, BD, True, True)
+    want = rg.chroma_leaf_costs(rows.cpu(), *cpu, P, qps, BD, True, True)
+    _cmp("chroma_leaf_costs", got.cpu(), want, errs)
+
+
+def rdo_bounds(name: str, rows: np.ndarray, P: int, nqp: int) -> tuple[float, str, int, int]:
+    """(bound ms, bound_by, bytes, ops) of one K9 call on these rows: K9a
+    predicts 35 modes over each rect and scores their SATDs, then writes the
+    winner's luma and chroma predictions; K9b predicts four candidates on U
+    and V over the sides rounded up to 4 and scores them, then writes the
+    winner's; K9c reads each QP point's luma and chroma levels and recon and
+    the originals once and sums squared errors and the rate proxy (about six
+    operations a sample). Inputs read once, output tiles written whole."""
+    live = rows[rows[:, 6] > 0]
+    w, h = live[:, 3], live[:, 4]
+    cw, ch = w // 2, h // 2
+    B, Pc = len(rows), P // 2
+    L, Lc = 2 * P + 3, 2 * Pc + 3
+    if name == "rdo_luma_select":
+        ops = int((w * h).sum()) * (35 * (OPS_PRED + OPS_SATD) + OPS_PRED) + \
+            2 * int((cw * ch).sum()) * OPS_PRED
+        nbytes = len(live) * (4 * L + 8 * Lc) * 4 + int((w * h).sum()) * 4 + \
+            B * (P * P + 2 * Pc * Pc + 1) * 4 + B * 32
+    elif name == "rdo_chroma_select":
+        ops = 8 * int((np.maximum(cw, 4) * np.maximum(ch, 4)).sum()) * (OPS_PRED + OPS_SATD) + \
+            2 * int((cw * ch).sum()) * OPS_PRED
+        nbytes = len(live) * 8 * Lc * 4 + 2 * int((cw * ch).sum()) * 4 + \
+            B * (2 * Pc * Pc + 1) * 4 + B * 32
+    else:                               # rdo_leaf_cost, the luma tree
+        samples = int((w * h + 2 * cw * ch).sum())
+        ops = 6 * nqp * samples
+        nbytes = (2 * nqp + 1) * samples * 4 + B * (32 + 4 * nqp)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def phase_rdo_kernels() -> tuple[dict, dict]:
+    """K9a/K9b/K9c, and K1, K4, K5, K6a as the RDO calls them, against their
+    plain versions on ``rdo_rows`` of every tile class (``RDO_CASES`` must
+    all occur), then each new kernel's times at the main path's chunk of the
+    8-pad class (the most numerous: 16,384 rects of one 1080p frame)."""
+    errs: dict = {}
+    seen = dict.fromkeys(RDO_CASES, 0)
+    planes = rdo_planes(RDO_W, RDO_H)
+    qps = rdo_qp_points(RDO_W, RDO_H, (22, 37))
+    for P in (8, 16, 32, 64):
+        rdo_kernel_checks(P, planes, qps, errs, seen)
+    check(all(seen.values()), f"some K9 case never occurred: {seen}")
+    log(f"[rdo-kernels] K9a/K9b/K9c with K1/K4/K5/K6a, and luma_leaf_costs / "
+        f"chroma_leaf_costs against the CPU's, equal to their plain versions on every "
+        f"tile class (max_abs_err {errs}); cases: "
+        + ", ".join(f"{k} {v}" for k, v in seen.items()))
+
+    # times at the main path's shapes: one full 8-pad chunk of 1080p rects
+    # (luma tree: 4x4 to 8x8; chroma tree: 8x8), one QP point (QP 22)
+    rng = np.random.RandomState(5)
+    B = trd._BATCH_CUDA[8]
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    oy, ou, ov = (torch.from_numpy(p[None].astype(np.int32)).to(DEVICE) for p in frame)
+    qps = rdo_qp_points(ENC_W, ENC_H, (ENC_QP,))
+    times = {}
+    for name in RDO_KERNELS:
+        chroma = name == "rdo_chroma_select"
+        sizes = [(8, 8)] if chroma else [(4, 4), (4, 8), (8, 4), (8, 8)]
+        wh = np.array(sizes)[rng.randint(len(sizes), size=B)]
+        rows_np = np.zeros((B, 8), np.int32)
+        rows_np[:, 1] = rng.randint(0, (ENC_W - 8) // 4, B) * 4
+        rows_np[:, 2] = rng.randint(0, (ENC_H - 8) // 4, B) * 4
+        rows_np[:, 3:5] = wh
+        rows_np[:, 5:] = 1
+        rows = torch.from_numpy(rows_np).to(DEVICE)
+        og0 = rg._zero_grid(oy)
+        refs = ref_gather([oy], og0, rows, 8, 1, BD)
+        crefs = ref_gather([ou, ov], og0, rows, 4, 2, BD)
+        if name == "rdo_luma_select":
+            args = (refs, crefs, oy, rows, 8, BD)
+            kernel, plain = (lambda: rg.rdo_luma_select(*args),
+                             lambda: rg.rdo_luma_select_reference(*args))
+        elif chroma:
+            args = (crefs, [ou, ov], rows, 4, BD)
+            kernel, plain = (lambda: rg.rdo_chroma_select(*args),
+                             lambda: rg.rdo_chroma_select_reference(*args))
+        else:
+            modes, pred, cpred = rg.rdo_luma_select(refs, crefs, oy, rows, 8, BD)
+            qp_y, qp_c, lam, dw = qps[0]
+            lev, rec, _, _ = tq_mts([oy], pred, rows, 8, qp_y, BD, True, lam, modes, mts=True)
+            lev_c, rec_c = tq([ou, ov], cpred, rows, 4, 2, qp_c, BD, True, lam, dw)
+            args = (rows, 8, [oy, ou, ov], lev, rec, lev_c[None].contiguous(),
+                    rec_c[None].contiguous(), rg.qp_params(qps).to(DEVICE))
+            kernel, plain = (lambda: rg.rdo_leaf_cost(*args),
+                             lambda: rg.rdo_leaf_cost_reference(*args))
+        _cmp(name, kernel(), plain(), errs)
+        bound, by, nbytes, ops = rdo_bounds(name, rows_np, 8, 1)
+        ms, plain_ms = graph_ms(kernel, reps=10, iters=5), call_ms(plain, 5)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        log(f"[rdo-kernels] {name}: {B} rects of the 8-pad {'chroma' if chroma else 'luma'} "
+            f"tree: device time per call (CUDA graph) {ms:.6f} ms; plain version from Python "
+            f"{plain_ms:.6f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, {ops} ops)")
+    return errs, times
+
+
+def reset_rdo_counts() -> None:
+    for fn, _, _ in RDO_KERNELS.values():
+        fn.launches = 0
+
+
+def all_launches() -> dict:
+    return {name: fn.launches for name, (fn, _, _) in {**ENC_KERNELS, **RDO_KERNELS}.items()}
+
+
+def cu_sizes(leaves) -> dict:
+    """Luma CUs per size over frames' (luma, chroma) leaves."""
+    return dict(sorted(collections.Counter(
+        f"{w}x{h}" for lv, _ in leaves for _, _, w, h, _ in lv).items()))
+
+
+def check_hashes(outs, frames, label: str) -> None:
+    for f, (bs, recon) in enumerate(outs):
+        want = [hashlib.md5(p.astype("<u2").tobytes()).digest() for p in recon]
+        check(sei_md5s(bs) == [want], f"{label}, frame {f}: hash SEI differs from the recon's MD5")
+        err = (recon[0].astype(np.int64) - frames[f][0]) ** 2
+        check(10 * np.log10(1023 * 1023 / err.mean()) > 30, f"{label}, frame {f}: luma PSNR")
+
+
+def phase_rdo_encode(frames, maps_l, maps_c, enc_l3) -> dict:
+    """The RDO's main path: the 1080p x 2 main-path encode at accel level 0
+    with ``rdo_fallback`` (every MTT node deferred, QT splits below the QT
+    map banned): a cold run (the node DAGs built), then a warm one whose
+    launches are counted; stage times with the RDO's (geometry, leaf costs
+    with their device span, DP), deferred nodes, CUs per size against the
+    L3 run of the same frames (``enc_l3``), hash SEI."""
+    enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=0, rdo_fallback=True,
+                              device=DEVICE)
+    trd._GEOM_CACHE.clear()
+    t0 = time.perf_counter()
+    enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in enc.timings.items())
+    log(f"[rdo-encode] L0 cold run (node DAGs built) {time.perf_counter() - t0:.3f} s "
+        f"({stages} s)")
+    reset_counts()
+    outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} at L0 with the device RDO, "
+                        "the RDO path")
+    launches = all_launches()
+    for name in RDO_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the RDO path")
+    check_hashes(outs, frames, "L0")
+    log(f"[rdo-encode] {ENC_W}x{ENC_H} x {ENC_FRAMES} frames at L0: launches {launches}; "
+        f"deferred nodes per frame {[len(s) for s in enc.rdo_deferred]}; {enc.steps} wave "
+        f"steps; {[len(o[0]) for o in outs]} bytes; hash SEI equal to the recon's MD5")
+    log(f"[rdo-encode] luma CUs per size at L0 {cu_sizes(enc.leaves)}; at L3 "
+        f"{cu_sizes(enc_l3.leaves)}")
+    return launches
+
+
+def accel_maps(w: int, h: int):
+    """Maps with MTT structure (the JAX package's tests/test_accel_levels.py
+    ``_maps``): every edge present, QT to 16x16, BT_H at MTT depth 0, BT_V at
+    depth 1, nothing deeper; L1 defers from MTT depth 1, L2 from 2, L3 none."""
+    hor = np.ones((h // 4, w // 4), np.int32)
+    ver = np.ones((h // 4, w // 4), np.int32)
+    qt = np.full((h // 8, w // 8), 2, np.int32)
+    dire = np.zeros((3, h // 4, w // 4), np.int32)
+    dire[0], dire[1] = 1, -1
+    return hor, ver, qt, dire
+
+
+def phase_rdo_bench(preds: dict) -> None:
+    """The bench's configuration (``bench.py:186-197``, ``rdo_fallback``
+    on) at 416x240 x 2 frames of natural content with the QP 22 maps. The
+    maps cover whole 64x64 blocks only (384x192), and the partitioner defers
+    every node outside them at every level: at L3 K9 runs for those nodes
+    and no others. On the frames cut to the covered 384x192 nothing defers at
+    L3: K9 launches 0 times and the stream equals the one without the
+    fallback. At L0, L1 and L2 K9 runs wherever nodes defer, and the four
+    levels give at least three distinct streams. Then ``encode_frame(rdo=
+    True)`` on one frame."""
+    frames = natural_sequence(SMALL_W, SMALL_H, 2, seed0=7, bit_depth=BD)
+    maps_l, maps_c = frame_maps(preds, frames, SMALL_W, SMALL_H)
+    cw, ch = SMALL_W // 64 * 64, SMALL_H // 64 * 64
+    cfg = enc_cfg(SMALL_W, SMALL_H, BENCH)
+    streams = {}
+    for level in (3, 0, 1, 2):
+        enc = wf.WavefrontEncoder(cfg, accel_level=level, rdo_fallback=True, device=DEVICE)
+        reset_rdo_counts()
+        t0 = time.perf_counter()
+        outs = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+        wall = time.perf_counter() - t0
+        k9 = {name: fn.launches for name, (fn, _, _) in RDO_KERNELS.items()}
+        deferred = [len(s) for s in enc.rdo_deferred]
+        check_hashes(outs, frames, f"bench L{level}")
+        check((min(k9.values()) > 0) == (sum(deferred) > 0) and
+              (max(k9.values()) > 0) == (sum(deferred) > 0),
+              f"L{level}: K9 launches {k9} against deferred nodes {deferred}")
+        if level == 3:
+            check(all(x + w > cw or y + h > ch for d in enc.rdo_deferred
+                      for _, x, y, w, h, _ in d),
+                  "L3 deferred a node the maps cover")
+        streams[level] = b"".join(o[0] for o in outs)
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in enc.timings.items())
+        log(f"[rdo-bench] {SMALL_W}x{SMALL_H} x 2, {BENCH}, L{level} with rdo_fallback: "
+            f"{wall:.3f} s ({stages} s); deferred nodes {deferred}; K9 launches {k9}; "
+            f"{len(streams[level])} bytes; luma CUs {cu_sizes(enc.leaves)}")
+    check(len(set(streams.values())) >= 3,
+          f"L0-L3 gave {len(set(streams.values()))} distinct streams")
+
+    # the frames cut to the maps' coverage: at L3 the fallback is never asked
+    cut = [(y[:ch, :cw], u[:ch // 2, :cw // 2], v[:ch // 2, :cw // 2]) for y, u, v in frames]
+    out = {}
+    for fallback in (True, False):
+        enc = wf.WavefrontEncoder(enc_cfg(cw, ch, BENCH), accel_level=3,
+                                  rdo_fallback=fallback, device=DEVICE)
+        reset_rdo_counts()
+        out[fallback] = [o[0] for o in enc.encode_frames(cut, maps=maps_l, chroma_maps=maps_c)]
+        if fallback:
+            check(all(fn.launches == 0 for fn, _, _ in RDO_KERNELS.values())
+                  and enc.rdo_deferred == [set(), set()], "K9 ran at L3 with full maps")
+    check(out[True] == out[False], "L3 with the fallback differs from L3 without it")
+
+    enc = wf.WavefrontEncoder(cfg, accel_level=3, device=DEVICE)
+    reset_rdo_counts()
+    t0 = time.perf_counter()
+    res = enc.encode_frame(*frames[0], rdo=True)
+    check_hashes([res], frames[:1], "rdo=True")
+    check(all(fn.launches > 0 for fn, _, _ in RDO_KERNELS.values()), "rdo=True launched no K9")
+    log(f"[rdo-bench] {len(set(streams.values()))} distinct streams over L0-L3; at L3 the "
+        f"fallback decided only nodes outside the maps' {cw}x{ch}; on the frames cut to "
+        f"{cw}x{ch}, L3 with the fallback launched no K9 and its stream equals the one "
+        f"without it ({[len(b) for b in out[True]]} bytes); encode_frame(rdo=True), one "
+        f"frame: {time.perf_counter() - t0:.3f} s, {len(res[0])} bytes, luma CUs "
+        f"{cu_sizes(enc.leaves)}")
+
+
+def phase_rdo_labels() -> None:
+    """The label search: ``search_frames`` (luma, single tree) and
+    ``search_frames_chroma`` (dual tree, CCLM) with four encoders (QP
+    22/27/32/37) on 2 frames of 512x512 natural content, against four
+    single-QP searches: every node's decision equal."""
+    frames = [natural_frame(LABEL_W, LABEL_H, 1000 + i, bit_depth=BD) for i in range(2)]
+    for chroma in (False, True):
+        encs = [wf.WavefrontEncoder(rdo_cfg(LABEL_W, LABEL_H, qp, chroma, min_cb=3),
+                                    device=DEVICE) for qp in LABEL_QPS]
+        rdo = DeviceRDO(encs[0])
+        t0 = time.perf_counter()
+        geom = rdo.geom_chroma() if chroma else rdo.geom()
+        t1 = time.perf_counter()
+        run = (lambda r, **kw: r.search_frames_chroma(frames, **kw)) if chroma else \
+            (lambda r, **kw: r.search_frames(frames, **kw))
+        multi = run(rdo, encoders=encs)
+        t2 = time.perf_counter()
+        for q, enc in enumerate(encs):
+            alone = run(DeviceRDO(enc))
+            for f in range(len(frames)):
+                check(np.array_equal(multi[q][f].chosen, alone[0][f].chosen),
+                      f"label search QP {LABEL_QPS[q]}, frame {f}: trees differ")
+        t3 = time.perf_counter()
+        log(f"[rdo-labels] {'chroma (dual tree)' if chroma else 'luma (single tree)'}, "
+            f"{LABEL_W}x{LABEL_H} x 2, QP {LABEL_QPS}: {len(geom.keys)} nodes, "
+            f"{len(geom.rects)} rects (node DAG {t1 - t0:.3f} s); one 4-QP search "
+            f"{t2 - t1:.3f} s, four single-QP searches {t3 - t2:.3f} s; the trees equal")
+
+
+def phase_rdo_cpu_vs_card() -> None:
+    """The RDO paths on the CPU (plain versions) and on the card, the bench's
+    tools: L1 at 128x128 with ``accel_maps`` in dual tree, and
+    ``encode_frame(rdo=True)`` at 208x120 in single tree; byte-identical."""
+    for label, w, h, dual in (("L1 with rdo_fallback", 128, 128, True),
+                              ("encode_frame(rdo=True)", 208, 120, False)):
+        frame = natural_frame(w, h, 11, bit_depth=BD)
+        out = {}
+        for device in ("cpu", DEVICE):
+            t0 = time.perf_counter()
+            if dual:
+                enc = wf.WavefrontEncoder(enc_cfg(w, h, BENCH, True), accel_level=1,
+                                          rdo_fallback=True, device=device)
+                out[device] = enc.encode_frame(*frame, maps=accel_maps(w, h))[0]
+            else:
+                enc = wf.WavefrontEncoder(enc_cfg(w, h, BENCH, False), device=device)
+                out[device] = enc.encode_frame(*frame, rdo=True)[0]
+            log(f"[rdo-cpu-vs-card] {w}x{h}, {label}, {'dual' if dual else 'single'} tree, "
+                f"on {device}: {time.perf_counter() - t0:.3f} s")
+        check(out["cpu"] == out[DEVICE], f"{label}: CPU and card bitstreams differ")
+        log(f"[rdo-cpu-vs-card] {label}: bitstreams byte-identical ({len(out[DEVICE])} bytes)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1468,14 +1922,19 @@ def main() -> int:
     phase_build()
     vote = phase_vote()
     enc_errs, enc_times = phase_encode_kernels()
+    rdo_errs, rdo_times = phase_rdo_kernels()
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_") as tmp:
         preds, blocks, launches = phase_main_path(pathlib.Path(tmp))
     phase_cpu_vs_card(preds, blocks)
     phase_profile(preds, blocks)
-    _, frames, maps_l, maps_c, enc_launches = phase_encode(preds)
+    enc_l3, frames, maps_l, maps_c, enc_launches = phase_encode(preds)
     step_errs = phase_encode_first_steps(frames, maps_l, maps_c)
+    rdo_launches = phase_rdo_encode(frames, maps_l, maps_c, enc_l3)
     phase_encode_bench_tools(preds)
+    phase_rdo_bench(preds)
+    phase_rdo_labels()
     phase_encode_cpu_vs_card(preds)
+    phase_rdo_cpu_vs_card()
     phase_encode_profile(frames, maps_l, maps_c)
 
     kernels = [{
@@ -1499,8 +1958,17 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": enc_launches[name],
-            "max_abs_err": max(enc_errs[name], step_errs.get(name, 0.0)),
+            "max_abs_err": max(enc_errs[name], step_errs.get(name, 0.0),
+                               rdo_errs.get(name, 0.0)),
             **enc_times[name], "library_ms": None})
+    # K9: no single PyTorch call computes an RMD argmin over predicted modes
+    # or a leaf cost of exact SSEs and this rate proxy; launches are the
+    # RDO path's (phase_rdo_encode)
+    for name, (_, source, replaces) in RDO_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": rdo_launches[name], "max_abs_err": rdo_errs[name],
+            **rdo_times[name], "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

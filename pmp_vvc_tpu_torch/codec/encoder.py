@@ -819,15 +819,23 @@ class FrameEncoder:
                 # dual tree: implicit QT to 64, then per 64 quadrant the
                 # luma tree followed by the chroma tree
                 # (CABACWriter::coding_tree dual path, :431-470)
-                for (qx, qy, qw, qh) in self._children(bx, by, 128, 128,
-                                                       Split.QT):
+                for i, (qx, qy, qw, qh) in enumerate(
+                        self._children(bx, by, 128, 128, Split.QT)):
                     if qx >= cfg.width or qy >= cfg.height:
                         continue
                     st = SplitState(last_split=Split.QT, qt_depth=1)
-                    # the luma pass records the co-located 64x64 luma
-                    # node's split into _luma_root_split (checkCCLMAllowed)
+                    # the luma quadrant keeps its QT child index, as the
+                    # wavefront's leaf walk from the CTU gives it: the
+                    # device RDO keys its decisions by the full state (the
+                    # JAX package's replay passes 0 for all four, and its
+                    # dual-tree streams with RDO-decided quadrants 1-3 do
+                    # not decode). The luma pass records the co-located
+                    # 64x64 luma node's split into _luma_root_split
+                    # (checkCCLMAllowed).
                     self._encode_tree_ch(enc, rc, org, qx, qy, qw, qh,
-                                         st, decide, False)
+                                         SplitState(last_split=Split.QT,
+                                                    qt_depth=1, part_idx=i),
+                                         decide, False)
                     self._luma_root_isp = False     # no ISP on this path
                     self._encode_tree_ch(enc, rc, org, qx, qy, qw, qh,
                                          st, decide_c, True)

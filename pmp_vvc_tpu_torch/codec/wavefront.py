@@ -49,8 +49,11 @@ Supported: single or dual tree, map- or QT-driven partitioning, luma
 MIP, chroma CCLM (LM_CHROMA), TU coding with DCT-2, MTS (DST-7/DCT-8),
 LFNST and transform skip, joint Cb-Cr residuals, scalar quantisation,
 RDOQ-lite zeroing and sign-data hiding, LMCS with chroma residual scaling,
-deblocking, SAO, ALF and CC-ALF. The sequential-only tools (MRL, ISP,
-dependent quantisation) and the device RDO raise ``NotImplementedError``.
+deblocking, SAO, ALF and CC-ALF. With ``rdo_fallback`` the device RDO
+(``codec/rdo_device.py``, K9) decides the nodes the maps defer at accel levels
+L0-L2, lazily; ``encode_frame(rdo=True)`` takes the whole tree from it. The
+sequential-only tools (MRL, ISP, dependent quantisation) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -72,6 +75,7 @@ from ..ops.rows import check_rows
 from ..ops.tq_generic import tq, tq_mts
 from .encoder import RDO, CuInfo, FrameEncoder
 from .mtt import Split, SplitState, get_implicit_split
+from .rdo_device import DeviceRDO, _skey
 from .residual import ctx
 
 DEFAULT_BATCH = {32: 16, 64: 8}   # CUs per step of the 32- and 64-pad classes
@@ -301,15 +305,18 @@ def _collect_leaves_chroma(enc, decide, decide_luma=None):
     n_ctu_y = (cfg.height + 127) // 128
     for cty in range(n_ctu_y):
         for ctx_i in range(n_ctu_x):
-            for (qx, qy, qw, qh) in enc._children(
-                    ctx_i * 128, cty * 128, 128, 128, Split.QT):
+            for i, (qx, qy, qw, qh) in enumerate(enc._children(
+                    ctx_i * 128, cty * 128, 128, 128, Split.QT)):
                 if qx >= cfg.width or qy >= cfg.height:
                     continue
                 st = SplitState(last_split=Split.QT, qt_depth=1)
                 if decide_luma is not None:
-                    imp = get_implicit_split(qx, qy, qw, qh, st, cfg)
+                    # the luma quadrant's state, QT child index included,
+                    # as the luma walk and the replay give it
+                    lst = SplitState(last_split=Split.QT, qt_depth=1, part_idx=i)
+                    imp = get_implicit_split(qx, qy, qw, qh, lst, cfg)
                     luma_root["split"] = imp if imp != Split.NONE \
-                        else decide_luma(qx, qy, qw, qh, st)
+                        else decide_luma(qx, qy, qw, qh, lst)
                 walk(qx, qy, qw, qh, st)
     return leaves
 
@@ -445,7 +452,12 @@ class WavefrontEncoder(FrameEncoder):
     wavefronts.  ``device=None`` means CUDA (and raises without it);
     ``device="cpu"`` runs the kernels' plain versions.  Streams are
     byte-identical to the JAX package's ``WavefrontEncoder`` for the same
-    frames, maps and configuration."""
+    frames, maps and configuration.
+
+    After each ``encode_frames`` call, ``leaves`` holds each frame's (luma,
+    chroma or None) leaves and ``rdo_deferred`` one set per frame of the
+    nodes its maps deferred to the device RDO (empty without
+    ``rdo_fallback``)."""
 
     def __init__(self, cfg, *, batch=None, device=None, **kw):
         super().__init__(cfg, **kw)
@@ -453,9 +465,6 @@ class WavefrontEncoder(FrameEncoder):
         if bad:
             raise NotImplementedError(
                 f"the port's wavefront path does not support: {bad}")
-        if self.rdo_fallback:
-            raise NotImplementedError(
-                "rdo_fallback needs the device RDO, which is not ported")
         self.device = resolve_device(device)
         self.crs_lut = crs_lut(cfg.bit_depth, cfg.lmcs_offset) \
             if cfg.lmcs and cfg.lmcs_chroma_scaling else None
@@ -463,6 +472,8 @@ class WavefrontEncoder(FrameEncoder):
         if batch:
             self.batch.update(batch)
         self.steps = 0              # wave steps of the last pass
+        self.leaves = []
+        self.rdo_deferred = []
 
     # ---- phase A: leaf collection (geometry only) ----------------------
 
@@ -798,14 +809,82 @@ class WavefrontEncoder(FrameEncoder):
             return Split.NONE
         return decide_c
 
-    def _collect_all(self, qt_map, maps, chroma_maps):
+    @staticmethod
+    def _hybrid(map_decide, rdo_decide):
+        """Map decision inside the gate, device-RDO outside — the
+        wavefront counterpart of EncModeCtrl.cpp:1242-1252's L<3
+        stock-RDO re-enable (the map decider returns the RDO sentinel
+        for needs_rdo nodes when rdo_fallback is on)."""
+        def decide(x, y, w, h, state):
+            s = map_decide(x, y, w, h, state)
+            return rdo_decide(x, y, w, h, state) if s is RDO else s
+        return decide
+
+    def _rdo_decides(self, frames, maps=None, chroma_maps=None):
+        """Per-frame (luma, chroma) device-RDO fallback deciders, LAZY:
+        the batched open-loop search only runs if some node actually
+        defers (at L3 with full map coverage nothing does, so the
+        fallback costs nothing there).  At L0 the predicted QT map
+        bans QT re-splits in the fallback (tryMode,
+        EncModeCtrl.cpp:2017-2035).  The deferred nodes are recorded in
+        one set per frame on ``rdo_deferred``."""
+        cache = {}
+        deferred = [set() for _ in frames]
+        self.rdo_deferred.extend(deferred)
+        qt_ban = maps[2] if (self.accel_level == 0
+                             and maps is not None) else None
+        cmaps = chroma_maps or maps
+        qt_ban_c = cmaps[2] if (self.accel_level == 0
+                                and cmaps is not None) else None
+
+        def solve():
+            if "l" not in cache:
+                rdo = DeviceRDO(self)
+                cache["l"] = rdo.search_frames(
+                    frames, qt_ban_map=qt_ban)[0]
+                cache["c"] = (rdo.search_frames_chroma(
+                    frames, qt_ban_map=qt_ban_c)[0]
+                    if self.cfg.dual_tree else None)
+            return cache
+
+        def mk(f, chroma):
+            def decide(x, y, w, h, state):
+                deferred[f].add((chroma, x, y, w, h, _skey(state)))
+                c = solve()
+                d = (c["c"] if chroma else c["l"])[f]
+                return d(x, y, w, h, state)
+            return decide
+
+        return [(mk(f, False), mk(f, True))
+                for f in range(len(frames))]
+
+    def _deciders(self, qt_map, maps, chroma_maps, rdo_dec=None):
+        """The (luma, chroma or None) split deciders of a frame: the
+        maps' (or the QT map's), with ``rdo_dec``'s decisions where the
+        maps defer."""
         decide = self._decider(qt_map, maps)
+        decide_c = self._decider_chroma(qt_map, maps, chroma_maps) \
+            if self.cfg.dual_tree else None
+        if rdo_dec is not None:
+            decide = self._hybrid(decide, rdo_dec[0])
+            if decide_c is not None:
+                decide_c = self._hybrid(decide_c, rdo_dec[1])
+        return decide, decide_c
+
+    def _collect_trees(self, decide, decide_c):
         leaves = self._collect_leaves(decide)
-        cleaves = None
-        if self.cfg.dual_tree:
-            decide_c = self._decider_chroma(qt_map, maps, chroma_maps)
-            cleaves = _collect_leaves_chroma(self, decide_c, decide_luma=decide)
+        cleaves = None if decide_c is None else \
+            _collect_leaves_chroma(self, decide_c, decide_luma=decide)
         return leaves, cleaves
+
+    def _collect_all(self, qt_map, maps, chroma_maps, rdo_dec=None):
+        return self._collect_trees(
+            *self._deciders(qt_map, maps, chroma_maps, rdo_dec))
+
+    def _rdo_seconds(self):
+        """Host seconds of the device RDO's stages so far."""
+        return sum(self.timings.get(k, 0.0)
+                   for k in ("rdo_geometry", "rdo_leaf_costs", "rdo_dp"))
 
     def encode_frames(self, frames, qt_map=None, maps=None,
                       chroma_maps=None, poc0: int = 0,
@@ -814,7 +893,11 @@ class WavefrontEncoder(FrameEncoder):
 
         Returns a list of (bitstream_bytes, recon) — one per frame; the
         caller concatenates payloads after the parameter sets.  ``maps``
-        or ``chroma_maps`` may be per-frame lists.
+        or ``chroma_maps`` may be per-frame lists.  With ``rdo_fallback``
+        the trees are content-dependent (device RDO beyond map coverage
+        at accel level < 3), so each frame's leaves are collected with its
+        own lazy deciders, which the replay reuses; the ``collect`` stage
+        then leaves out the RDO's own stages.
 
         ``pipeline_chunk``: split the frame set into chunks of this size,
         enqueue every chunk's wave scan first, then fetch and replay chunk
@@ -822,18 +905,26 @@ class WavefrontEncoder(FrameEncoder):
         depend on it."""
         F = len(frames)
         t0 = time.perf_counter()
-        per_frame_maps = isinstance(maps, list) or isinstance(chroma_maps, list)
-        if not per_frame_maps:
-            leaves, cleaves = self._collect_all(qt_map, maps, chroma_maps)
-            maps_l, cmaps_l = [maps] * F, [chroma_maps] * F
-            packed = [(leaves, cleaves, y, u, v) for (y, u, v) in frames]
+        rdo0 = self._rdo_seconds()
+        self.rdo_deferred = []
+        maps_l = maps if isinstance(maps, list) else [maps] * F
+        cmaps_l = chroma_maps if isinstance(chroma_maps, list) else [chroma_maps] * F
+        deciders = [(None, None)] * F
+        if not isinstance(maps, list) and not isinstance(chroma_maps, list) \
+                and not self.rdo_fallback:
+            self.leaves = [self._collect_all(qt_map, maps, chroma_maps)] * F
         else:
-            maps_l = maps if isinstance(maps, list) else [maps] * F
-            cmaps_l = chroma_maps if isinstance(chroma_maps, list) \
-                else [chroma_maps] * F
-            packed = [(*self._collect_all(qt_map, maps_l[f], cmaps_l[f]), y, u, v)
-                      for f, (y, u, v) in enumerate(frames)]
+            self.leaves = []
+            for f, (y, u, v) in enumerate(frames):
+                rdo_dec = self._rdo_decides([(y, u, v)], maps_l[f], cmaps_l[f])[0] \
+                    if self.rdo_fallback else None
+                decide, decide_c = self._deciders(qt_map, maps_l[f], cmaps_l[f], rdo_dec)
+                self.leaves.append(self._collect_trees(decide, decide_c))
+                if rdo_dec is not None:
+                    deciders[f] = (decide, decide_c)
+        packed = [(*lv, *fr) for lv, fr in zip(self.leaves, frames)]
         self._time("collect", t0)
+        self.timings["collect"] -= self._rdo_seconds() - rdo0
         chunk = pipeline_chunk or F
         passes = [(c0, self._batched_pass(packed[c0:c0 + chunk], fetch=False))
                   for c0 in range(0, F, chunk)]
@@ -843,15 +934,28 @@ class WavefrontEncoder(FrameEncoder):
             for k in range(c0, min(c0 + chunk, F)):
                 self._cur_frame = k - c0
                 y, u, v = frames[k]
+                dfn, dcfn = deciders[k]
                 out.append(super().encode_frame(
                     y, u, v, qt_map=qt_map, maps=maps_l[k],
-                    chroma_maps=cmaps_l[k], poc=poc0 + k))
+                    chroma_maps=cmaps_l[k], poc=poc0 + k, decide_fn=dfn,
+                    decide_c_fn=dcfn))
         return out
 
     def encode_frame(self, y, u, v, qt_map=None, maps=None,
                      chroma_maps=None, poc: int = 0, rdo: bool = False):
+        """Encode one frame (``encode_frames`` of one).  ``rdo``: the device
+        RDO's open-loop search chooses the whole tree (the maps are not
+        used), which the wavefront path then codes closed loop."""
         if rdo:
-            raise NotImplementedError(
-                "rdo=True needs the device RDO, which is not ported")
+            drdo = DeviceRDO(self)
+            decide = drdo.search(y, u, v)
+            decide_c = drdo.search_frames_chroma([(y, u, v)])[0][0] \
+                if self.cfg.dual_tree else None
+            leaves, cleaves = self._collect_trees(decide, decide_c)
+            self.leaves = [(leaves, cleaves)]
+            self._dev_result = self._batched_pass([(leaves, cleaves, y, u, v)])
+            self._cur_frame = 0
+            return super().encode_frame(y, u, v, poc=poc, decide_fn=decide,
+                                        decide_c_fn=decide_c)
         return self.encode_frames([(y, u, v)], qt_map=qt_map, maps=maps,
                                   chroma_maps=chroma_maps, poc0=poc)[0]

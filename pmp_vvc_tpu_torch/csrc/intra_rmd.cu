@@ -13,11 +13,10 @@
 // the DM mode is read from the luma mode grid at the CU centre and
 // predicted with the 2-tap filter on the unfiltered references.
 //
-// Each angular sample is computed directly from the references: index
-// off + delta_int + x + k of the extended reference (the side projection
-// below the corner, then the main row), clamped to the replicated tail.
-// Horizontal modes are computed in transposed space. Per-(size, mode)
-// parameters come from the (7, 6*6*67) tables the wrapper uploads.
+// The prediction itself is csrc/intra_pred.cuh, shared with K9: each
+// angular sample computed directly from the references, horizontal modes in
+// transposed space, per-(size, mode) parameters from the (7, 6*6*67) tables
+// the wrapper uploads.
 //
 // Bound: operations. A 64x64 luma CU costs 37 candidate predictions of
 // 4096 samples (~20 integer operations each) plus their Hadamard SATDs;
@@ -27,147 +26,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "intra_pred.cuh"
 #include "satd.cuh"
 
 #define MAXP 64
 #define MAXL (2 * MAXP + 3)
 #define NT 256
-#define NTAB (6 * 6 * 67)
-
-__constant__ int CHROMA_FILTER[32][4] = {
-    {0, 64, 0, 0}, {-1, 63, 2, 0}, {-2, 62, 4, 0}, {-2, 60, 7, -1},
-    {-2, 58, 10, -2}, {-3, 57, 12, -2}, {-4, 56, 14, -2}, {-4, 55, 15, -2},
-    {-4, 54, 16, -2}, {-5, 53, 18, -2}, {-6, 52, 20, -2}, {-6, 49, 24, -3},
-    {-6, 46, 28, -4}, {-5, 44, 29, -4}, {-4, 42, 30, -4}, {-4, 39, 33, -4},
-    {-4, 36, 36, -4}, {-4, 33, 39, -4}, {-4, 30, 42, -4}, {-4, 29, 44, -5},
-    {-4, 28, 46, -6}, {-3, 24, 49, -6}, {-2, 20, 52, -6}, {-2, 18, 53, -5},
-    {-2, 16, 54, -4}, {-2, 15, 55, -4}, {-2, 14, 56, -4}, {-2, 12, 57, -3},
-    {-2, 10, 58, -2}, {-1, 7, 60, -2}, {0, 4, 62, -2}, {0, 2, 63, -1}};
-
-static __device__ __forceinline__ int clampi(int v, int lo, int hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
-
-static __device__ __forceinline__ int ilog2(int v) {   // v a power of two
-    return 31 - __clz(v);
-}
-
-struct Cu {
-    int w, h, lw, lh, P, L, pel_max, luma;
-    const int32_t *tu, *lu, *tf, *lf;    // shared-memory reference rows
-    const int32_t* tabs;
-};
-
-struct Mode {
-    int mode, angle, inv, ver, filt, gauss, pdpc, scale, dc;
-};
-
-static __device__ Mode mode_params(const Cu& c, int m) {
-    Mode p;
-    p.mode = clampi(m, 0, 66);
-    const int f = ((c.lw - 1) * 6 + (c.lh - 1)) * 67;
-    const int fm = f + p.mode;
-    p.angle = c.tabs[0 * NTAB + fm];
-    p.inv = c.tabs[1 * NTAB + fm];
-    p.ver = c.tabs[2 * NTAB + fm];
-    p.filt = c.tabs[3 * NTAB + fm];
-    p.gauss = c.tabs[4 * NTAB + fm];
-    p.pdpc = c.tabs[5 * NTAB + fm];
-    p.scale = c.tabs[6 * NTAB + fm];
-    if (p.mode <= 1) {                 // planar / DC: mode 0's filter + PDPC
-        p.filt = c.tabs[3 * NTAB + f];
-        p.pdpc = c.tabs[5 * NTAB + f];
-    }
-    p.dc = 0;
-    if (p.mode == 1) {                 // DC on the unfiltered references
-        int st = 0, sl = 0;
-        for (int x = 0; x < c.w; ++x) st += c.tu[1 + x];
-        for (int y = 0; y < c.h; ++y) sl += c.lu[1 + y];
-        const int s = (c.w >= c.h ? st : 0) + (c.w <= c.h ? sl : 0);
-        const int denom = c.w == c.h ? c.w << 1 : max(c.w, c.h);
-        p.dc = (s + (denom >> 1)) >> ilog2(denom);
-    }
-    return p;
-}
-
-// Prediction of tile sample (r, c) (row, column) for mode p.
-static __device__ int predict_sample(const Cu& c, const Mode& p, int r, int col) {
-    if (p.mode <= 1) {
-        const int32_t* tp = p.mode == 0 && p.filt ? c.tf : c.tu;
-        const int32_t* lp = p.mode == 0 && p.filt ? c.lf : c.lu;
-        int pred;
-        if (p.mode == 0) {
-            const int tr = tp[1 + c.w], bl = lp[1 + c.h];
-            const int hor = lp[1 + r] * (1 << c.lw) + (col + 1) * (tr - lp[1 + r]);
-            const int ver = tp[1 + col] * (1 << c.lh) + (r + 1) * (bl - tp[1 + col]);
-            pred = (hor * (1 << c.lh) + ver * (1 << c.lw) + (1 << (c.lw + c.lh)))
-                   >> (1 + c.lw + c.lh);
-        } else {
-            pred = p.dc;
-        }
-        if (p.pdpc) {
-            const int sc = ((c.lw - 2) + (c.lh - 2) + 2) >> 2;
-            const int wT = 32 >> min(31, (2 * r) >> sc);
-            const int wL = 32 >> min(31, (2 * col) >> sc);
-            pred += (wL * (lp[1 + r] - pred) + wT * (tp[1 + col] - pred) + 32) >> 6;
-        }
-        return pred;
-    }
-    const int y = p.ver ? r : col, x = p.ver ? col : r;
-    const int32_t* main = p.ver ? (p.filt ? c.tf : c.tu) : (p.filt ? c.lf : c.lu);
-    const int32_t* side = p.ver ? (p.filt ? c.lf : c.lu) : (p.filt ? c.tf : c.tu);
-    const int wp = p.ver ? c.w : c.h, hp = p.ver ? c.h : c.w;
-    const int lwp = p.ver ? c.lw : c.lh, lhp = p.ver ? c.lh : c.lw;
-    const int P = c.P, L = c.L, ltot = P + L;
-    const int dpos = p.angle * (1 + y);
-    const int dint = dpos >> 5, dfrac = dpos & 31;
-    int f[4];
-    if (c.luma && p.gauss) {
-        const int half = dfrac >> 1;
-        f[0] = 16 - half; f[1] = 32 - half; f[2] = 16 + half; f[3] = half;
-    } else if (c.luma) {
-        f[0] = CHROMA_FILTER[dfrac][0]; f[1] = CHROMA_FILTER[dfrac][1];
-        f[2] = CHROMA_FILTER[dfrac][2]; f[3] = CHROMA_FILTER[dfrac][3];
-    } else {
-        f[0] = 0; f[1] = 64 - 2 * dfrac; f[2] = 2 * dfrac; f[3] = 0;
-    }
-    int acc = 0;
-    for (int k = 0; k < 4; ++k) {
-        const int idx = min(P + dint + x + k, ltot - 1);
-        int v;
-        if (idx >= P) {
-            v = main[idx - P];
-        } else {                           // negative-angle side projection
-            const int j = P - idx;
-            v = side[clampi(min((j * p.inv + 256) >> 9, hp), 0, L - 1)];
-        }
-        acc += f[k] * v;
-    }
-    int pred = clampi((acc + 32) >> 6, 0, c.pel_max);
-    if (p.pdpc) {
-        if (p.angle == 0) {
-            const int sc0 = (lwp + lhp - 2) >> 2;
-            if (x < min(3 << sc0, wp)) {
-                const int wl0 = 32 >> min(31, (2 * x) >> sc0);
-                pred = clampi(pred + ((wl0 * (side[1 + y] - main[0]) + 32) >> 6),
-                              0, c.pel_max);
-            }
-        } else if (x < min(16, P) && x < min(3 << p.scale, wp)) {
-            const int inv_sum = 256 + (x + 1) * p.inv;
-            const int sv = side[clampi(y + (inv_sum >> 9) + 1, 0, L - 1)];
-            const int wl = 32 >> min(31, (2 * x) >> p.scale);
-            pred += (wl * (sv - pred) + 32) >> 6;
-        }
-    }
-    return pred;
-}
-
-static __device__ void predict_tile(const Cu& c, const Mode& p, int32_t* out) {
-    for (int i = threadIdx.x; i < c.h * c.w; i += blockDim.x) {
-        const int r = i / c.w, col = i % c.w;
-        out[r * c.P + col] = predict_sample(c, p, r, col);
-    }
-}
 
 __global__ void intra_rmd_kernel(const int32_t* __restrict__ refs,
                                  const int32_t* __restrict__ org,

@@ -1,6 +1,6 @@
-// SATD device code shared by K2 (csrc/intra_rmd.cu), K3 (csrc/mip_rmd.cu) and
-// K6a (csrc/cclm.cu), so that the angular, MIP and CCLM costs round the same
-// way.
+// SATD device code shared by K2 (csrc/intra_rmd.cu), K3 (csrc/mip_rmd.cu),
+// K6a (csrc/cclm.cu) and K9 (csrc/rdo_leaf.cu), so that the angular, MIP,
+// CCLM and RDO costs round the same way.
 //
 // The port of pmp_vvc_tpu/ops/tq_generic.py:satd_generic (160): 8x8
 // Walsh-Hadamard tiles when min(w, h) >= 8, else 4x4, over the CU's (h, w)
@@ -23,6 +23,33 @@ static __device__ int block_sum(int v, int* red) {
     return s;                          // valid in thread 0
 }
 
+// SATD of one ts x ts tile (ts 4 or 8) of differences ``d``, row-major,
+// transformed in place: Walsh-Hadamard (Sylvester order) on rows, then
+// columns; the sum of |coefficients| with VTM's DC/4 and rounding.
+static __device__ int tile_satd(int* d, int ts) {
+    for (int i = 0; i < ts; ++i)
+        for (int len = 1; len < ts; len <<= 1)
+            for (int j = 0; j < ts; j += len << 1)
+                for (int k = j; k < j + len; ++k) {
+                    const int a = d[i * ts + k], b = d[i * ts + k + len];
+                    d[i * ts + k] = a + b;
+                    d[i * ts + k + len] = a - b;
+                }
+    for (int j = 0; j < ts; ++j)
+        for (int len = 1; len < ts; len <<= 1)
+            for (int i = 0; i < ts; i += len << 1)
+                for (int k = i; k < i + len; ++k) {
+                    const int a = d[k * ts + j], b = d[(k + len) * ts + j];
+                    d[k * ts + j] = a + b;
+                    d[(k + len) * ts + j] = a - b;
+                }
+    int s = 0;
+    for (int i = 0; i < ts * ts; ++i) s += abs(d[i]);
+    const int dc = abs(d[0]);
+    const int tv = s - dc + (dc >> 2);
+    return ts == 8 ? (tv + 2) >> 2 : (tv + 1) >> 1;
+}
+
 // SATD of (org - pred) over the (h, w) CU; every thread of the block must
 // call it. ``red`` holds blockDim.x / 32 ints of shared memory. The result is
 // valid in thread 0. Sides are 4 or more: a caller with a side of 2 (K6a's
@@ -41,28 +68,7 @@ static __device__ int satd(int w, int h, int P, const int32_t* org,
                 const int o = (r0 + i) * P + c0 + j;
                 d[i * ts + j] = org[o] - pred[o];
             }
-        // Walsh-Hadamard (Sylvester order) on rows, then columns
-        for (int i = 0; i < ts; ++i)
-            for (int len = 1; len < ts; len <<= 1)
-                for (int j = 0; j < ts; j += len << 1)
-                    for (int k = j; k < j + len; ++k) {
-                        const int a = d[i * ts + k], b = d[i * ts + k + len];
-                        d[i * ts + k] = a + b;
-                        d[i * ts + k + len] = a - b;
-                    }
-        for (int j = 0; j < ts; ++j)
-            for (int len = 1; len < ts; len <<= 1)
-                for (int i = 0; i < ts; i += len << 1)
-                    for (int k = i; k < i + len; ++k) {
-                        const int a = d[k * ts + j], b = d[(k + len) * ts + j];
-                        d[k * ts + j] = a + b;
-                        d[(k + len) * ts + j] = a - b;
-                    }
-        int s = 0;
-        for (int i = 0; i < ts * ts; ++i) s += abs(d[i]);
-        const int dc = abs(d[0]);
-        const int tv = s - dc + (dc >> 2);
-        total += ts == 8 ? (tv + 2) >> 2 : (tv + 1) >> 1;
+        total += tile_satd(d, ts);
     }
     return block_sum(total, red);
 }

@@ -35,20 +35,20 @@ SBH_THRESHOLD = 4
 def _cg_tables(P: int):
     """(49, NCG, 16) int64: flat P-plane index of scan slot ``k`` of CG
     ``g`` for a (2**lw, 2**lh) TB at row lw*7 + lh, -1 where absent. NCG
-    covers the zero-out-limited scanned region (grouped_scan stops at 32)."""
-    ncg = (min(32, P) * min(32, P) + SLOT - 1) // SLOT
-    tab = np.full((49, ncg, SLOT), -1, np.int64)
+    covers the zero-out-limited scanned region (grouped_scan stops at 32),
+    and at P = 4 the two 2x2 groups of a 2x4 or 4x2 TB."""
+    scans = {}
     for lw in range(1, P.bit_length()):
         for lh in range(1, P.bit_length()):
-            w, h = 1 << lw, 1 << lh
-            if w > P or h > P:
-                continue
             cgl2w, cgl2h = log2_sbb_size(lw, lh)
-            cg_size = 1 << (cgl2w + cgl2h)
-            scan = grouped_scan(w, h)
-            for s in range(scan.shape[0]):
-                x, y = int(scan[s, 1]), int(scan[s, 2])
-                tab[lw * 7 + lh, s // cg_size, s % cg_size] = y * P + x
+            scans[lw, lh] = grouped_scan(1 << lw, 1 << lh), 1 << (cgl2w + cgl2h)
+    ncg = max([(min(32, P) * min(32, P) + SLOT - 1) // SLOT] +
+              [-(-len(scan) // cg_size) for scan, cg_size in scans.values()])
+    tab = np.full((49, ncg, SLOT), -1, np.int64)
+    for (lw, lh), (scan, cg_size) in scans.items():
+        for s in range(scan.shape[0]):
+            x, y = int(scan[s, 1]), int(scan[s, 2])
+            tab[lw * 7 + lh, s // cg_size, s % cg_size] = y * P + x
     return tab
 
 

@@ -8,8 +8,9 @@ chroma MTT maps. The bitstreams and recon must be byte-identical, and the
 port's stream must decode hash-verified with the JAX package's decoder.
 Every K4 and K5 decision keeps a relative margin above MARGIN
 (test_torch_codec_ops.py). Every flag the port does not support (the
-sequential-only tools, the device RDO) raises; every coding tool of the
-bench configuration is accepted (the test_torch_encode_*.py files encode
+sequential-only tools) raises, and so does the sequential encoder's own
+RDO split search; every coding tool of the bench configuration and the
+device RDO fallback are accepted (the test_torch_encode_*.py files encode
 with them).
 """
 import numpy as np
@@ -20,6 +21,7 @@ from pmp_vvc_tpu.codec.decoder import decode_stream
 from pmp_vvc_tpu.codec.headers import VVCConfig as JaxConfig
 from pmp_vvc_tpu.codec.wavefront import WavefrontEncoder as JaxEncoder
 from pmp_vvc_tpu_torch.codec import wavefront as twf
+from pmp_vvc_tpu_torch.codec.encoder import RDO, FrameEncoder
 from pmp_vvc_tpu_torch.codec.headers import VVCConfig
 from test_torch_wavefront import margins  # noqa: F401  (fixture)
 from test_wavefront import _mtt_maps, _synth
@@ -97,13 +99,17 @@ def test_mip_and_sign_hiding_are_accepted():
 
 
 def test_rdo_paths_raise():
-    with pytest.raises(NotImplementedError):
-        twf.WavefrontEncoder(VVCConfig(width=64, height=64), rdo_fallback=True,
-                             device="cpu")
-    enc = twf.WavefrontEncoder(VVCConfig(width=64, height=64), device="cpu")
+    """The wavefront encoder takes the device RDO (``rdo_fallback``; the
+    test_torch_encode_rdo*.py files encode with it); the sequential
+    ``FrameEncoder``'s own split search, which a deciding node defers to,
+    is not ported and raises."""
+    enc = twf.WavefrontEncoder(VVCConfig(width=64, height=64), rdo_fallback=True,
+                               device="cpu")
+    assert enc.rdo_fallback
     y, u, v = _synth(64, 64)
-    with pytest.raises(NotImplementedError):
-        enc.encode_frame(y, u, v, rdo=True)
+    with pytest.raises(NotImplementedError, match="RDO split search"):
+        FrameEncoder(VVCConfig(width=64, height=64)).encode_frame(
+            y, u, v, decide_fn=lambda *a: RDO)
 
 
 def test_default_device_is_the_card(monkeypatch):

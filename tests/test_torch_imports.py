@@ -64,7 +64,14 @@ def test_port_imports_every_module_without_jax():
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     # data, models, pmp, codec, ops, native and their modules, _build, _device
-    assert int(proc.stdout.split()[-1]) >= 33
+    assert int(proc.stdout.split()[-1]) >= 35
+
+
+def test_rdo_modules_are_scanned():
+    """The device RDO's modules are among the sources scanned above."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"pmp_vvc_tpu_torch/codec/rdo_device.py",
+            "pmp_vvc_tpu_torch/ops/rdo_generic.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
