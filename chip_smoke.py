@@ -99,6 +99,27 @@ ones above:
     accel-level test (dual tree) and ``encode_frame(rdo=True)`` at 208x120
     (single tree), both with the bench's tools: byte-identical streams.
 
+Training (K11a ``qbd_loss`` in ``csrc/qbd_loss.cu``, K11b ``adam_update``
+in ``csrc/adam.cu``):
+
+17. K11a in modes q, bd and qbd, with the luma and chroma weight matrices,
+    at QP 22 (w0 = 1), 27 and 37, at batch 32 and 7, on outputs that meet
+    their labels exactly at a quarter of the positions, against its plain
+    version (the autograd of ``train/losses.py``) on the card: the loss
+    within 1e-6 relative, each gradient within 2 ulps of its largest
+    element, two runs bit-equal; K11b on the luma Q + BD pair's 92 tensors
+    at counts 1 and 1,000 and with zero gradients, exactly; both timed at
+    the training path's shapes, K11b beside ``torch.optim.Adam(fused=True)``.
+18. The training path: ``tools/gen_dataset.py`` labels 512x512 natural
+    content with the device RDO (4 frames to train on, 1 to validate; luma
+    QP 22/27/32/37, chroma QP 22), ``tools/train_bd.py`` trains the bd and
+    qbd stages of Luma and Chroma QP 22 at batch 32 (every loss must fall,
+    K11a and K11b launch once per step), the checkpoints reload through
+    ``CompPredictor.from_trained`` and predict a frame through K8; warm
+    steps/s and CTU samples/s per stage; one warm joint step's device time
+    split between the nets' forward, K11a, the backward and K11b, and by
+    kernel class under torch.profiler with the idle share.
+
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA.
@@ -144,6 +165,12 @@ from pmp_vvc_tpu_torch.pmp.pipeline import predict_sequence
 from pmp_vvc_tpu_torch.pmp.predict import CompPredictor
 from pmp_vvc_tpu_torch.pmp.structural import (
     structural_vote, structural_vote_reference)
+from pmp_vvc_tpu_torch.models import (ChromaMSBDNet, ChromaQNet, LumaMSBDNet, LumaQNet,
+                                      init_params)
+from pmp_vvc_tpu_torch.ops import train_generic as tg
+from pmp_vvc_tpu_torch.tools import gen_dataset, train_bd
+from pmp_vvc_tpu_torch.train.driver import load_npy_split
+from pmp_vvc_tpu_torch.train.trainer import Adam, make_bd_train_step, make_qbd_train_step
 
 REPO = pathlib.Path(__file__).resolve().parent
 CKPT = REPO / "trained_models" / "bd"
@@ -1913,6 +1940,355 @@ def phase_rdo_cpu_vs_card() -> None:
         log(f"[rdo-cpu-vs-card] {label}: bitstreams byte-identical ({len(out[DEVICE])} bytes)")
 
 
+# ---------------------------------------------------------------------------
+# Training: K11a (the QBD loss with its gradient), K11b (Adam) and the stages
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
+    "qbd_loss": (tg.qbd_loss, "pmp_vvc_tpu_torch/csrc/qbd_loss.cu",
+                 "pmp_vvc_tpu/train/losses.py:79"),
+    "adam_update": (tg.adam_update, "pmp_vvc_tpu_torch/csrc/adam.cu",
+                    "pmp_vvc_tpu/train/trainer.py:53"),
+}
+TRAIN_BATCH = 32                       # tools/train_bd.py:32
+# (mode, qp, luma, batch): the three modes, both weight matrices, QP 22
+# (w0 = 1) and 37; batch 7 makes the element counts no power of two
+TRAIN_LOSS_CASES = (("q", 22, True, 32), ("bd", 22, True, 32), ("bd", 37, False, 32),
+                    ("qbd", 22, False, 32), ("qbd", 37, True, 32), ("qbd", 27, True, 7))
+# K11a against its plain version on the card. The loss: the kernel sums
+# each mean in float64 and rounds once, torch sums float32 in its own order,
+# then both combine ten terms in float32; 1e-6 relative is 8 ulps. Each
+# gradient element sums at most three products in another order than
+# autograd (whose mean backward may multiply by 1/count on the card): 2 ulps
+# of the tensor's largest element.
+TRAIN_LOSS_REL, TRAIN_GRAD_ULPS = 1e-6, 2
+LABEL_SPLITS = (("Train", 4, 1000), ("Validate", 1, 2000))   # frames, seed0
+BD_EPOCHS, JOINT_EPOCHS = 6, 4
+
+
+def loss_case(n: int, seed: int) -> list:
+    """(qt_out, bd0, bd1, bd2, qt_label, bt, dire) on the card: seeded
+    outputs, with a quarter of the positions equal to their labels in every
+    branch (exact zeros in every term, where |x|'s gradient is +1)."""
+    rng = np.random.RandomState(seed)
+    bt = rng.randint(0, 4, (n, 3, 16, 16)).astype(np.float32)
+    dire = rng.randint(-1, 2, (n, 3, 16, 16)).astype(np.float32)
+    bd = [rng.randn(n, 2, 16, 16).astype(np.float32) * 2 for _ in range(3)]
+    exact = rng.rand(n, 16, 16) < 0.25
+    for i in range(3):
+        bd[i][:, 0][exact] = bt[:, i][exact]
+        bd[i][:, 1][exact] = dire[:, i][exact]
+    qt_lab = rng.randint(0, 4, (n, 1, 8, 8)).astype(np.float32)
+    qt_out = (qt_lab + rng.randn(n, 1, 8, 8) * (rng.rand(n, 1, 8, 8) < 0.7)).astype(np.float32)
+    return [torch.from_numpy(a).to(DEVICE) for a in (qt_out, *bd, qt_lab, bt, dire)]
+
+
+def loss_and_grads(fn, mode, qp, is_luma, qt_out, bd0, bd1, bd2, qt_lab, bt, dire) -> list:
+    """[loss, d/d qt_out (modes q, qbd), d/d bd_i (modes bd, qbd)]."""
+    q = qt_out.clone().requires_grad_(mode != "bd")
+    b = [x.clone().requires_grad_(mode != "q") for x in (bd0, bd1, bd2)]
+    loss = fn(mode, q, b, qt_lab, bt, dire, qp=qp, is_luma=is_luma)
+    wrt = ([q] if mode != "bd" else []) + (b if mode != "q" else [])
+    return [loss.detach()] + list(torch.autograd.grad(loss, wrt))
+
+
+def luma_pair_params(seed: int) -> list:
+    """The luma Q + BD nets' parameters on the card (92 tensors), drawn from
+    flax's initialisation."""
+    gen = torch.Generator().manual_seed(seed)
+    nets = [init_params(net, gen) for net in (LumaQNet(), LumaMSBDNet())]
+    return [p.detach().to(DEVICE) for net in nets for p in net.parameters()]
+
+
+def adam_case(params: list, seed: int, count: int, zero: bool) -> tuple:
+    """(grads, mu, nu) for ``params``: gradients over ten decades with a
+    tenth exactly zero; with ``zero`` all gradients and moments zero; else
+    moments zero at count 1, seeded as after ``count - 1`` steps above."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    grads = []
+    for p in params:
+        g = torch.randn(p.shape, generator=gen, device=DEVICE) * \
+            10.0 ** (torch.rand(p.shape, generator=gen, device=DEVICE) * 10 - 9)
+        g[torch.rand(p.shape, generator=gen, device=DEVICE) < 0.1] = 0
+        grads.append(g * 0 if zero else g)
+    n = sum(p.numel() for p in params)
+    if count == 1 or zero:
+        return grads, torch.zeros(n, device=DEVICE), torch.zeros(n, device=DEVICE)
+    mu = torch.randn(n, generator=gen, device=DEVICE) * 1e-3
+    return grads, mu, mu * mu * torch.rand(n, generator=gen, device=DEVICE) * 4
+
+
+def train_bounds(name: str, n_items: int) -> tuple[float, str, int, int]:
+    """(bound ms, bound_by, bytes, ops). K11a in mode qbd on a batch of
+    ``n_items``: reads qt_out and its label (64 values each per CTU), the
+    three branch outputs (512 each) and bt and dire (768 each) once, writes
+    the gradients of qt_out and the branches and the loss; about 60
+    operations per label position. K11b on ``n_items`` parameters: reads p,
+    g, mu, nu and writes p, mu, nu (28 B each); 13 operations each."""
+    if name == "qbd_loss":
+        nbytes = n_items * (2 * 64 + 3 * 512 + 2 * 768 + 64 + 3 * 512) * 4 + 4
+        ops = n_items * (256 * 60 + 64 * 3)
+    else:
+        nbytes, ops = 28 * n_items, 13 * n_items
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def phase_train_kernels() -> tuple[dict, dict]:
+    """K11a on ``TRAIN_LOSS_CASES`` and K11b at counts 1 and 1,000 and with
+    zero gradients on the luma Q + BD pair's 92 tensors, against their plain
+    versions on the card; K11a twice on the same inputs, bit for bit; then
+    each timed at the training path's shapes beside its plain version, and
+    K11b beside ``torch.optim.Adam(fused=True)``."""
+    errs = {"qbd_loss": 0.0, "adam_update": 0.0}
+    for k, (mode, qp, is_luma, n) in enumerate(TRAIN_LOSS_CASES):
+        case = loss_case(n, seed=40 + k)
+        got = loss_and_grads(tg.qbd_loss, mode, qp, is_luma, *case)
+        again = loss_and_grads(tg.qbd_loss, mode, qp, is_luma, *case)
+        want = loss_and_grads(tg.qbd_loss_reference, mode, qp, is_luma, *case)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K11a {mode} QP{qp}: two runs differ")
+        rel = float((got[0] - want[0]).abs() / want[0].abs())
+        check(rel <= TRAIN_LOSS_REL, f"K11a {mode} QP{qp}: loss off by {rel:.3g} relative")
+        for g, w in zip(got[1:], want[1:]):
+            err = float((g - w).abs().max())
+            bound = TRAIN_GRAD_ULPS * float(np.spacing(np.float32(w.abs().max().item())))
+            check(err <= bound, f"K11a {mode} QP{qp}: gradient off by {err} (bound {bound})")
+            errs["qbd_loss"] = max(errs["qbd_loss"], err)
+        errs["qbd_loss"] = max(errs["qbd_loss"], float((got[0] - want[0]).abs()))
+        log(f"[train-kernels] K11a {mode}, QP {qp}, {'luma' if is_luma else 'chroma'}, "
+            f"batch {n}: loss {float(want[0]):.6f}, relative error {rel:.3g}; gradients "
+            f"within {TRAIN_GRAD_ULPS} ulps; two runs bit-equal")
+    params = luma_pair_params(seed=1)
+    for count, zero, lr in ((1, False, 1e-3), (1000, False, 2e-4), (2, True, 5e-4)):
+        grads, mu, nu = adam_case(params, seed=count, count=count, zero=zero)
+        pk, pp = [p.clone() for p in params], [p.clone() for p in params]
+        mk, nk, mp, np_ = mu.clone(), nu.clone(), mu.clone(), nu.clone()
+        bc = tg.bias_corrections(count)
+        tg.adam_update(pk, grads, mk, nk, lr, *bc)
+        tg.adam_update_reference(pp, grads, mp, np_, lr, *bc)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(pk + [mk, nk], pp + [mp, np_])),
+              f"K11b at count {count} differs from its plain version")
+        if zero:
+            check(all(torch.equal(a, b) for a, b in zip(pk, params)),
+                  "K11b moved a parameter with zero gradient and moments")
+        log(f"[train-kernels] K11b, {len(params)} tensors ({mu.numel()} values), count "
+            f"{count}, lr {lr}{', zero gradients' if zero else ''}: parameters and "
+            f"moments equal to the plain version")
+
+    # times at the training path's shapes: mode qbd, luma, batch 32; Adam on
+    # the luma pair (the joint stage's optimizer)
+    times = {}
+    case = loss_case(TRAIN_BATCH, seed=60)
+    lp = tg.loss_params("qbd", TRAIN_BATCH, 22, True)
+    qt_out, bd0, bd1, bd2, qt_lab, bt, dire = case
+    kernel = lambda: tg._launch_loss("qbd", qt_out, (bd0, bd1, bd2), qt_lab, bt, dire, lp)
+    plain = lambda: loss_and_grads(tg.qbd_loss_reference, "qbd", 22, True, *case)
+    grads, mu, nu = adam_case(params, seed=7, count=1, zero=False)
+    bc = tg.bias_corrections(1)
+    lib_params = [p.clone().requires_grad_(True) for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g.clone()
+    lib = torch.optim.Adam(lib_params, lr=1e-3, fused=True, capturable=True)
+    adam = {"kernel": lambda: tg.adam_update(params, grads, mu, nu, 1e-3, *bc),
+            "plain": lambda: tg.adam_update_reference(params, grads, mu, nu, 1e-3, *bc),
+            "library": lib.step}
+    for name, n_items, fns in (("qbd_loss", TRAIN_BATCH, (kernel, plain, None)),
+                               ("adam_update", int(mu.numel()),
+                                (adam["kernel"], adam["plain"], adam["library"]))):
+        ms, plain_ms = graph_ms(fns[0]), call_ms(fns[1], 20)
+        library_ms = graph_ms(fns[2]) if fns[2] else None
+        bound, by, nbytes, ops = train_bounds(name, n_items)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                           library_ms=library_ms)
+        lib_txt = f"; torch.optim.Adam(fused=True) {library_ms:.6f} ms (CUDA graph)" \
+            if library_ms is not None else ""
+        log(f"[train-kernels] {name}: device time per call (CUDA graph) {ms:.6f} ms; plain "
+            f"version from Python {plain_ms:.6f} ms{lib_txt}; bound {bound:.6f} ms by {by} "
+            f"({nbytes} B, {ops} ops)")
+    return errs, times
+
+
+def reset_train_counts() -> None:
+    for fn, _, _ in TRAIN_KERNELS.values():
+        fn.launches = 0
+
+
+def train_counts() -> dict:
+    return {name: fn.launches for name, (fn, _, _) in TRAIN_KERNELS.items()}
+
+
+def stage_step(stage: str, comp: str, params: dict):
+    """(step, batch, nets) of ``stage`` on fresh nets loaded with
+    ``params`` ({"q", "bd"} state dicts), a training batch of 32 CTUs."""
+    luma = comp == "Luma"
+    q_net = (LumaQNet() if luma else ChromaQNet()).to(DEVICE)
+    bd_net = (LumaMSBDNet() if luma else ChromaMSBDNet()).to(DEVICE)
+    q_net.load_state_dict(params["q"])
+    bd_net.load_state_dict(params["bd"])
+    if stage == "bd":
+        run = make_bd_train_step(bd_net, Adam(bd_net.parameters()), qp=22, is_luma=luma)
+    else:
+        opt = Adam(list(q_net.parameters()) + list(bd_net.parameters()))
+        run = make_qbd_train_step(q_net, bd_net, opt, qp=22, is_luma=luma)
+    return run, q_net, bd_net
+
+
+def phase_train(tmp: pathlib.Path) -> dict:
+    """The training path at full width: ``tools/gen_dataset.py``'s label
+    search on 512x512 natural content (4 frames to train on, 1 to validate;
+    luma at QP 22/27/32/37 in single tree, chroma at QP 22 in dual tree,
+    ``phase_rdo_labels``' configuration), then ``tools/train_bd.py`` for
+    Luma and Chroma at QP 22: the bd stage from flax's initialisation and the
+    qbd stage from the committed ``{comp}_Q_QP22.msgpack``, batch 32; the
+    losses per epoch must fall; K11a and K11b launch on every step. Then the
+    checkpoints reload through ``CompPredictor.from_trained`` and predict a
+    frame through K8, warm steps/s of each stage, and one warm joint step's
+    device time split between the nets, K11a and K11b."""
+    data, out = tmp / "corpus", tmp / "ckpt"
+    t0 = time.perf_counter()
+    for split, frames, seed0 in LABEL_SPLITS:
+        for chroma in (False, True):
+            gen_dataset.main(["--out", str(data), "--frames", str(frames), "--width",
+                              str(LABEL_W), "--height", str(LABEL_H), "--qps",
+                              "22" if chroma else "22,27,32,37", "--split", split,
+                              "--seed0", str(seed0), "--device", DEVICE]
+                             + (["--chroma"] if chroma else []))
+    tr = {c: load_npy_split(data, "Train", c, 22) for c in ("Luma", "Chroma")}
+    hist = {c: np.bincount((tr[c][1] + 1).astype(int).ravel(), minlength=4).tolist()
+            for c in tr}
+    log(f"[train] labels: {len(tr['Luma'][0])} train + "
+        f"{len(load_npy_split(data, 'Validate', 'Luma', 22)[0])} validation CTUs of "
+        f"{LABEL_W}x{LABEL_H} natural content, luma QP 22/27/32/37, chroma QP 22, in "
+        f"{time.perf_counter() - t0:.3f} s; QP 22 QT depth counts (8x8 units) {hist}")
+
+    reset_train_counts()
+    trained, rows = {}, {}
+    for comp in ("Luma", "Chroma"):
+        t0 = time.perf_counter()
+        trained[comp], bd_rows, qbd_rows = train_bd.train_component(
+            data, out, comp, 22, bd_epochs=BD_EPOCHS, joint_epochs=JOINT_EPOCHS,
+            batch=TRAIN_BATCH, device=DEVICE, print_fn=lambda m: log(f"[train]   {m}"))
+        for stage, r in (("bd", bd_rows), ("qbd", qbd_rows)):
+            losses = [x["train_loss"] for x in r]
+            check(losses[-1] < losses[0], f"{comp} {stage}: the loss did not fall: {losses}")
+            rows[(comp, stage)] = losses
+        log(f"[train] {comp} QP 22: bd {BD_EPOCHS} epochs, qbd {JOINT_EPOCHS} epochs in "
+            f"{time.perf_counter() - t0:.3f} s; loss per epoch bd {rows[(comp, 'bd')]}, "
+            f"qbd {rows[(comp, 'qbd')]}")
+    launches = train_counts()
+    steps = (BD_EPOCHS + JOINT_EPOCHS) * sum(len(tr[c][0]) // TRAIN_BATCH for c in tr)
+    check(all(v == steps for v in launches.values()),
+          f"launches {launches} against {steps} training steps")
+    log(f"[train] launches on the training path {launches}: one of each per step "
+        f"({steps} steps)")
+
+    # the checkpoints reload and predict through K8
+    for comp in ("Luma", "Chroma"):
+        pred = CompPredictor.from_trained(comp == "Luma", out / f"{comp}_Q_QP22.msgpack",
+                                          out / f"{comp}_BD_QP22.msgpack", device=DEVICE)
+        for net, key in ((pred.q_net, "q"), (pred.bd_net, "bd")):
+            check(all(torch.equal(v, trained[comp][key][k].to(DEVICE))
+                      for k, v in net.state_dict().items()),
+                  f"{comp}: the reloaded {key} net differs from the trained one")
+        y, u, v = natural_frame(LABEL_W, LABEL_H, 3000, bit_depth=10)
+        blocks = blocks_for_sequence((y >> 2).astype(np.uint8)[None],
+                                     (u >> 2).astype(np.uint8)[None],
+                                     (v >> 2).astype(np.uint8)[None])
+        structural_vote.launches = 0
+        qt, bt, dire = pred.predict(blocks[0 if comp == "Luma" else 1])
+        n = (LABEL_W // 64) * (LABEL_H // 64)
+        check(structural_vote.launches > 0 and qt.shape == (n, 8, 8) and
+              bt.shape == (n, 3, 16, 16) and np.isfinite(bt).all() and np.isfinite(dire).all()
+              and np.isin(qt, (0, 1, 2, 3)).all(), f"{comp}: prediction from the checkpoint")
+        log(f"[train] {comp}: the written checkpoints reload equal to the trained nets and "
+            f"predict a {LABEL_W}x{LABEL_H} frame through K8 (QT depth counts "
+            f"{np.bincount(qt.astype(int).ravel(), minlength=4).tolist()})")
+
+    # warm steps/s per stage, then one warm joint step's device time split
+    for comp in ("Luma", "Chroma"):
+        x, qt, bt, dire = (torch.from_numpy(np.ascontiguousarray(a[:TRAIN_BATCH])).to(DEVICE)
+                           for a in tr[comp])
+        for stage in ("bd", "qbd"):
+            run, _, _ = stage_step(stage, comp, trained[comp])
+            for _ in range(3):
+                run(x, qt, bt, dire, 1e-4)
+            torch.cuda.synchronize()
+            n_steps = 20
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                run(x, qt, bt, dire, 1e-4)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            log(f"[train] {comp} stage {stage}, batch {TRAIN_BATCH}: {n_steps / dt:.2f} warm "
+                f"steps/s, {n_steps * TRAIN_BATCH / dt:.1f} CTU samples/s")
+    profile_train_step(trained["Luma"], tr["Luma"])
+    return launches
+
+
+def profile_train_step(params: dict, data) -> None:
+    """One warm luma joint step, batch 32: the device span of each part
+    between CUDA events (nets forward, K11a, backward through the nets,
+    K11b) and, under torch.profiler, device time by kernel class and the
+    idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, q_net, bd_net = stage_step("qbd", "Luma", params)
+    opt = Adam(list(q_net.parameters()) + list(bd_net.parameters()))
+    x, qt, bt, dire = (torch.from_numpy(np.ascontiguousarray(a[:TRAIN_BATCH])).to(DEVICE)
+                       for a in data)
+
+    def step(events=None):
+        mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        mark(0)
+        qt_out = q_net(x)
+        outs = bd_net(x, qt_out)
+        mark(1)
+        loss = tg.qbd_loss("qbd", qt_out, outs, qt, bt, dire, qp=22, is_luma=True)
+        mark(2)
+        grads = torch.autograd.grad(loss, opt.params)
+        mark(3)
+        opt.step(grads, 1e-4)
+        mark(4)
+
+    for _ in range(3):
+        step()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    step(events)
+    torch.cuda.synchronize()
+    parts = [events[i].elapsed_time(events[i + 1]) for i in range(4)]
+    log("[train-profile] luma joint step, batch 32, device spans between events: nets "
+        f"forward {parts[0]:.3f} ms, K11a {parts[1]:.3f} ms, backward {parts[2]:.3f} ms, "
+        f"K11b {parts[3]:.3f} ms (step {sum(parts):.3f} ms)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not rows:
+        log("[train-profile] the profiler recorded no device time: not measured")
+        return
+    busy = sum(r[0] for r in rows)
+    classes = collections.Counter()
+    for ms, _, name in rows:
+        cls = "K11a" if "qbd_" in name else "K11b" if "adam_kernel" in name else \
+            "convolutions" if any(k in name.lower() for k in ("conv", "cudnn", "gemm", "xmma",
+                                                               "winograd", "fft", "sm90")) \
+            else "other (pooling, elementwise, copies)"
+        classes[cls] += ms
+    log(f"[train-profile] wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f}; " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in classes.most_common()))
+    for ms, count, name in sorted(rows, reverse=True)[:8]:
+        log(f"[train-profile]   {ms:9.3f} ms  x{count:<4d} {name[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1923,6 +2299,7 @@ def main() -> int:
     vote = phase_vote()
     enc_errs, enc_times = phase_encode_kernels()
     rdo_errs, rdo_times = phase_rdo_kernels()
+    train_errs, train_times = phase_train_kernels()
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_") as tmp:
         preds, blocks, launches = phase_main_path(pathlib.Path(tmp))
     phase_cpu_vs_card(preds, blocks)
@@ -1933,6 +2310,8 @@ def main() -> int:
     phase_encode_bench_tools(preds)
     phase_rdo_bench(preds)
     phase_rdo_labels()
+    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_train_") as tmp:
+        train_launches = phase_train(pathlib.Path(tmp))
     phase_encode_cpu_vs_card(preds)
     phase_rdo_cpu_vs_card()
     phase_encode_profile(frames, maps_l, maps_c)
@@ -1969,6 +2348,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": rdo_launches[name], "max_abs_err": rdo_errs[name],
             **rdo_times[name], "library_ms": None})
+    # K11a: no single PyTorch call computes this weighted multi-branch loss
+    # and its gradient; K11b's library time is torch.optim.Adam(fused=True)
+    for name, (_, source, replaces) in TRAIN_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train_launches[name], "max_abs_err": train_errs[name],
+            **train_times[name]})
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

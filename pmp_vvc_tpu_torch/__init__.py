@@ -2,12 +2,13 @@
 
 The JAX package ``pmp_vvc_tpu`` is the reference; this package does the same
 work in PyTorch and imports nothing from it. Ported so far: partition-map
-prediction (YUV -> Down-Up-CNN -> structural vote -> PartitionMat) and the
+prediction (YUV -> Down-Up-CNN -> structural vote -> PartitionMat), the
 map-driven all-intra encode (leaves and wave schedules -> the wave scan on
-the card -> CABAC replay, deblocking, SAO, NAL units) in the dual-tree
-DCT-2 + deblocking + SAO configuration.
+the card -> CABAC replay, loop filters, NAL units) with every tool of the
+bench configuration, the device RDO, and training.
 
-- ``data``   : YUV ingest, CTU blocking with halo, synthetic content (numpy)
+- ``data``   : YUV ingest, CTU blocking with halo, synthetic content,
+               training labels from partition trees (numpy)
 - ``models`` : Down-Up-CNN nets (NCHW ``nn.Module``s) and the flax
                msgpack weight bridge
 - ``pmp``    : structural vote (hand-written CUDA kernel + plain version),
@@ -16,6 +17,10 @@ DCT-2 + deblocking + SAO configuration.
                wave step (plain versions + the K1/K2/K4 kernels' wrappers)
 - ``codec``  : syntax writers, CABAC, loop filters, the frame encoder and
                the wavefront encoder (with the K7 scatter)
+- ``train``  : the training losses, the three stages' steps (with the K11a
+               loss and K11b Adam kernels of ``ops/train_generic.py``) and
+               the driver; ``cli/train.py`` and ``tools/`` (labels from the
+               device RDO, the bd + qbd stages) are their entry points
 - ``native`` : the C CABAC finalizer, built at first use
 - ``csrc``   : CUDA C++ kernel sources for sm_90a, built at first use
 

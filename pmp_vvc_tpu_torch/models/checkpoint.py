@@ -1,13 +1,15 @@
-"""Weight bridge: flax msgpack checkpoints -> PyTorch state dicts.
+"""Weight bridge between flax msgpack checkpoints and PyTorch state dicts.
 
 The trained checkpoints (``trained_models/bd/*.msgpack``) were written by
-``flax.serialization.to_bytes``. The port reads them with its own msgpack
-decoder (no ``msgpack`` or ``flax`` package needed) and renames the flax
-param tree into a state dict: ``a/b/kernel`` (HWIO) -> ``a.b.weight`` (OIHW),
-``a/b/bias`` -> ``a.b.bias``.
+``flax.serialization.to_bytes``. The port reads and writes them with its own
+msgpack coder (no ``msgpack`` or ``flax`` package needed) and renames the
+flax param tree into a state dict and back: ``a/b/kernel`` (HWIO) <->
+``a.b.weight`` (OIHW), ``a/b/bias`` <-> ``a.b.bias``. ``init_params`` draws
+flax's default initialisation.
 """
 from __future__ import annotations
 
+import math
 import pathlib
 import struct
 
@@ -138,4 +140,129 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 def load_into(net: torch.nn.Module, path) -> torch.nn.Module:
     """Load a flax msgpack checkpoint into ``net`` (every key must match)."""
     net.load_state_dict(params_from_jax(load_trained(path)), strict=True)
+    return net
+
+
+# ---------------------------------------------------------------------------
+# writing: the subset of msgpack that flax.serialization.to_bytes writes
+# ---------------------------------------------------------------------------
+
+def _pack_len(out: bytearray, n: int, fix: int | None, fix_max: int, codes) -> None:
+    """A length header: the fix form when it fits, else the 8/16/32-bit one
+    (``codes``; None where msgpack has no 8-bit form)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object of {n} items or bytes is too large")
+
+
+def _pack(out: bytearray, obj) -> None:
+    if isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, bytes):
+        _pack_len(out, len(obj), None, -1, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, bool) or obj is None:
+        out.append(0xC0 if obj is None else 0xC2 + int(obj))
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        else:
+            fmts = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF),
+                    (0xCE, ">I", 0, 0xFFFFFFFF), (0xCF, ">Q", 0, 2 ** 64 - 1),
+                    (0xD0, ">b", -128, 127), (0xD1, ">h", -2 ** 15, 2 ** 15 - 1),
+                    (0xD2, ">i", -2 ** 31, 2 ** 31 - 1), (0xD3, ">q", -2 ** 63, 2 ** 63 - 1))
+            code, fmt = next((c, f) for c, f, lo, hi in fmts
+                             if (obj >= 0) == (lo == 0) and lo <= obj <= hi)
+            out.append(code)
+            out += struct.pack(fmt, obj)
+    elif isinstance(obj, np.ndarray):
+        payload = bytearray()
+        _pack(payload, (tuple(int(d) for d in obj.shape), obj.dtype.name,
+                        np.ascontiguousarray(obj).tobytes()))
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            out.append(0xD4 + (n.bit_length() - 1))
+        else:
+            _pack_len(out, n, None, -1, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += payload
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} as a flax checkpoint leaf")
+
+
+def write_flax_msgpack(tree) -> bytes:
+    """Encode a nested dict of numpy arrays as ``flax.serialization.to_bytes``
+    does (keys in the dict's order)."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+def save_params(path, tree) -> None:
+    """Write a flax param tree (nested dicts of numpy arrays, e.g. from
+    ``params_to_jax``) as a msgpack checkpoint that the JAX package's
+    ``models/checkpoint.py:load_params`` and this module's ``load_trained``
+    read."""
+    path = pathlib.Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(write_flax_msgpack(tree))
+
+
+def params_to_jax(state: dict) -> dict:
+    """Torch state dict -> flax param tree (the inverse of ``params_from_jax``):
+    ``a.b.weight`` (OIHW) -> ``a/b/kernel`` (HWIO), ``a.b.bias`` -> ``a/b/bias``,
+    float32 numpy arrays on the host."""
+    tree: dict = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        elif leaf != "bias":
+            raise ValueError(f"unexpected state dict key {key}")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+# flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"), a
+# normal cut at +-2 whose scale is raised by this factor (the cut normal's
+# standard deviation) so that the samples' variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_params(net: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Initialise ``net`` as flax initialises the JAX nets: every conv
+    kernel from lecun_normal (a normal truncated at two standard deviations,
+    variance 1 / fan_in, fan_in = in_channels * kh * kw), every bias zero.
+    The distribution is flax's; the values come from ``generator``."""
+    for name, p in net.named_parameters():
+        if name.endswith("bias"):
+            p.zero_()
+        else:
+            fan_in = p[0].numel()
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            sample = torch.empty(p.shape, dtype=torch.float32)
+            torch.nn.init.trunc_normal_(sample, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            p.copy_(sample * std)
     return net

@@ -40,8 +40,15 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if blocked(m))
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 '''
+
+# the training slice's modules, which the walk must import under the blocker
+TRAIN_MODULES = {
+    "pmp_vvc_tpu_torch." + m for m in (
+        "train", "train.losses", "train.trainer", "train.driver", "cli", "cli.train",
+        "tools", "tools.gen_dataset", "tools.train_bd", "data.labels", "data.sequences",
+        "ops.train_generic")}
 
 
 def _blocker_namespace():
@@ -63,8 +70,10 @@ def test_port_imports_every_module_without_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    # data, models, pmp, codec, ops, native and their modules, _build, _device
-    assert int(proc.stdout.split()[-1]) >= 35
+    names = set(proc.stdout.split())
+    # data, models, pmp, codec, ops, native, train, cli, tools and their
+    # modules, _build, _device: 46 before the training slice, 58 with it
+    assert TRAIN_MODULES <= names and len(names) >= 58
 
 
 def test_rdo_modules_are_scanned():
@@ -72,6 +81,13 @@ def test_rdo_modules_are_scanned():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"pmp_vvc_tpu_torch/codec/rdo_device.py",
             "pmp_vvc_tpu_torch/ops/rdo_generic.py"} <= names
+
+
+def test_train_modules_are_scanned():
+    """The training slice's sources are among those scanned below."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    want = {m.replace(".", "/") for m in TRAIN_MODULES}
+    assert {w + ".py" if w + ".py" in names else w + "/__init__.py" for w in want} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
