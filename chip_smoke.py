@@ -120,6 +120,34 @@ in ``csrc/adam.cu``):
     split between the nets' forward, K11a, the backward and K11b, and by
     kernel class under torch.profiler with the idle share.
 
+The sequential ``FrameEncoder`` (K10a ``predict_block`` in
+``csrc/seq_intra.cu``, K10b ``predict_mip_all`` in ``csrc/seq_mip.cu``, K10c
+``seq_tq`` in ``csrc/seq_tq.cu``, K10d ``satd`` in ``csrc/seq_satd.cu``) and
+the encode CLI:
+
+19. K10a-d against their plain versions on the card, exactly: K10a on all
+    67 modes at every luma size 4-64 and chroma size 2-32 at 8 and 10 bits,
+    K10b at every size class, K10c on every MTS pair, DCT-2 at 64 and the
+    ISP shapes at QP 0/22/37/51 with every stage mask, K10d on every tile
+    shape; each timed at 16x16 (a CUDA graph of 50 calls) beside its plain
+    version and the wrapper's round trip from numpy to numpy.
+20. The sequential path: ``FrameEncoder(mode_select="satd")`` with all 67
+    RMD modes on 416x240 x 2 frames of natural content, the bench's tools
+    without sign-data hiding and with MRL, ISP and dependent quantization,
+    dual tree, the QP 22 maps; a cold run of one frame, then a warm run of
+    both with every K10 kernel's launches counted; frames/s, stage times,
+    the MRL and ISP CUs and dependent-quantization TUs (each must occur),
+    hash SEI and luma PSNR; one more frame under torch.profiler and
+    cProfile (device idle share, the host's costliest functions).
+21. The same configuration at 208x120 with ``device="cpu"`` and on the
+    card: byte-identical.
+22. ``cli.encode.main`` on a 2-frame 8-bit 256x128 YUV with the QP 22
+    predictors' maps, ``--engine sequential`` and ``--engine wavefront``,
+    on the card: each frame's hash SEI equals its recon's MD5.
+
+``python3 chip_smoke.py --seq-only`` runs the build and phases 19-22 alone
+and prints no result line.
+
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
 CUDA.
@@ -140,12 +168,18 @@ import numpy as np
 import torch
 
 from pmp_vvc_tpu_torch import _build
+from pmp_vvc_tpu_torch.cli import encode as cli_encode
 from pmp_vvc_tpu_torch.codec import rdo_device as trd
 from pmp_vvc_tpu_torch.codec import wavefront as wf
+from pmp_vvc_tpu_torch.codec.encoder import FrameEncoder
 from pmp_vvc_tpu_torch.codec.rdo_device import DeviceRDO
 from pmp_vvc_tpu_torch.codec.headers import VVCConfig
 from pmp_vvc_tpu_torch.data.synthcontent import natural_frame, natural_sequence
 from pmp_vvc_tpu_torch.data.yuv import blocks_for_sequence, write_yuv420
+from pmp_vvc_tpu_torch.ops import distortion as dist_ops
+from pmp_vvc_tpu_torch.ops import intra as intra_ops
+from pmp_vvc_tpu_torch.ops import mip as mip_ops
+from pmp_vvc_tpu_torch.ops import quant as quant_ops
 from pmp_vvc_tpu_torch.ops import rdo_generic as rg
 from pmp_vvc_tpu_torch.ops import tq_generic as ttq
 from pmp_vvc_tpu_torch.ops.cclm_generic import (
@@ -160,6 +194,7 @@ from pmp_vvc_tpu_torch.ops.sdh_generic import _cg_tables, sdh_moves
 from pmp_vvc_tpu_torch.ops.lfnst_generic import inv_lfnst_generic
 from pmp_vvc_tpu_torch.ops.tq_generic import (
     tq, tq_mts, tq_mts_candidates, tq_mts_reference, tq_reference)
+from pmp_vvc_tpu_torch.ops.transforms import DCT2, DCT8, DST7
 from pmp_vvc_tpu_torch.pmp.map2partition import blocks_to_frame_partition
 from pmp_vvc_tpu_torch.pmp.pipeline import predict_sequence
 from pmp_vvc_tpu_torch.pmp.predict import CompPredictor
@@ -2289,17 +2324,381 @@ def profile_train_step(params: dict, data) -> None:
         log(f"[train-profile]   {ms:9.3f} ms  x{count:<4d} {name[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# The sequential FrameEncoder (K10a-d) and the encode CLI
+# ---------------------------------------------------------------------------
+
+SEQ_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
+    "seq_intra": (intra_ops.predict_block, "pmp_vvc_tpu_torch/csrc/seq_intra.cu",
+                  "pmp_vvc_tpu/ops/intra.py:356"),
+    "seq_mip": (mip_ops.predict_mip_all, "pmp_vvc_tpu_torch/csrc/seq_mip.cu",
+                "pmp_vvc_tpu/ops/mip.py:75"),
+    "seq_tq": (quant_ops.seq_tq, "pmp_vvc_tpu_torch/csrc/seq_tq.cu",
+               "pmp_vvc_tpu/ops/transforms.py:68, pmp_vvc_tpu/ops/transforms.py:115, "
+               "pmp_vvc_tpu/ops/quant.py:47, pmp_vvc_tpu/ops/quant.py:62"),
+    "seq_satd": (dist_ops.satd, "pmp_vvc_tpu_torch/csrc/seq_satd.cu",
+                 "pmp_vvc_tpu/ops/distortion.py:86"),
+}
+# the sequential engine's configuration: the bench's tools (TOOLS[BENCH])
+# without sign-data hiding, which dependent quantization excludes, and with
+# the three tools only this engine codes
+SEQ = "sequential tools"
+TOOLS[SEQ] = dict(TOOLS[BENCH], sign_hiding=False, mrl=True, isp=True, dep_quant=True)
+SEQ_W, SEQ_H, SEQ_FRAMES = SMALL_W, SMALL_H, 2           # class D, as the bench
+SEQ_LUMA_SIDES = (4, 8, 16, 32, 64)
+SEQ_CHROMA_SIDES = (2, 4, 8, 16, 32)
+SEQ_QPS = (0, 22, 37, 51)
+# K10c's shapes: every MTS pair on square and non-square TUs, DCT-2 at 64,
+# and the ISP sub-TUs (1xN, Nx1, 2xN, Nx2)
+SEQ_TQ_SHAPES = ((4, 4), (8, 8), (16, 16), (32, 32), (8, 4), (4, 16), (32, 8), (16, 32),
+                 (64, 64), (64, 32), (16, 64), (1, 16), (16, 1), (1, 32), (32, 1), (1, 64),
+                 (2, 8), (8, 2), (2, 16), (16, 2), (2, 32), (4, 1))
+SEQ_TIME_W = SEQ_TIME_H = 16          # the timed block
+# Scalar integer operations per output, counted from the kernels' inner
+# loops: a K10b upsampled sample (two linear passes) and reduced sample (an
+# 8-term product); K10c's quantiser and dequantiser per coefficient (abs,
+# product, add, shift, sign, clip); two per multiply-add of a transform.
+OPS_SEQ_QUANT = 8
+
+
+def seq_refs(n: int, w: int, h: int, bd: int, luma: bool, rng) -> tuple:
+    """(top_u, left_u, top_f, left_f) int32 rows of n blocks on the card:
+    random samples, the corner shared, the filtered rows from
+    ``filter_reference_samples`` (luma; chroma predicts from the unfiltered)."""
+    tu = rng.randint(0, 1 << bd, (n, 2 * w + 3)).astype(np.int32)
+    lu = rng.randint(0, 1 << bd, (n, 2 * h + 3)).astype(np.int32)
+    lu[:, 0] = tu[:, 0]
+    tu_t, lu_t = (torch.from_numpy(a).to(DEVICE) for a in (tu, lu))
+    tf_t, lf_t = intra_ops.filter_reference_samples(tu_t, lu_t) if luma else (tu_t, lu_t)
+    return tuple(t.int().contiguous() for t in (tu_t, lu_t, tf_t, lf_t))
+
+
+def seq_tq_input(stages: int, w: int, h: int, n: int, rng) -> torch.Tensor:
+    """K10c's input for a stage mask: residuals where the forward transform
+    runs first, else coefficients, levels or dequantised coefficients."""
+    first = stages & -stages
+    lim = {quant_ops.FWD: 1023, quant_ops.QUANT: 30000, quant_ops.DEQUANT: 400,
+           quant_ops.INV: 30000}[first]
+    return torch.from_numpy(rng.randint(-lim, lim + 1, (n, h, w)).astype(np.int32)).to(DEVICE)
+
+
+def seq_bounds(name: str, w: int, h: int, k: int) -> tuple[float, str, int, int]:
+    """(bound ms, bound_by, bytes, ops) of one timed K10 call on a w x h
+    block: K10a predicts k modes from four reference rows; K10b all k
+    candidates; K10c the fused round trip (a DCT-2 pair each way, the
+    quantiser and dequantiser), its four outputs written; K10d k SATDs of
+    the block's 8x8 tiles (six butterfly stages, abs and sum a sample).
+    Inputs read once, outputs written once."""
+    hw = w * h
+    if name == "seq_intra":
+        nbytes, ops = 4 * (2 * (2 * w + 3) + 2 * (2 * h + 3)) + 4 * k * hw, k * hw * OPS_PRED
+    elif name == "seq_mip":
+        rp = 4 if mip_ops.size_id(w, h) < 2 else 8
+        nbytes = 4 * (2 * w + 3 + 2 * h + 3) + 4 * k * hw
+        ops = k * (hw * OPS_UPSAMPLE + rp * rp * OPS_REDUCED)
+    elif name == "seq_tq":
+        nbytes = 4 * hw + 4 * 4 * hw
+        ops = 2 * 2 * hw * (w + h) + 2 * OPS_SEQ_QUANT * hw
+    else:
+        nbytes, ops = 4 * hw + 4 * k * hw + 4 * k, k * hw * OPS_SATD
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def host_round_trip_ms(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn`` from numpy inputs to numpy outputs (the
+    upload, the launch and the read-back with its wait), as the encoder
+    calls the kernels."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_seq_kernels() -> tuple[dict, dict]:
+    """K10a-d against their plain versions on the card, exactly: K10a on all
+    67 modes at every luma size 4..64 and chroma size 2..32 (sides of 2
+    included) at 8 and 10 bits; K10b at every size class; K10c on every MTS
+    pair, DCT-2 at 64 and the ISP shapes at QP 0/22/37/51 (the fused round
+    trip) and with every stage mask; K10d on every tile shape. Then each
+    kernel's device time per call at 16x16 (a CUDA graph of 50 calls), its
+    plain version's and the wrapper's round trip from numpy to numpy."""
+    rng = np.random.RandomState(10)
+    errs = dict.fromkeys(SEQ_KERNELS, 0.0)
+    n_checked = dict.fromkeys(SEQ_KERNELS, 0)
+    modes = tuple(range(67))
+    for luma, sides in ((True, SEQ_LUMA_SIDES), (False, SEQ_CHROMA_SIDES)):
+        for w, h, bd in itertools.product(sides, sides, (8, 10)):
+            refs = seq_refs(2, w, h, bd, luma, rng)
+            kw = dict(w=w, h=h, modes=modes, is_luma=luma, bit_depth=bd)
+            _cmp("seq_intra", intra_ops.predict_block(*refs, **kw),
+                 intra_ops.predict_block_reference(*refs, **kw), errs)
+            n_checked["seq_intra"] += 1
+    for (w, h), bd in itertools.product(((4, 4), (4, 8), (8, 4), (8, 8), (4, 16), (16, 4),
+                                         (16, 16), (32, 8), (8, 32), (64, 64), (64, 16)),
+                                        (8, 10)):
+        top, left = (r[0] for r in seq_refs(1, w, h, bd, False, rng)[:2])
+        kw = dict(w=w, h=h, bit_depth=bd)
+        _cmp("seq_mip", mip_ops.predict_mip_all(top, left, **kw),
+             mip_ops.predict_mip_all_reference(top, left, **kw), errs)
+        n_checked["seq_mip"] += 1
+    kinds = (DCT2, DST7, DCT8)
+    for w, h in SEQ_TQ_SHAPES:
+        for kh, kv in itertools.product(kinds, kinds):
+            if (kh != DCT2 and not 4 <= w <= 32) or (kv != DCT2 and not 4 <= h <= 32):
+                continue
+            for qp, stages in [(qp, quant_ops.ROUND_TRIP) for qp in SEQ_QPS] + \
+                    [(37, m) for m in range(1, 16)]:
+                x = seq_tq_input(stages, w, h, 2, rng)
+                kw = dict(kind_h=kh, kind_v=kv, qp=qp, bit_depth=BD)
+                _cmp("seq_tq", quant_ops.seq_tq(x, stages, **kw),
+                     quant_ops.seq_tq_reference(x, stages, **kw), errs)
+                n_checked["seq_tq"] += 1
+    tiles = set()
+    for w, h in ((16, 8), (8, 16), (8, 4), (4, 8), (8, 8), (4, 4), (2, 2), (64, 64), (32, 8),
+                 (4, 16), (64, 32), (2, 8), (8, 2), (16, 64)):
+        tiles.add(dist_ops._tile_shape(w, h))
+        org = torch.from_numpy(rng.randint(0, 1024, (h, w)).astype(np.int32)).to(DEVICE)
+        cur = torch.from_numpy(rng.randint(0, 1024, (67, h, w)).astype(np.int32)).to(DEVICE)
+        _cmp("seq_satd", dist_ops.satd(org, cur), dist_ops.satd_reference(org, cur), errs)
+        n_checked["seq_satd"] += 1
+    check(tiles == {(8, 16), (16, 8), (4, 8), (8, 4), (8, 8), (4, 4), (2, 2)},
+          f"K10d tile shapes checked: {sorted(tiles)}")
+    torch.cuda.synchronize()
+    log(f"[seq-kernels] K10a-d equal to their plain versions on the card (max_abs_err "
+        f"{errs}; calls checked {n_checked})")
+
+    # times at 16x16: K10a's 67 modes (luma), K10b's 12 candidates, K10c's
+    # fused DCT-2 round trip at QP 37, K10d's 67 SATDs
+    w, h = SEQ_TIME_W, SEQ_TIME_H
+    refs = seq_refs(1, w, h, BD, True, rng)
+    refs_np = [r.cpu().numpy() for r in refs]
+    res = seq_tq_input(quant_ops.ROUND_TRIP, w, h, 1, rng)[0]
+    res_np = res.cpu().numpy()
+    org = torch.from_numpy(rng.randint(0, 1024, (h, w)).astype(np.int32)).to(DEVICE)
+    cur = intra_ops.predict_block(*refs, w=w, h=h, modes=modes, bit_depth=BD)[0]
+    org_np, cur_np = org.cpu().numpy(), cur.cpu().numpy()
+    tq_kw = dict(kind_h=DCT2, kind_v=DCT2, qp=37, bit_depth=BD)
+    up = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    cases = {
+        "seq_intra": (len(modes),
+                      lambda: intra_ops.predict_block(*refs, w=w, h=h, modes=modes, bit_depth=BD),
+                      lambda: intra_ops.predict_block_reference(*refs, w=w, h=h, modes=modes,
+                                                                bit_depth=BD),
+                      lambda: intra_ops.predict_block(*(up(a) for a in refs_np), w=w, h=h,
+                                                      modes=modes, bit_depth=BD).cpu().numpy()),
+        "seq_mip": (2 * mip_ops.num_modes(w, h),
+                    lambda: mip_ops.predict_mip_all(refs[0][0], refs[1][0], w=w, h=h,
+                                                    bit_depth=BD),
+                    lambda: mip_ops.predict_mip_all_reference(refs[0][0], refs[1][0], w=w, h=h,
+                                                              bit_depth=BD),
+                    lambda: mip_ops.predict_mip_all(up(refs_np[0][0]), up(refs_np[1][0]), w=w,
+                                                    h=h, bit_depth=BD).cpu().numpy()),
+        "seq_tq": (1, lambda: quant_ops.seq_tq(res, quant_ops.ROUND_TRIP, **tq_kw),
+                   lambda: quant_ops.seq_tq_reference(res, quant_ops.ROUND_TRIP, **tq_kw),
+                   lambda: quant_ops.seq_tq(up(res_np), quant_ops.ROUND_TRIP,
+                                            **tq_kw).cpu().numpy()),
+        "seq_satd": (len(modes), lambda: dist_ops.satd(org, cur),
+                     lambda: dist_ops.satd_reference(org, cur),
+                     lambda: dist_ops.satd(up(org_np), up(cur_np)).cpu().numpy()),
+    }
+    times = {}
+    for name, (k, kernel, plain, host) in cases.items():
+        bound, by, nbytes, ops = seq_bounds(name, w, h, k)
+        ms, plain_ms, host_ms = graph_ms(kernel), call_ms(plain, 20), host_round_trip_ms(host)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        log(f"[seq-kernels] {name} at {w}x{h} ({k} outputs): device time per call (CUDA "
+            f"graph of 50) {ms:.6f} ms; plain version from Python {plain_ms:.6f} ms; wrapper "
+            f"round trip numpy to numpy {host_ms:.6f} ms; bound {bound:.6f} ms by {by} "
+            f"({nbytes} B, {ops} ops)")
+    return errs, times
+
+
+def seq_encode(enc, frames, maps_l, maps_c) -> list:
+    """``enc.encode_frame`` on each frame with its maps."""
+    return [enc.encode_frame(y, u, v, maps=maps_l[f], chroma_maps=maps_c[f], poc=f)
+            for f, (y, u, v) in enumerate(frames)]
+
+
+def seq_counts(enc) -> dict:
+    return dict(mrl=enc.n_mrl, isp=enc.n_isp, depquant=enc.n_depquant, cclm=enc.n_cclm,
+                jccr=enc.n_jccr, lfnst=enc.n_lfnst)
+
+
+def phase_seq_encode(preds: dict) -> dict:
+    """The sequential engine's main path: ``FrameEncoder(mode_select="satd")``
+    with all 67 RMD modes on 416x240 x 2 frames of natural content, the
+    sequential configuration (``TOOLS[SEQ]``, dual tree, QP 32) with the
+    QP 22 maps, a cold run then a warm one with every K10 kernel's launches
+    counted; frames/s and stage times; the MRL and ISP CUs and the
+    dependent-quantization TUs (each must occur); hash SEI against the
+    recon's MD5 and luma PSNR above 30 dB. The cold run codes the first
+    frame only (it loads every kernel), which keeps the script near half
+    its time limit."""
+    frames = natural_sequence(SEQ_W, SEQ_H, SEQ_FRAMES, seed0=7, bit_depth=BD)
+    maps_l, maps_c = frame_maps(preds, frames, SEQ_W, SEQ_H)
+    enc = FrameEncoder(enc_cfg(SEQ_W, SEQ_H, SEQ), mode_select="satd", device=DEVICE)
+    t0 = time.perf_counter()
+    seq_encode(enc, frames[:1], maps_l, maps_c)
+    log(f"[seq-encode] {SEQ_W}x{SEQ_H}, {SEQ}: cold run (1 frame) "
+        f"{time.perf_counter() - t0:.3f} s")
+    for fn, _, _ in SEQ_KERNELS.values():
+        fn.launches = 0
+    enc.timings = {}
+    counts = collections.Counter()
+    t0 = time.perf_counter()
+    outs = []
+    for f, (y, u, v) in enumerate(frames):
+        outs.append(enc.encode_frame(y, u, v, maps=maps_l[f], chroma_maps=maps_c[f], poc=f))
+        counts.update(seq_counts(enc))
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, (fn, _, _) in SEQ_KERNELS.items()}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the sequential path")
+    for tool in ("mrl", "isp", "depquant"):
+        check(counts[tool] > 0, f"{tool} never fired on the sequential path ({dict(counts)})")
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in enc.timings.items())
+    log(f"[seq-encode] warm run {wall:.3f} s = {SEQ_FRAMES / wall:.4f} frames/s ({stages} s); "
+        f"launches {launches}; CUs with MRL {counts['mrl']}, with ISP {counts['isp']}; TUs "
+        f"the dependent-quantization trellis gave a level {counts['depquant']}; CCLM CUs "
+        f"{counts['cclm']}, joint Cb-Cr TUs {counts['jccr']}, LFNST CUs {counts['lfnst']}")
+    for f, (bs, recon) in enumerate(outs):
+        want = [hashlib.md5(p.astype("<u2").tobytes()).digest() for p in recon]
+        check(sei_md5s(bs) == [want], f"frame {f}: hash SEI differs from the recon's MD5")
+        err = (recon[0].astype(np.int64) - frames[f][0]) ** 2
+        psnr = 10 * np.log10(1023 * 1023 / err.mean())
+        check(psnr > 30, f"frame {f}: luma PSNR {psnr:.2f} dB")
+        log(f"[seq-encode] frame {f}: {len(bs)} bytes, luma PSNR {psnr:.3f} dB, hash SEI "
+            f"equal to the recon's MD5")
+    phase_seq_profile(enc, frames[0], maps_l[0], maps_c[0])
+    return launches
+
+
+def phase_seq_profile(enc, frame, maps_l, maps_c) -> None:
+    """One more warm encode of the first frame under torch.profiler (device
+    kernels only) and cProfile at once: the device's busy time and idle
+    share, and the host functions taking the most time of their own (both
+    profilers' overhead included in the wall time)."""
+    import cProfile
+    import pstats
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    host = cProfile.Profile()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        host.enable()
+        enc.encode_frame(*frame, maps=maps_l, chroma_maps=maps_c)
+        host.disable()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    if rows:
+        log(f"[seq-profile] one {SEQ_W}x{SEQ_H} frame: wall {wall_ms:.3f} ms (profiled), "
+            f"device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.5f}")
+        for ms, count, name in rows[:6]:
+            log(f"[seq-profile]   {ms:9.3f} ms  x{count:<6d} {name[:90]}")
+    else:
+        log("[seq-profile] the profiler recorded no device time: not measured")
+    stats = pstats.Stats(host)
+    total = sum(v[2] for v in stats.stats.values())
+    top = sorted(((v[2], v[1], f"{pathlib.Path(k[0]).name}:{k[1]}({k[2]})")
+                  for k, v in stats.stats.items()), reverse=True)[:12]
+    log(f"[seq-profile] host: {total:.3f} s of own time over all functions; the largest:")
+    for tt, calls, name in top:
+        log(f"[seq-profile]   {tt:8.3f} s {100 * tt / total:5.1f}%  x{calls:<8d} {name[:90]}")
+
+
+def phase_seq_cpu_vs_card(preds: dict) -> None:
+    """One 208x120 frame of the sequential configuration with
+    ``device="cpu"`` (the plain versions) and on the card: byte-identical."""
+    w, h = SEQ_W // 2, SEQ_H // 2
+    frames = natural_sequence(w, h, 1, seed0=7, bit_depth=BD)
+    maps_l, maps_c = frame_maps(preds, frames, w, h)
+    out = {}
+    for device in ("cpu", DEVICE):
+        enc = FrameEncoder(enc_cfg(w, h, SEQ), mode_select="satd", device=device)
+        t0 = time.perf_counter()
+        out[device] = seq_encode(enc, frames, maps_l, maps_c)[0][0]
+        log(f"[seq-cpu-vs-card] {w}x{h}, {SEQ}, on {device}: "
+            f"{time.perf_counter() - t0:.3f} s; {seq_counts(enc)}")
+    check(out["cpu"] == out[DEVICE], "sequential encode: CPU and card bitstreams differ")
+    log(f"[seq-cpu-vs-card] bitstreams byte-identical ({len(out[DEVICE])} bytes)")
+
+
+def phase_cli(tmp: pathlib.Path) -> None:
+    """``cli.encode.main`` on a 2-frame 8-bit 256x128 YUV with the QP 22
+    predictors' MTT maps (``--model-dir``), on the card, with the sequential
+    engine (MRL, ISP, dependent quantization among its tools) and the
+    wavefront one; each frame's hash SEI equals the MD5 of its recon."""
+    w, h = 256, 128
+    frames = natural_sequence(w, h, 2, seed0=9, bit_depth=8)
+    yuv = tmp / "cli_in.yuv"
+    write_yuv420(yuv, *(np.stack([f[i] for f in frames]).astype(np.uint8) for i in range(3)))
+    common = ["--input", str(yuv), "--width", str(w), "--height", str(h), "--frames", "2",
+              "--qp", "22", "--model-dir", str(CKPT), "--mtt", "--sao", "--mip", "--lfnst",
+              "--cclm", "--jccr"]
+    engines = {"sequential": ["--mrl", "--isp", "--dep-quant"],
+               "wavefront": ["--sign-hiding"]}
+    for engine, extra in engines.items():
+        out, rec = tmp / f"cli_{engine}.bin", tmp / f"cli_{engine}.yuv"
+        t0 = time.perf_counter()
+        cli_encode.main(common + extra + ["--engine", engine, "--output", str(out),
+                                          "--recon", str(rec)])
+        wall = time.perf_counter() - t0
+        bs = out.read_bytes()
+        planes = np.fromfile(rec, np.uint16)
+        n = w * h * 3 // 2
+        want = []
+        for f in range(2):
+            p = planes[f * n:(f + 1) * n]
+            parts = (p[:w * h], p[w * h:w * h * 5 // 4], p[w * h * 5 // 4:])
+            want.append([hashlib.md5(q.astype("<u2").tobytes()).digest() for q in parts])
+        check(sei_md5s(bs) == want, f"CLI {engine}: hash SEI differs from the recon's MD5")
+        log(f"[cli] --engine {engine} {' '.join(extra)}: {len(bs)} bytes in {wall:.3f} s, "
+            f"hash SEI equal to the recon's MD5")
+
+
+def seq_only() -> int:
+    """``--seq-only``: the build and the sequential engine's phases alone,
+    for iterating on them; prints no result line."""
+    phase_build()
+    phase_seq_kernels()
+    preds = {("Luma", ENC_QP): CompPredictor.from_trained(
+                 True, CKPT / f"Luma_Q_QP{ENC_QP}.msgpack",
+                 CKPT / f"Luma_BD_QP{ENC_QP}.msgpack", device=DEVICE),
+             ("Chroma", ENC_QP): CompPredictor.from_trained(
+                 False, CKPT / f"Chroma_Q_QP{ENC_QP}.msgpack",
+                 CKPT / f"Chroma_BD_QP{ENC_QP}.msgpack", device=DEVICE)}
+    phase_seq_encode(preds)
+    phase_seq_cpu_vs_card(preds)
+    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_cli_") as tmp:
+        phase_cli(pathlib.Path(tmp))
+    log("[seq-only] partial run: no result line")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--seq-only"]:
+        return seq_only()
     phase_build()
     vote = phase_vote()
     enc_errs, enc_times = phase_encode_kernels()
     rdo_errs, rdo_times = phase_rdo_kernels()
     train_errs, train_times = phase_train_kernels()
+    seq_errs, seq_times = phase_seq_kernels()
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_") as tmp:
         preds, blocks, launches = phase_main_path(pathlib.Path(tmp))
     phase_cpu_vs_card(preds, blocks)
@@ -2312,8 +2711,12 @@ def main() -> int:
     phase_rdo_labels()
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_train_") as tmp:
         train_launches = phase_train(pathlib.Path(tmp))
+    seq_launches = phase_seq_encode(preds)
     phase_encode_cpu_vs_card(preds)
     phase_rdo_cpu_vs_card()
+    phase_seq_cpu_vs_card(preds)
+    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_cli_") as tmp:
+        phase_cli(pathlib.Path(tmp))
     phase_encode_profile(frames, maps_l, maps_c)
 
     kernels = [{
@@ -2355,6 +2758,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_launches[name], "max_abs_err": train_errs[name],
             **train_times[name]})
+    # K10: no single PyTorch call computes one block's intra predictions for
+    # a list of modes, the MIP candidates, the integer transform-quantisation
+    # stages or the tiled Hadamard SATD; launches are the sequential path's
+    # warm run (phase_seq_encode)
+    for name, (_, source, replaces) in SEQ_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": seq_launches[name], "max_abs_err": seq_errs[name],
+            **seq_times[name], "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -5,7 +5,8 @@ work in PyTorch and imports nothing from it. Ported so far: partition-map
 prediction (YUV -> Down-Up-CNN -> structural vote -> PartitionMat), the
 map-driven all-intra encode (leaves and wave schedules -> the wave scan on
 the card -> CABAC replay, loop filters, NAL units) with every tool of the
-bench configuration, the device RDO, and training.
+bench configuration, the device RDO, the sequential encoder with every tool
+(MRL, ISP and dependent quantization too) and the encode CLI, and training.
 
 - ``data``   : YUV ingest, CTU blocking with halo, synthetic content,
                training labels from partition trees (numpy)
@@ -14,9 +15,13 @@ bench configuration, the device RDO, and training.
 - ``pmp``    : structural vote (hand-written CUDA kernel + plain version),
                batched prediction, map -> partition reconciliation, pipeline
 - ``ops``    : intra prediction, transform, quantisation and SATD of the
-               wave step (plain versions + the K1/K2/K4 kernels' wrappers)
-- ``codec``  : syntax writers, CABAC, loop filters, the frame encoder and
-               the wavefront encoder (with the K7 scatter)
+               wave step and of the sequential encoder (plain versions +
+               the kernels' wrappers), dependent quantization, LFNST, CCLM
+- ``codec``  : syntax writers, CABAC and its rate estimator, loop filters,
+               the sequential frame encoder and the wavefront encoder
+               (with the K7 scatter)
+- ``cli``    : ``encode`` (both engines) and ``train``; ``utils``: VTM cfg
+               files, bin statistics, recon summaries
 - ``train``  : the training losses, the three stages' steps (with the K11a
                loss and K11b Adam kernels of ``ops/train_generic.py``) and
                the driver; ``cli/train.py`` and ``tools/`` (labels from the

@@ -8,8 +8,11 @@ module is imported: ``library(name)`` builds at first use into
 source, the headers and the flags, so an unchanged source is not compiled
 twice.
 ``build_all()`` compiles every source at once, one ``nvcc`` process each.
-``check_cuda``, ``stream`` and ``count_launch`` are what every kernel
-wrapper does around its call.
+``bind`` gives a library's entry points the argument types of the wrapper
+module's ``SIGNATURES`` table ({library: {function: ctypes argument
+types}}; ``tests/test_torch_kernel_signatures.py`` holds every table to the
+``extern "C"`` prototypes of ``csrc/*.cu``). ``check_cuda``, ``stream`` and
+``count_launch`` are what every kernel wrapper does around its call.
 """
 from __future__ import annotations
 
@@ -74,6 +77,22 @@ def build_all() -> dict[str, str]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built first if needed."""
     return ctypes.CDLL(str(build(name)[0]))
+
+
+# ctypes kinds of the entry points' C arguments: a pointer (a tensor's
+# data_ptr() or the stream), an int, an int64_t, a float
+PTR, INT, INT64, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+
+
+def bind(name: str, signatures: dict) -> ctypes.CDLL:
+    """The library ``name`` with each function of ``signatures``
+    ({function: argument types}) given those types and an int result."""
+    lib = library(name)
+    for fn, args in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(args)
+        f.restype = ctypes.c_int
+    return lib
 
 
 def check_cuda(name: str, *tensors) -> None:

@@ -53,7 +53,7 @@ deblocking, SAO, ALF and CC-ALF. With ``rdo_fallback`` the device RDO
 (``codec/rdo_device.py``, K9) decides the nodes the maps defer at accel levels
 L0-L2, lazily; ``encode_frame(rdo=True)`` takes the whole tree from it. The
 sequential-only tools (MRL, ISP, dependent quantisation) raise
-``NotImplementedError``.
+``NotImplementedError``: ``FrameEncoder`` codes them.
 """
 from __future__ import annotations
 
@@ -123,13 +123,13 @@ def wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids=()):
                         vals[gm].to(grid.dtype))
 
 
+SIGNATURES = {"wave_scatter": {"pmp_wave_scatter": (
+    (_build.PTR,) + (_build.INT,) * 6 + (_build.PTR,) * 8 + (_build.INT,) * 3 + (_build.PTR,))}}
+
+
 @functools.cache
-def _k7():
-    fn = _build.library("wave_scatter").pmp_wave_scatter
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib(name: str):
+    return _build.bind(name, SIGNATURES[name])
 
 
 def wave_scatter(rows, pad, scale, planes, rec, lev, grids=()):
@@ -162,10 +162,10 @@ def wave_scatter(rows, pad, scale, planes, rec, lev, grids=()):
     gptr = (ctypes.c_void_p * MAX_GRIDS)(*(g.data_ptr() for g, _ in grids))
     cptr = (ctypes.c_void_p * MAX_GRIDS)(*(c.data_ptr() for _, c in grids))
     GH, GW = grids[0][0].shape[1:] if grids else (0, 0)
-    err = _k7()(rows.data_ptr(), B, pad, scale, len(planes), H, W,
-                planes[0][0].data_ptr(), planes[0][1].data_ptr(),
-                ptr(p1[0]), ptr(p1[1]), rec.data_ptr(), lev.data_ptr(),
-                gptr, cptr, len(grids), GH, GW, _build.stream(rows))
+    err = _lib("wave_scatter").pmp_wave_scatter(
+        rows.data_ptr(), B, pad, scale, len(planes), H, W, planes[0][0].data_ptr(),
+        planes[0][1].data_ptr(), ptr(p1[0]), ptr(p1[1]), rec.data_ptr(), lev.data_ptr(),
+        gptr, cptr, len(grids), GH, GW, _build.stream(rows))
     _build.count_launch(wave_scatter, err)
 
 
@@ -459,13 +459,16 @@ class WavefrontEncoder(FrameEncoder):
     nodes its maps deferred to the device RDO (empty without
     ``rdo_fallback``)."""
 
+    #: the replay writes the device decisions and reads no rates
+    _rate_estimated = False
+
     def __init__(self, cfg, *, batch=None, device=None, **kw):
-        super().__init__(cfg, **kw)
         bad = [f for f in UNSUPPORTED_TOOLS if getattr(cfg, f)]
         if bad:
             raise NotImplementedError(
-                f"the port's wavefront path does not support: {bad}")
-        self.device = resolve_device(device)
+                f"wavefront path does not support {bad}; use FrameEncoder")
+        super().__init__(cfg, device=device, **kw)
+        self._device = resolve_device(device)       # the wave path's uploads
         self.crs_lut = crs_lut(cfg.bit_depth, cfg.lmcs_offset) \
             if cfg.lmcs and cfg.lmcs_chroma_scaling else None
         self.batch = dict(DEFAULT_BATCH)
@@ -888,7 +891,8 @@ class WavefrontEncoder(FrameEncoder):
 
     def encode_frames(self, frames, qt_map=None, maps=None,
                       chroma_maps=None, poc0: int = 0,
-                      pipeline_chunk: int | None = None):
+                      pipeline_chunk: int | None = None,
+                      collect_bin_stats: bool = False):
         """Encode a batch of (y, u, v) frames in one device pass.
 
         Returns a list of (bitstream_bytes, recon) — one per frame; the
@@ -902,7 +906,8 @@ class WavefrontEncoder(FrameEncoder):
         ``pipeline_chunk``: split the frame set into chunks of this size,
         enqueue every chunk's wave scan first, then fetch and replay chunk
         k while later chunks may still run on the card.  The outputs do not
-        depend on it."""
+        depend on it. ``collect_bin_stats``: ``bin_stats`` holds the last
+        frame's bin statistics."""
         F = len(frames)
         t0 = time.perf_counter()
         rdo0 = self._rdo_seconds()
@@ -937,12 +942,14 @@ class WavefrontEncoder(FrameEncoder):
                 dfn, dcfn = deciders[k]
                 out.append(super().encode_frame(
                     y, u, v, qt_map=qt_map, maps=maps_l[k],
-                    chroma_maps=cmaps_l[k], poc=poc0 + k, decide_fn=dfn,
+                    chroma_maps=cmaps_l[k], poc=poc0 + k,
+                    collect_bin_stats=collect_bin_stats, decide_fn=dfn,
                     decide_c_fn=dcfn))
         return out
 
     def encode_frame(self, y, u, v, qt_map=None, maps=None,
-                     chroma_maps=None, poc: int = 0, rdo: bool = False):
+                     chroma_maps=None, poc: int = 0,
+                     collect_bin_stats: bool = False, rdo: bool = False):
         """Encode one frame (``encode_frames`` of one).  ``rdo``: the device
         RDO's open-loop search chooses the whole tree (the maps are not
         used), which the wavefront path then codes closed loop."""
@@ -955,7 +962,9 @@ class WavefrontEncoder(FrameEncoder):
             self.leaves = [(leaves, cleaves)]
             self._dev_result = self._batched_pass([(leaves, cleaves, y, u, v)])
             self._cur_frame = 0
-            return super().encode_frame(y, u, v, poc=poc, decide_fn=decide,
-                                        decide_c_fn=decide_c)
+            return super().encode_frame(y, u, v, poc=poc,
+                                        collect_bin_stats=collect_bin_stats,
+                                        decide_fn=decide, decide_c_fn=decide_c)
         return self.encode_frames([(y, u, v)], qt_map=qt_map, maps=maps,
-                                  chroma_maps=chroma_maps, poc0=poc)[0]
+                                  chroma_maps=chroma_maps, poc0=poc,
+                                  collect_bin_stats=collect_bin_stats)[0]

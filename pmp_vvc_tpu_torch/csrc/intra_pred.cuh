@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 #define NTAB (6 * 6 * 67)
 
 __constant__ int CHROMA_FILTER[32][4] = {
@@ -25,14 +27,6 @@ __constant__ int CHROMA_FILTER[32][4] = {
     {-4, 28, 46, -6}, {-3, 24, 49, -6}, {-2, 20, 52, -6}, {-2, 18, 53, -5},
     {-2, 16, 54, -4}, {-2, 15, 55, -4}, {-2, 14, 56, -4}, {-2, 12, 57, -3},
     {-2, 10, 58, -2}, {-1, 7, 60, -2}, {0, 4, 62, -2}, {0, 2, 63, -1}};
-
-static __device__ __forceinline__ int clampi(int v, int lo, int hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
-
-static __device__ __forceinline__ int ilog2(int v) {   // v a power of two
-    return 31 - __clz(v);
-}
 
 struct Cu {
     int w, h, lw, lh, P, L, pel_max, luma;

@@ -1,7 +1,8 @@
 // K3: the MIP candidates of the wave step's luma CUs against K2's winner.
 //
 // Replaces pmp_vvc_tpu/ops/mip_generic.py:predict_mip_generic (54), with its
-// _mip_table (32) and sid_generic (48), the SATD of its candidates
+// _mip_table (32) and sid_generic (48) (the candidate itself is csrc/mip.cuh,
+// shared with K10b), the SATD of its candidates
 // (ops/tq_generic.py:satd_generic, 160) and the MIP decision of
 // codec/wavefront.py:_make_class_apply (402-425).
 //
@@ -27,79 +28,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mip.cuh"
 #include "satd.cuh"
 
 #define MAXP 64
 #define NT 256
 #define NCAND 32                      // 2 transposes x 16 modes
 #define NO_COST 0x40000000            // above every real SATD
-
-static __device__ __forceinline__ int clampi(int v, int lo, int hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
-
-static __device__ __forceinline__ int ilog2(int v) { return 31 - __clz(v); }
-
-struct Mip {
-    int w, h, P, sid, red_b, red_p, n_modes, bd;
-    const int32_t *top, *left;        // shared: unfiltered rows, index 0 = x 0
-    const int32_t* mats;              // (3, 16, 64, 8)
-    const int32_t* bdry;              // shared: (2, 8) packed boundaries
-    int32_t *sred, *sh;               // shared: (8, 8) reduced, (8, MAXP) rows
-};
-
-// Candidate k's prediction into ``out`` (P-strided, the (h, w) region).
-static __device__ void mip_candidate(const Mip& c, int k, int32_t* out) {
-    const int t = k >> 4, m = k & 15, rp = c.red_p;
-    const int32_t* bd = c.bdry + 8 * t;
-    const int off = bd[0];
-    const int maxv = (1 << c.bd) - 1;
-    for (int i = threadIdx.x; i < rp * rp; i += blockDim.x) {
-        const int r = i / rp, col = i % rp;
-        const int oi = t ? col * rp + r : r * rp + col;    // transposed read
-        const int32_t* row = c.mats + ((c.sid * 16 + m) * 64 + oi) * 8;
-        int acc = 0, vsum = 0;
-        for (int kk = 0; kk < 8; ++kk) {
-            int v;
-            if (kk == 0) v = c.sid < 2 ? (1 << (c.bd - 1)) - off : 0;
-            else v = kk < 2 * c.red_b ? bd[kk] - off : 0;
-            acc += row[kk] * v;
-            vsum += v;
-        }
-        const int res = (acc + 32 - 32 * vsum) >> 6;
-        c.sred[r * 8 + col] = clampi(res + off, 0, maxv);
-    }
-    __syncthreads();
-    const int f_h = c.w / rp, f_v = c.h / rp;
-    const int lf_h = ilog2(f_h), lf_v = ilog2(f_v);
-    for (int i = threadIdx.x; i < rp * c.w; i += blockDim.x) {
-        const int r = i / c.w, x = i % c.w;
-        const int jh = x * rp / c.w, ph = x - jh * f_h + 1;
-        const int red = c.sred[r * 8 + jh];
-        const int prev = jh == 0 ? c.left[clampi((r + 1) * f_v - 1, 0, c.P - 1)]
-                                 : c.sred[r * 8 + jh - 1];
-        c.sh[r * MAXP + x] = ((f_h - ph) * prev + ph * red + (f_h >> 1)) >> lf_h;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < c.h * c.w; i += blockDim.x) {
-        const int y = i / c.w, x = i % c.w;
-        const int jv = y * rp / c.h, pv = y - jv * f_v + 1;
-        const int red = c.sh[jv * MAXP + x];
-        const int prev = jv == 0 ? c.top[x] : c.sh[(jv - 1) * MAXP + x];
-        out[y * c.P + x] = ((f_v - pv) * prev + pv * red + (f_v >> 1)) >> lf_v;
-    }
-    __syncthreads();
-}
-
-// Haar downsampling of n boundary samples to nb: groups of f = n / nb.
-static __device__ void downsample(const int32_t* v, int n, int nb, int* out) {
-    const int f = n / nb, lf = ilog2(f);
-    for (int j = 0; j < nb; ++j) {
-        int s = 0;
-        for (int i = j * f; i < (j + 1) * f; ++i) s += v[i];
-        out[j] = (s + (f >> 1)) >> lf;
-    }
-}
 
 __global__ void mip_rmd_kernel(const int32_t* __restrict__ refs,
                                const int32_t* __restrict__ org,
@@ -126,7 +61,7 @@ __global__ void mip_rmd_kernel(const int32_t* __restrict__ refs,
     }
     __shared__ int32_t sorg[MAXP * MAXP];
     __shared__ int32_t spred[MAXP * MAXP];
-    __shared__ int32_t sh[8 * MAXP];
+    __shared__ int32_t sh[8 * MIP_MAXP];
     __shared__ int32_t sred[64];
     __shared__ int32_t stop[MAXP], sleft[MAXP];
     __shared__ int32_t sbdry[2 * 8];
@@ -135,11 +70,8 @@ __global__ void mip_rmd_kernel(const int32_t* __restrict__ refs,
 
     const int fi = r[0], xs = r[1], ys = r[2];
     Mip c;
-    c.w = r[3]; c.h = r[4]; c.P = P; c.bd = bd;
-    c.sid = (c.w == 4 && c.h == 4) ? 0 : (c.w == 4 || c.h == 4 || (c.w == 8 && c.h == 8)) ? 1 : 2;
-    c.red_b = c.sid == 0 ? 2 : 4;
-    c.red_p = c.sid < 2 ? 4 : 8;
-    c.n_modes = c.sid == 0 ? 16 : c.sid == 1 ? 8 : 6;
+    mip_size_class(c, r[3], r[4]);
+    c.P = P; c.bd = bd;
     c.top = stop; c.left = sleft; c.mats = mats; c.bdry = sbdry;
     c.sred = sred; c.sh = sh;
     for (int i = threadIdx.x; i < P; i += blockDim.x) {
@@ -152,17 +84,7 @@ __global__ void mip_rmd_kernel(const int32_t* __restrict__ refs,
                               clampi(xs + x, 0, W - 1)];
     }
     __syncthreads();
-    if (threadIdx.x == 0) {            // boundaries: [top, left] and [left, top]
-        int rt[4], rl[4];
-        downsample(stop, c.w, c.red_b, rt);
-        downsample(sleft, c.h, c.red_b, rl);
-        for (int k = 0; k < c.red_b; ++k) {
-            sbdry[k] = rt[k];
-            sbdry[c.red_b + k] = rl[k];
-            sbdry[8 + k] = rl[k];
-            sbdry[8 + c.red_b + k] = rt[k];
-        }
-    }
+    if (threadIdx.x == 0) mip_boundaries(c, sbdry);
     __syncthreads();
 
     const int cost_ang = satd(c.w, c.h, P, sorg, pin, red);   // thread 0

@@ -23,6 +23,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 #define NT 256
 #define COEFF_MIN (-32768)
 #define COEFF_MAX 32767
@@ -35,12 +37,6 @@ __constant__ int INV_QUANT_SCALES[2][6] = {{40, 45, 51, 57, 64, 72},
 // LFNST's secondary coefficients lie, and the order of its signallable region.
 __constant__ int DIAG4_Y[16] = {0, 1, 0, 2, 1, 0, 3, 2, 1, 0, 3, 2, 1, 3, 2, 3};
 __constant__ int DIAG4_X[16] = {0, 0, 1, 0, 1, 2, 0, 1, 2, 3, 1, 2, 3, 2, 3, 3};
-
-static __device__ __forceinline__ int clampi(int v, int lo, int hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
-
-static __device__ __forceinline__ int ilog2(int v) { return 31 - __clz(v); }
 
 static __device__ __forceinline__ int rshift(int x, int s) {
     return s > 0 ? (x + (1 << (s - 1))) >> s : x;

@@ -28,7 +28,6 @@ alike.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -245,12 +244,12 @@ def cclm_select_reference(refs, ry, orgs, og4c, rows, pred, pad, bit_depth):
     return out.int(), use.int()
 
 
+SIGNATURES = {"cclm": {"pmp_cclm": (_build.PTR,) * 7 + (_build.INT,) * 9 + (_build.PTR,) * 3}}
+
+
 @functools.cache
-def _k6a():
-    fn = _build.library("cclm").pmp_cclm
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    return fn
+def _lib(name: str):
+    return _build.bind(name, SIGNATURES[name])
 
 
 def cclm_select(refs, ry, orgs, og4c, rows, pred, pad, bit_depth):
@@ -273,9 +272,10 @@ def cclm_select(refs, ry, orgs, og4c, rows, pred, pad, bit_depth):
     _, GH, GW = og4c.shape
     out = torch.empty_like(pred)
     use = torch.empty((B,), dtype=torch.int32, device=rows.device)
-    err = _k6a()(refs.data_ptr(), ry.data_ptr(), orgs[0].data_ptr(), orgs[1].data_ptr(),
-                 og4c.data_ptr(), rows.data_ptr(), pred.data_ptr(), B, pad, bit_depth,
-                 H, W, Hc, Wc, GH, GW, out.data_ptr(), use.data_ptr(), _build.stream(rows))
+    err = _lib("cclm").pmp_cclm(
+        refs.data_ptr(), ry.data_ptr(), orgs[0].data_ptr(), orgs[1].data_ptr(),
+        og4c.data_ptr(), rows.data_ptr(), pred.data_ptr(), B, pad, bit_depth, H, W, Hc, Wc,
+        GH, GW, out.data_ptr(), use.data_ptr(), _build.stream(rows))
     _build.count_launch(cclm_select, err)
     return out, use
 

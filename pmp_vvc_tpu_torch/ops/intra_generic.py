@@ -26,7 +26,6 @@ reads them there.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -320,13 +319,15 @@ def ref_gather_reference(planes, og4, rows, pad, scale, bit_depth):
                         for p in planes])
 
 
+SIGNATURES = {
+    "ref_gather": {"pmp_ref_gather": (_build.PTR,) * 4 + (_build.INT,) * 9 + (_build.PTR,) * 2},
+    "intra_rmd": {"pmp_intra_rmd": (_build.PTR,) * 5 + (_build.INT,) * 9 + (_build.PTR,) * 3},
+}
+
+
 @functools.cache
-def _k1():
-    fn = _build.library("ref_gather").pmp_ref_gather
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib(name: str):
+    return _build.bind(name, SIGNATURES[name])
 
 
 def ref_gather(planes, og4, rows, pad, scale, bit_depth):
@@ -347,9 +348,9 @@ def ref_gather(planes, og4, rows, pad, scale, bit_depth):
     out = torch.empty((len(planes), 4, B, 2 * pad + 3), dtype=torch.int32,
                       device=rows.device)
     p1 = planes[1].data_ptr() if len(planes) == 2 else None
-    err = _k1()(planes[0].data_ptr(), p1, og4.data_ptr(), rows.data_ptr(),
-                B, pad, scale, bit_depth, H, W, og4.shape[1], og4.shape[2],
-                len(planes), out.data_ptr(), _build.stream(rows))
+    err = _lib("ref_gather").pmp_ref_gather(
+        planes[0].data_ptr(), p1, og4.data_ptr(), rows.data_ptr(), B, pad, scale, bit_depth,
+        H, W, og4.shape[1], og4.shape[2], len(planes), out.data_ptr(), _build.stream(rows))
     _build.count_launch(ref_gather, err)
     return out
 
@@ -423,15 +424,6 @@ def intra_rmd_reference(refs, org, mg, rows, pad, is_luma, bit_depth):
     return best, torch.where(inside, pred, 0)[None]
 
 
-@functools.cache
-def _k2():
-    fn = _build.library("intra_rmd").pmp_intra_rmd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def intra_rmd(refs, org, mg, rows, pad, is_luma, bit_depth):
     """K2: luma RMD + prediction, or chroma DM prediction.  See
     ``intra_rmd_reference``; CPU tensors take it, CUDA tensors launch
@@ -452,10 +444,10 @@ def intra_rmd(refs, org, mg, rows, pad, is_luma, bit_depth):
     modes = torch.empty(B, dtype=torch.int32, device=rows.device)
     pred = torch.empty((n, B, pad, pad), dtype=torch.int32, device=rows.device)
     tabs = _device_tables(bool(is_luma), rows.device)
-    err = _k2()(refs.data_ptr(), org.data_ptr() if is_luma else None,
-                mg.data_ptr(), rows.data_ptr(), tabs.data_ptr(),
-                B, pad, n, int(is_luma), bit_depth, H, W, GH, GW,
-                modes.data_ptr(), pred.data_ptr(), _build.stream(rows))
+    err = _lib("intra_rmd").pmp_intra_rmd(
+        refs.data_ptr(), org.data_ptr() if is_luma else None, mg.data_ptr(),
+        rows.data_ptr(), tabs.data_ptr(), B, pad, n, int(is_luma), bit_depth, H, W, GH, GW,
+        modes.data_ptr(), pred.data_ptr(), _build.stream(rows))
     _build.count_launch(intra_rmd, err)
     return modes, pred
 

@@ -28,7 +28,6 @@ comparisons are exact and the integer ones here give the same decisions.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -212,12 +211,12 @@ def mip_select_reference(refs, org, rows, pred, best, pad, bit_depth):
     return best, out[None], code
 
 
+SIGNATURES = {"mip_rmd": {"pmp_mip_rmd": (_build.PTR,) * 6 + (_build.INT,) * 5 + (_build.PTR,) * 4}}
+
+
 @functools.cache
-def _k3():
-    fn = _build.library("mip_rmd").pmp_mip_rmd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+def _lib(name: str):
+    return _build.bind(name, SIGNATURES[name])
 
 
 def mip_select(refs, org, rows, pred, best, pad, bit_depth):
@@ -239,10 +238,11 @@ def mip_select(refs, org, rows, pred, best, pad, bit_depth):
     best_out = torch.empty_like(best)
     pred_out = torch.empty_like(pred)
     code = torch.empty_like(best)
-    err = _k3()(refs.data_ptr(), org.data_ptr(), rows.data_ptr(),
-                _device_table(rows.device).data_ptr(), pred.data_ptr(),
-                best.data_ptr(), B, pad, bit_depth, H, W, best_out.data_ptr(),
-                pred_out.data_ptr(), code.data_ptr(), _build.stream(rows))
+    err = _lib("mip_rmd").pmp_mip_rmd(
+        refs.data_ptr(), org.data_ptr(), rows.data_ptr(),
+        _device_table(rows.device).data_ptr(), pred.data_ptr(), best.data_ptr(), B, pad,
+        bit_depth, H, W, best_out.data_ptr(), pred_out.data_ptr(), code.data_ptr(),
+        _build.stream(rows))
     _build.count_launch(mip_select, err)
     return best_out, pred_out, code
 

@@ -32,7 +32,6 @@ counts kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -101,18 +100,16 @@ def rdo_luma_select_reference(refs, crefs, org, rows, pad, bit_depth):
     return best.int(), pred[None].int(), cpred.int()
 
 
+SIGNATURES = {"rdo_leaf": {
+    "pmp_rdo_luma_select": (_build.PTR,) * 6 + (_build.INT,) * 5 + (_build.PTR,) * 4,
+    "pmp_rdo_chroma_select": (_build.PTR,) * 5 + (_build.INT,) * 5 + (_build.PTR,) * 3,
+    "pmp_rdo_leaf_cost": (_build.PTR,) * 9 + (_build.INT,) * 6 + (_build.PTR,) * 2,
+}}
+
+
 @functools.cache
-def _lib():
-    lib = _build.library("rdo_leaf")
-    lib.pmp_rdo_luma_select.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] * 4
-    lib.pmp_rdo_chroma_select.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] * 3
-    lib.pmp_rdo_leaf_cost.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * 2
-    for fn in (lib.pmp_rdo_luma_select, lib.pmp_rdo_chroma_select, lib.pmp_rdo_leaf_cost):
-        fn.restype = ctypes.c_int
-    return lib
+def _lib(name: str):
+    return _build.bind(name, SIGNATURES[name])
 
 
 def _check_int32(name, *tensors):
@@ -137,7 +134,7 @@ def rdo_luma_select(refs, crefs, org, rows, pad, bit_depth):
     pred = torch.empty((1, B, P, P), dtype=torch.int32, device=dev)
     cpred = torch.empty((2, B, Pc, Pc), dtype=torch.int32, device=dev)
     _, H, W = org.shape
-    err = _lib().pmp_rdo_luma_select(
+    err = _lib("rdo_leaf").pmp_rdo_luma_select(
         refs.data_ptr(), crefs.data_ptr(), org.data_ptr(), rows.data_ptr(),
         _device_tables(True, dev).data_ptr(), _device_tables(False, dev).data_ptr(),
         B, P, bit_depth, H, W, modes.data_ptr(), pred.data_ptr(), cpred.data_ptr(),
@@ -191,7 +188,7 @@ def rdo_chroma_select(crefs, orgs, rows, pad_c, bit_depth):
     pred = torch.empty((2, B, pad_c, pad_c), dtype=torch.int32, device=dev)
     satd = torch.empty(B, dtype=torch.int32, device=dev)
     _, Hc, Wc = orgs[0].shape
-    err = _lib().pmp_rdo_chroma_select(
+    err = _lib("rdo_leaf").pmp_rdo_chroma_select(
         crefs.data_ptr(), orgs[0].data_ptr(), orgs[1].data_ptr(), rows.data_ptr(),
         _device_tables(False, dev).data_ptr(), B, pad_c, bit_depth, Hc, Wc,
         pred.data_ptr(), satd.data_ptr(), _build.stream(rows))
@@ -267,7 +264,7 @@ def rdo_leaf_cost(rows, pad, orgs, lev, rec, lev_c, rec_c, params):
     cost = torch.empty((nqp, B), dtype=torch.float32, device=rows.device)
     _, Hc, Wc = orgs[1].shape
     ptr = lambda t: t.data_ptr() if t is not None else None
-    err = _lib().pmp_rdo_leaf_cost(
+    err = _lib("rdo_leaf").pmp_rdo_leaf_cost(
         rows.data_ptr(), ptr(orgs[0]), orgs[1].data_ptr(), orgs[2].data_ptr(), ptr(lev),
         ptr(rec), lev_c.data_ptr(), rec_c.data_ptr(), params.data_ptr(), nqp, B, P,
         2 * Hc, 2 * Wc, int(luma), cost.data_ptr(), _build.stream(rows))

@@ -36,7 +36,6 @@ JAX package's operation order.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -374,13 +373,15 @@ def tq_reference(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam,
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
+SIGNATURES = {
+    "tq": {"pmp_tq": (_build.PTR,) * 10 + (_build.INT,) * 14 + (_build.FLOAT,) * 4 + (_build.PTR,) * 5},
+    "tq_mts": {"pmp_tq_mts": (_build.PTR,) * 11 + (_build.INT,) * 13 + (_build.FLOAT,) * 3 + (_build.PTR,) * 5},
+}
+
+
 @functools.cache
-def _k4():
-    fn = _build.library("tq").pmp_tq
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [
-        ctypes.c_float] * 4 + [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
-    return fn
+def _lib(name: str):
+    return _build.bind(name, SIGNATURES[name])
 
 
 def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw,
@@ -428,14 +429,13 @@ def tq(orgs, pred, rows, pad, scale, qp, bit_depth, rd_quant, lam, dw,
     cgt = cg_tables(pad, rows.device)
     ptr = lambda t: t.data_ptr() if t is not None else None
     ry, og, lut = crs_src or (None, None, None)
-    err = _k4()(orgs[0].data_ptr(), ptr(orgs[1] if n == 2 else None), pred.data_ptr(),
-                rows.data_ptr(), _dct2_64(rows.device).data_ptr(), cgt.data_ptr(),
-                ptr(lfnst_active), ptr(ry), ptr(og), ptr(lut),
-                n, B, pad, scale, qp, bit_depth, int(rd_quant),
-                H, W, int(sdh), cgt.shape[1], int(jccr), qp_j, int(crs_src is not None),
-                *(float(np.float32(v)) for v in (lam, lam * 2.0, lam * 3.0, dw)),
-                lev.data_ptr(), rec.data_ptr(), ptr(joint), ptr(crs_out),
-                _build.stream(rows))
+    err = _lib("tq").pmp_tq(
+        orgs[0].data_ptr(), ptr(orgs[1] if n == 2 else None), pred.data_ptr(),
+        rows.data_ptr(), _dct2_64(rows.device).data_ptr(), cgt.data_ptr(),
+        ptr(lfnst_active), ptr(ry), ptr(og), ptr(lut), n, B, pad, scale, qp, bit_depth,
+        int(rd_quant), H, W, int(sdh), cgt.shape[1], int(jccr), qp_j,
+        int(crs_src is not None), *(float(np.float32(v)) for v in (lam, lam * 2.0, lam * 3.0, dw)),
+        lev.data_ptr(), rec.data_ptr(), ptr(joint), ptr(crs_out), _build.stream(rows))
     _build.count_launch(tq, err)
     tq.crs_launches += crs_src is not None
     return (lev, rec, joint) if jccr else (lev, rec)
@@ -591,15 +591,6 @@ def _mts_cores(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.stack([_mts_table(1), _mts_table(2)])).to(device)
 
 
-@functools.cache
-def _k5():
-    fn = _build.library("tq_mts").pmp_tq_mts
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [
-        ctypes.c_float] * 3 + [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def tq_mts(orgs, pred, rows, pad, qp, bit_depth, rd_quant, lam, modes,
            mip_code=None, mts=False, lfnst=False, ts_max=0, sdh=False):
     """K5: see ``tq_mts_reference``; CPU tensors take it, CUDA tensors
@@ -634,14 +625,13 @@ def tq_mts(orgs, pred, rows, pad, qp, bit_depth, rd_quant, lam, modes,
     lut, kern = lfnst_device_tables(dev)
     gat = lfnst_gather_table(pad, dev)
     code = mip_code.data_ptr() if mip_code is not None else None
-    err = _k5()(orgs[0].data_ptr(), pred.data_ptr(), rows.data_ptr(), modes.data_ptr(),
-                code, _dct2_64(dev).data_ptr(), _mts_cores(dev).data_ptr(),
-                cgt.data_ptr(), lut.data_ptr(), kern.data_ptr(), gat.data_ptr(),
-                B, pad, qp, ts_qp(qp), bit_depth, int(rd_quant), H, W, int(sdh),
-                cgt.shape[1], int(mts), int(lfnst), int(ts_max),
-                *(float(np.float32(v)) for v in (lam, lam * 2.0, lam * 3.0)),
-                lev.data_ptr(), rec.data_ptr(), tr.data_ptr(), lf.data_ptr(),
-                _build.stream(rows))
+    err = _lib("tq_mts").pmp_tq_mts(
+        orgs[0].data_ptr(), pred.data_ptr(), rows.data_ptr(), modes.data_ptr(), code,
+        _dct2_64(dev).data_ptr(), _mts_cores(dev).data_ptr(), cgt.data_ptr(),
+        lut.data_ptr(), kern.data_ptr(), gat.data_ptr(), B, pad, qp, ts_qp(qp), bit_depth,
+        int(rd_quant), H, W, int(sdh), cgt.shape[1], int(mts), int(lfnst), int(ts_max),
+        *(float(np.float32(v)) for v in (lam, lam * 2.0, lam * 3.0)), lev.data_ptr(),
+        rec.data_ptr(), tr.data_ptr(), lf.data_ptr(), _build.stream(rows))
     _build.count_launch(tq_mts, err)
     return lev, rec, tr, lf
 

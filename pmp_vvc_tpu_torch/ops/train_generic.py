@@ -91,13 +91,15 @@ def loss_params(mode, n, qp, is_luma, w=LossWeights()) -> np.ndarray:
         .astype(np.float32)
 
 
+SIGNATURES = {
+    "qbd_loss": {"pmp_qbd_loss": (_build.INT, _build.INT) + (_build.PTR,) * 15},
+    "adam": {"pmp_adam_update": (_build.INT,) + (_build.PTR,) * 7},
+}
+
+
 @functools.cache
-def _loss_lib():
-    lib = _build.library("qbd_loss")
-    fn = lib.pmp_qbd_loss
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 15
-    fn.restype = ctypes.c_int
-    return fn
+def _lib(name: str):
+    return _build.bind(name, SIGNATURES[name])
 
 
 _THREADS = 256
@@ -118,9 +120,9 @@ def _launch_loss(mode, qt_out, bd_outs, qt_label, bt_label, dire_label, params):
     g_qt = torch.empty_like(qt_out) if has_q else None
     g_bd = [torch.empty_like(b) for b in bd_outs] if has_bd else [None] * 3
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _loss_lib()(MODES.index(mode), n, *map(ptr, q_in + bd_in), params.ctypes.data,
-                      *map(ptr, [g_qt, *g_bd]), partials.data_ptr(), loss.data_ptr(),
-                      _build.stream(tensors[0]))
+    err = _lib("qbd_loss").pmp_qbd_loss(
+        MODES.index(mode), n, *map(ptr, q_in + bd_in), params.ctypes.data,
+        *map(ptr, [g_qt, *g_bd]), partials.data_ptr(), loss.data_ptr(), _build.stream(tensors[0]))
     _build.count_launch(qbd_loss, err)
     return loss, g_qt, g_bd
 
@@ -208,14 +210,6 @@ def adam_update_reference(params, grads, mu, nu, lr, bc1, bc2):
         p.copy_(p + u * neg_lr)
 
 
-@functools.cache
-def _adam_lib():
-    fn = _build.library("adam").pmp_adam_update
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def adam_update(params, grads, mu, nu, lr, bc1, bc2):
     """K11b: ``adam_update_reference``'s step over every tensor of ``params``
     in one launch (a table of pointers passed by value; above 128 tensors,
@@ -238,8 +232,9 @@ def adam_update(params, grads, mu, nu, lr, bc1, bc2):
     sizes = (ctypes.c_int64 * k)(*numel)
     scalars = np.concatenate([ADAM_CONSTS, np.array([bc1, bc2, -np.float32(lr)],
                                                     np.float32)]).astype(np.float32)
-    err = _adam_lib()(k, ptrs, gptrs, sizes, mu.data_ptr(), nu.data_ptr(),
-                      scalars.ctypes.data, _build.stream(mu))
+    err = _lib("adam").pmp_adam_update(
+        k, ptrs, gptrs, sizes, mu.data_ptr(), nu.data_ptr(), scalars.ctypes.data,
+        _build.stream(mu))
     _build.count_launch(adam_update, err)
     adam_update.launches += -(-k // ADAM_MAX_TENSORS) - 1
 

@@ -12,7 +12,6 @@ raises. ``structural_vote.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -53,13 +52,13 @@ def structural_vote_reference(qt_raw: torch.Tensor) -> torch.Tensor:
     return up.unsqueeze(-1) if squeeze else up
 
 
+SIGNATURES = {"structural_vote": {"pmp_structural_vote": (
+    _build.PTR, _build.PTR, _build.INT64, _build.PTR)}}
+
+
 @functools.cache
-def _kernel():
-    fn = _build.library("structural_vote").pmp_structural_vote
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib(name: str):
+    return _build.bind(name, SIGNATURES[name])
 
 
 def _launch(qt_raw: torch.Tensor) -> torch.Tensor:
@@ -75,7 +74,8 @@ def _launch(qt_raw: torch.Tensor) -> torch.Tensor:
         return out
     with torch.cuda.device(qt_raw.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(qt_raw.data_ptr(), out.data_ptr(), n, stream)
+        err = _lib("structural_vote").pmp_structural_vote(
+            qt_raw.data_ptr(), out.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"structural_vote kernel launch failed: CUDA error {err}")
     structural_vote.launches += 1

@@ -49,6 +49,13 @@ TRAIN_MODULES = {
         "train", "train.losses", "train.trainer", "train.driver", "cli", "cli.train",
         "tools", "tools.gen_dataset", "tools.train_bd", "data.labels", "data.sequences",
         "ops.train_generic")}
+# the sequential encoder's slice: its new modules (the K10 wrappers live in
+# ops.intra, ops.mip, ops.quant and ops.distortion, which the walk imports)
+SEQ_MODULES = {
+    "pmp_vvc_tpu_torch." + m for m in (
+        "codec.estimator", "codec.encoder", "ops.depquant", "ops.lfnst", "ops.cclm",
+        "ops.intra", "ops.mip", "ops.quant", "ops.distortion", "ops.transforms",
+        "cli.encode", "utils", "utils.vtmcfg", "utils.visualize", "utils.stats")}
 
 
 def _blocker_namespace():
@@ -71,9 +78,10 @@ def test_port_imports_every_module_without_jax():
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = set(proc.stdout.split())
-    # data, models, pmp, codec, ops, native, train, cli, tools and their
-    # modules, _build, _device: 46 before the training slice, 58 with it
-    assert TRAIN_MODULES <= names and len(names) >= 58
+    # data, models, pmp, codec, ops, native, train, cli, tools, utils and
+    # their modules, _build, _device: 46 before the training slice, 58 with
+    # it, 64 with the sequential encoder's
+    assert TRAIN_MODULES <= names and SEQ_MODULES <= names and len(names) >= 64
 
 
 def test_rdo_modules_are_scanned():
@@ -81,6 +89,13 @@ def test_rdo_modules_are_scanned():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"pmp_vvc_tpu_torch/codec/rdo_device.py",
             "pmp_vvc_tpu_torch/ops/rdo_generic.py"} <= names
+
+
+def test_seq_modules_are_scanned():
+    """The sequential encoder's sources are among those scanned below."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    want = {m.replace(".", "/") for m in SEQ_MODULES}
+    assert {w + ".py" if w + ".py" in names else w + "/__init__.py" for w in want} <= names
 
 
 def test_train_modules_are_scanned():
