@@ -145,12 +145,38 @@ the encode CLI:
     predictors' maps, ``--engine sequential`` and ``--engine wavefront``,
     on the card: each frame's hash SEI equals its recon's MD5.
 
-``python3 chip_smoke.py --seq-only`` runs the build and phases 19-22 alone
-and prints no result line.
+Multi-device encoding (K12a, the CU-batch-sharded wave scan: K1-K7 on each
+rank's block of a step and one all-gather per pass; K12b, the spatial-stripe
+scan's halo pack and unpack in ``csrc/halo.cu``), over torch.distributed:
 
-Prints the kernels' numbers as one JSON line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without
-CUDA.
+23. K12b against its plain version on the card, exactly, on seeded planes
+    at every rank of meshes of 1, 2 and 4 stripes (both edges, the interior
+    ranks) at the spatial paths' shapes; both kernels timed per step (a CUDA
+    graph of 50 calls) at the two-rank path's rank 0, with their byte bound.
+24. ``multidevice-nccl1``: a one-rank NCCL group (``file://`` store in a
+    temp dir). The bench's configuration exactly (``bench.py:186-197``, L3
+    with ``rdo_fallback``) at 416x240 x 2 with the QP 22 maps under the mesh
+    and without it, cold then warm: byte-identical streams and equal K1-K7
+    launches; the one-stripe spatial encode at 256x128 with the JAX
+    package's spatial tools, equal to the meshless stream, K12b launched;
+    the all-gather of a 32-pad luma class-step and the (neighbourless)
+    exchange timed; the group torn down.
+25. ``multidevice-2rank``: two children (``chip_smoke.py --md-rank R DIR``)
+    on cuda:0 under gloo, tensors staged through host memory (NCCL does not
+    run two ranks on one GPU): the bench's configuration under the mesh,
+    both ranks' streams equal to phase 24's single-process stream; the
+    512x256 spatial encode over two stripes, equal to the meshless card
+    stream; every K1-K7 kernel and K12b launched on each rank; the
+    all-gather and the halo exchange timed. A child that fails, or outlives
+    CHILD_TIMEOUT, fails the run.
+
+``python3 chip_smoke.py --seq-only`` runs the build and phases 19-22 alone,
+``--md-only`` the build and phases 23-25; neither prints a result line.
+
+Prints the kernels' numbers as one JSON line (K12b's rows among them, and
+under "k12a" the sharded scan's K1-K7 launches and collective times per
+transport), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``. Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -159,6 +185,7 @@ import hashlib
 import itertools
 import json
 import pathlib
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -195,6 +222,10 @@ from pmp_vvc_tpu_torch.ops.lfnst_generic import inv_lfnst_generic
 from pmp_vvc_tpu_torch.ops.tq_generic import (
     tq, tq_mts, tq_mts_candidates, tq_mts_reference, tq_reference)
 from pmp_vvc_tpu_torch.ops.transforms import DCT2, DCT8, DST7
+from pmp_vvc_tpu_torch import parallel as md
+from pmp_vvc_tpu_torch.parallel import comm
+from pmp_vvc_tpu_torch.parallel import spatial as sp
+from pmp_vvc_tpu_torch.parallel.dryrun import spatial_encode
 from pmp_vvc_tpu_torch.pmp.map2partition import blocks_to_frame_partition
 from pmp_vvc_tpu_torch.pmp.pipeline import predict_sequence
 from pmp_vvc_tpu_torch.pmp.predict import CompPredictor
@@ -2666,6 +2697,291 @@ def phase_cli(tmp: pathlib.Path) -> None:
             f"hash SEI equal to the recon's MD5")
 
 
+# ---------------------------------------------------------------------------
+# multi-device encoding: K12a (the CU-batch-sharded wave scan) and K12b (the
+# spatial-stripe scan's halo pack and unpack, csrc/halo.cu)
+# ---------------------------------------------------------------------------
+
+MD_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
+    "halo_pack": (sp.halo_pack, "pmp_vvc_tpu_torch/csrc/halo.cu",
+                  "pmp_vvc_tpu/parallel/spatial.py:153"),
+    "halo_unpack": (sp.halo_unpack, "pmp_vvc_tpu_torch/csrc/halo.cu",
+                    "pmp_vvc_tpu/parallel/spatial.py:153"),
+}
+K12A_REPLACES = "pmp_vvc_tpu/codec/wavefront.py:656, pmp_vvc_tpu/parallel/wavefront_dp.py:33"
+MD_FRAMES = 2
+SPATIAL_W, SPATIAL_H = 512, 256          # the two-rank spatial encode
+STRIPE_W, STRIPE_H = 256, 128            # the one-stripe encode
+# the JAX package's spatial tool set (tests/test_spatial_sharding.py:22-26)
+SPATIAL_TOOLS = dict(mts_intra=True, mip=True, cclm=True, lfnst=True, sign_hiding=True,
+                     joint_cbcr=True, transform_skip=True, chroma_qp_start_minus26=-9,
+                     chroma_qp_points=((9, 12), (4, 5), (11, 7)))
+MD_TIMING_CALLS = 50
+CHILD_TIMEOUT = 300                     # seconds for a two-rank child, start-up included
+
+
+def spatial_cfg(w: int, h: int) -> VVCConfig:
+    return VVCConfig(width=w, height=h, qp=32, **SPATIAL_TOOLS)
+
+
+def bench_encoder(mesh=None) -> wf.WavefrontEncoder:
+    """The bench's configuration exactly (``bench.py:186-197``: its tools,
+    L3 with ``rdo_fallback``) at 416x240, on ``mesh`` or alone."""
+    return wf.WavefrontEncoder(enc_cfg(SMALL_W, SMALL_H, BENCH), accel_level=3,
+                               rdo_fallback=True, mesh=mesh, device=DEVICE)
+
+
+def halo_planes(H: int, strd: int, seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    we = sp.HL + strd + sp.HR
+    return [torch.from_numpy(rng.randint(-(1 << 31), (1 << 31) - 1, s, dtype=np.int64)
+                             .astype(np.int32)).to(DEVICE)
+            for s in ((1, H, we), (1, H // 2, we // 2), (1, H // 2, we // 2))]
+
+
+def halo_bounds(H: int, has_left: bool, has_right: bool) -> dict:
+    """(bound ms, bytes) of K12b's pack (every band sample read once and
+    written once) and unpack (the bands of the neighbours that exist)."""
+    n_a, n_b = sp.band_size(H, sp.HL), sp.band_size(H, sp.HR)
+    moved = {"halo_pack": n_a + n_b, "halo_unpack": n_a * has_left + n_b * has_right}
+    return {k: (8 * n / HBM_BYTES_PER_S * 1e3, 8 * n) for k, n in moved.items()}
+
+
+def phase_halo_kernels() -> tuple[dict, dict]:
+    """K12b against its plain version on the card, exactly: seeded planes at
+    every position of meshes of 1, 2 and 4 stripes (edge ranks, the
+    interior ranks of four) at the two-rank spatial path's shapes (512x256
+    over 2 stripes, over 4) and the one-stripe 256x128; unpack on the
+    buffer a neighbour packed. Then both kernels' device time per step (a
+    CUDA graph of 50 calls) at the two-rank path's rank 0, the plain
+    versions' and the byte bound."""
+    errs = dict.fromkeys(MD_KERNELS, 0.0)
+    cases = 0
+    for H, W, D in ((SPATIAL_H, SPATIAL_W, 2), (SPATIAL_H, SPATIAL_W, 4),
+                    (STRIPE_H, STRIPE_W, 1)):
+        strd = W // D
+        for me in range(D):
+            planes = halo_planes(H, strd, seed=100 * D + me)
+            buf = sp.halo_pack(planes, sp.HL, sp.HR, strd)
+            _cmp("halo_pack", buf, sp.halo_pack_reference(planes, sp.HL, sp.HR, strd), errs)
+            got = sp.halo_pack(halo_planes(H, strd, seed=7 + me), sp.HL, sp.HR, strd)
+            ref = [p.clone() for p in planes]
+            sp.halo_unpack(got, planes, sp.HL, sp.HR, strd, me > 0, me < D - 1)
+            sp.halo_unpack_reference(got, ref, sp.HL, sp.HR, strd, me > 0, me < D - 1)
+            _cmp("halo_unpack", planes, ref, errs)
+            cases += 1
+    torch.cuda.synchronize()
+    log(f"[multidevice-kernels] K12b pack and unpack equal to their plain versions on the card at "
+        f"{cases} (mesh, rank) positions, edge and interior ranks (max_abs_err {errs})")
+
+    H, strd = SPATIAL_H, SPATIAL_W // 2
+    planes = halo_planes(H, strd, seed=1)
+    buf = sp.halo_pack(planes, sp.HL, sp.HR, strd)
+    bounds = halo_bounds(H, False, True)
+    runs = {"halo_pack": (lambda: sp.halo_pack(planes, sp.HL, sp.HR, strd),
+                          lambda: sp.halo_pack_reference(planes, sp.HL, sp.HR, strd)),
+            "halo_unpack": (lambda: sp.halo_unpack(buf, planes, sp.HL, sp.HR, strd, False, True),
+                            lambda: sp.halo_unpack_reference(buf, planes, sp.HL, sp.HR, strd,
+                                                             False, True))}
+    times = {}
+    for name, (kernel, plain) in runs.items():
+        ms, plain_ms = graph_ms(kernel), call_ms(plain, 20)
+        bound, nbytes = bounds[name]
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes")
+        log(f"[multidevice-kernels] {name} at {SPATIAL_W}x{SPATIAL_H} over 2 stripes, rank 0: device "
+            f"time per step (CUDA graph of 50) {ms:.6f} ms; plain version from Python "
+            f"{plain_ms:.6f} ms; bound {bound:.6f} ms by bytes ({nbytes} B)")
+    return errs, times
+
+
+def md_launches() -> dict:
+    return {name: fn.launches for name, (fn, _, _) in {**ENC_KERNELS, **MD_KERNELS}.items()}
+
+
+def reset_md_counts() -> None:
+    reset_counts()
+    for fn, _, _ in MD_KERNELS.values():
+        fn.launches = 0
+    comm.reset_stats()
+
+
+def collective_ms(mesh, B: int = wf.DEFAULT_BATCH[32], P: int = 32) -> dict:
+    """Host-clock time of one K12a all-gather of a luma class-step's packed
+    buffer (``B`` rows of rec, lev and four codes at pad ``P``, this rank's
+    share) and of one K12b neighbour exchange of the two-rank spatial path's
+    halo buffer, each over MD_TIMING_CALLS calls ending in a synchronize
+    (every rank runs the same calls)."""
+    block = torch.zeros((B // mesh.size, 2 * P * P + 4), dtype=torch.int32, device=DEVICE)
+    buf = torch.zeros((sp.band_size(SPATIAL_H, sp.HL) + sp.band_size(SPATIAL_H, sp.HR),),
+                      dtype=torch.int32, device=DEVICE)
+    split = sp.band_size(SPATIAL_H, sp.HL)
+    runs = {"all_gather": lambda: comm.all_gather(mesh, block),
+            "exchange": lambda: comm.neighbour_exchange(mesh, buf, split)}
+    out = {}
+    for name, fn in runs.items():
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MD_TIMING_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / MD_TIMING_CALLS * 1e3
+    return out
+
+
+def phase_md_nccl1(preds: dict, tmp: pathlib.Path) -> dict:
+    """A one-rank NCCL group on the card: the bench's configuration at
+    416x240 x 2 under the mesh, byte-identical to the meshless encode in the
+    same call with equal K1-K7 launches; the one-stripe spatial encode at
+    256x128 with the JAX package's spatial tools, equal to the meshless one;
+    the collectives' times at world size 1 (NCCL's all-gather is a copy and
+    the exchange has no neighbour). Tears the group down."""
+    frames = natural_sequence(SMALL_W, SMALL_H, MD_FRAMES, seed0=7, bit_depth=BD)
+    maps_l, maps_c = frame_maps(preds, frames, SMALL_W, SMALL_H)
+    check(md.initialize(f"file://{tmp}/nccl1_store", 1, 0, device=DEVICE),
+          "the one-rank NCCL group did not start")
+    mesh = md.make_mesh(device=DEVICE)
+    log(f"[multidevice-nccl1] group up: backend {mesh.backend}, transport {comm.transport(mesh)}, "
+        f"world size {mesh.size}")
+    out = {}
+    for label, m in (("meshless", None), ("mesh", mesh)):
+        enc = bench_encoder(m)
+        enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)      # cold
+        reset_md_counts()
+        t0 = time.perf_counter()
+        outs = enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)
+        out[label] = dict(wall=time.perf_counter() - t0, streams=[o[0] for o in outs],
+                          launches=md_launches(), gathers=list(comm.stats["all_gather"]))
+        check_hashes(outs, frames, f"nccl1 {label}")
+        log(f"[multidevice-nccl1] bench configuration at {SMALL_W}x{SMALL_H} x {MD_FRAMES}, {label}: "
+            f"warm {out[label]['wall']:.3f} s, {enc.steps} wave steps, all-gathers "
+            f"{out[label]['gathers'][0]} ({out[label]['gathers'][1]} B), launches "
+            f"{out[label]['launches']}")
+    check(out["mesh"]["streams"] == out["meshless"]["streams"],
+          "the one-rank NCCL mesh stream differs from the meshless one")
+    enc_names = list(ENC_KERNELS)
+    check(all(out["mesh"]["launches"][k] == out["meshless"]["launches"][k] > 0
+              for k in enc_names), "K1-K7 launches differ between mesh and meshless")
+    check(out["mesh"]["gathers"][0] > 0, "the mesh encode ran no all-gather")
+
+    y, u, v = natural_sequence(STRIPE_W, STRIPE_H, 1, seed0=11, bit_depth=BD)[0]
+    cfg = spatial_cfg(STRIPE_W, STRIPE_H)
+    want = wf.WavefrontEncoder(cfg, device=DEVICE).encode_frame(y, u, v)[0]
+    reset_md_counts()
+    got = spatial_encode(cfg, y, u, v, mesh)
+    halo = md_launches()
+    check(got == want, "the one-stripe spatial stream differs from the meshless one")
+    check(all(halo[k] > 0 for k in MD_KERNELS), f"K12b was not launched: {halo}")
+    times = collective_ms(mesh)
+    log(f"[multidevice-nccl1] one-stripe spatial encode at {STRIPE_W}x{STRIPE_H}: {len(got)} bytes, "
+        f"equal to the meshless stream; K12b launches {[halo[k] for k in MD_KERNELS]}; "
+        f"NCCL at world size 1: all-gather of a 32-pad luma class-step "
+        f"{times['all_gather']:.6f} ms, exchange (no neighbour) {times['exchange']:.6f} ms")
+    md.shutdown()
+    return dict(frames=frames, maps=(maps_l, maps_c), streams=out["meshless"]["streams"],
+                launches=out["mesh"]["launches"], times=times)
+
+
+def md_child(rank: int, tmp: pathlib.Path) -> int:
+    """One of the two-rank phase's ranks (``chip_smoke.py --md-rank R DIR``):
+    gloo on cuda:0 with host-staged tensors; the bench encode under the
+    mesh, the spatial encode, the collectives' times; results pickled to
+    DIR. Prints no result line."""
+    job = pickle.loads((tmp / "job.pkl").read_bytes())
+    md.initialize(f"file://{tmp}/store", 2, rank, backend="gloo", device=DEVICE)
+    mesh = md.make_mesh(device=DEVICE)
+    res = {"transport": comm.transport(mesh)}
+    enc = bench_encoder(mesh)
+    reset_md_counts()
+    t0 = time.perf_counter()
+    res["bench"] = [o[0] for o in enc.encode_frames(job["frames"], maps=job["maps"][0],
+                                                     chroma_maps=job["maps"][1])]
+    res["bench_wall"] = time.perf_counter() - t0
+    res["bench_launches"], res["gathers"] = md_launches(), list(comm.stats["all_gather"])
+    reset_md_counts()
+    t0 = time.perf_counter()
+    res["spatial"] = spatial_encode(spatial_cfg(SPATIAL_W, SPATIAL_H), *job["spatial"], mesh)
+    res["spatial_wall"] = time.perf_counter() - t0
+    res["spatial_launches"], res["exchanges"] = md_launches(), list(comm.stats["exchange"])
+    res["times"] = collective_ms(mesh)
+    (tmp / f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    md.shutdown()
+    return 0
+
+
+def phase_md_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
+    """Two spawned processes on cuda:0 under gloo (NCCL does not run two
+    ranks on one GPU), tensors staged through host memory: the bench's
+    configuration at 416x240 under the mesh, both ranks' streams equal to
+    the single-process card stream; the spatial encode at 512x256 over two
+    stripes with the JAX package's spatial tools, equal to the meshless card
+    stream. A child that fails or outlives CHILD_TIMEOUT fails the phase;
+    every child is killed before it returns."""
+    y, u, v = natural_sequence(SPATIAL_W, SPATIAL_H, 1, seed0=13, bit_depth=BD)[0]
+    want = wf.WavefrontEncoder(spatial_cfg(SPATIAL_W, SPATIAL_H), device=DEVICE).encode_frame(
+        y, u, v)[0]
+    (tmp / "job.pkl").write_bytes(pickle.dumps(
+        {"frames": nccl1["frames"], "maps": nccl1["maps"], "spatial": (y, u, v)}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--md-rank",
+                               str(r), str(tmp)], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=CHILD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"two-rank child {r} failed (exit {p.returncode}):\n"
+              f"{out[-6000:]}")
+    res = [pickle.loads((tmp / f"rank{r}.pkl").read_bytes()) for r in range(2)]
+    for r, x in enumerate(res):
+        check(x["bench"] == nccl1["streams"],
+              f"rank {r}'s bench stream differs from the single-process card stream")
+        check(x["spatial"] == want, f"rank {r}'s spatial stream differs from the meshless one")
+        check(all(x["bench_launches"][k] > 0 for k in ENC_KERNELS) and x["gathers"][0] > 0,
+              f"rank {r}: the sharded encode did not launch every K1-K7 kernel")
+        check(all(x["spatial_launches"][k] > 0 for k in MD_KERNELS),
+              f"rank {r}: K12b was not launched on the spatial path")
+        log(f"[multidevice-2rank] rank {r} ({x['transport']}): bench configuration at "
+            f"{SMALL_W}x{SMALL_H} x {MD_FRAMES} under the mesh {x['bench_wall']:.3f} s (cold), "
+            f"all-gathers {x['gathers'][0]} ({x['gathers'][1]} B sent), launches "
+            f"{x['bench_launches']}; spatial {SPATIAL_W}x{SPATIAL_H} over 2 stripes "
+            f"{x['spatial_wall']:.3f} s (cold), {len(x['spatial'])} bytes, exchanges "
+            f"{x['exchanges'][0]} ({x['exchanges'][1]} B sent), K12b launches "
+            f"{[x['spatial_launches'][k] for k in MD_KERNELS]}; all-gather of a 32-pad luma "
+            f"class-step {x['times']['all_gather']:.6f} ms, halo exchange "
+            f"{x['times']['exchange']:.6f} ms")
+    log(f"[multidevice-2rank] both ranks' streams equal the single-process card streams; phase "
+        f"{time.perf_counter() - t0:.3f} s")
+    return res[0]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def md_only() -> int:
+    """``--md-only``: the build and the multi-device phases alone, for
+    iterating on them; prints no result line."""
+    phase_build()
+    phase_halo_kernels()
+    preds = {(comp, ENC_QP): CompPredictor.from_trained(
+                 comp == "Luma", CKPT / f"{comp}_Q_QP{ENC_QP}.msgpack",
+                 CKPT / f"{comp}_BD_QP{ENC_QP}.msgpack", device=DEVICE)
+             for comp in ("Luma", "Chroma")}
+    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_md_") as tmp:
+        phase_md_2rank(phase_md_nccl1(preds, pathlib.Path(tmp)), pathlib.Path(tmp))
+    log(card_line())
+    log("[multidevice-only] partial run: no result line")
+    return 0
+
+
 def seq_only() -> int:
     """``--seq-only``: the build and the sequential engine's phases alone,
     for iterating on them; prints no result line."""
@@ -2693,12 +3009,17 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     if sys.argv[1:] == ["--seq-only"]:
         return seq_only()
+    if sys.argv[1:2] == ["--md-rank"]:
+        return md_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
+    if sys.argv[1:] == ["--md-only"]:
+        return md_only()
     phase_build()
     vote = phase_vote()
     enc_errs, enc_times = phase_encode_kernels()
     rdo_errs, rdo_times = phase_rdo_kernels()
     train_errs, train_times = phase_train_kernels()
     seq_errs, seq_times = phase_seq_kernels()
+    md_errs, md_times = phase_halo_kernels()
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_") as tmp:
         preds, blocks, launches = phase_main_path(pathlib.Path(tmp))
     phase_cpu_vs_card(preds, blocks)
@@ -2717,6 +3038,9 @@ def main() -> int:
     phase_seq_cpu_vs_card(preds)
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_cli_") as tmp:
         phase_cli(pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_md_") as tmp:
+        nccl1 = phase_md_nccl1(preds, pathlib.Path(tmp))
+        two = phase_md_2rank(nccl1, pathlib.Path(tmp))
     phase_encode_profile(frames, maps_l, maps_c)
 
     kernels = [{
@@ -2767,11 +3091,25 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": seq_launches[name], "max_abs_err": seq_errs[name],
             **seq_times[name], "library_ms": None})
-    log(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    # K12b: no PyTorch call computes a masked pack of six plane bands;
+    # launches are the two-rank spatial path's (rank 0)
+    for name, (_, source, replaces) in MD_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": two["spatial_launches"][name], "max_abs_err": md_errs[name],
+            **md_times[name], "library_ms": None})
+    # K12a is no kernel of its own: each rank runs K1-K7 on its block of the
+    # step and one all-gather per pass; its launches under each mesh
+    k12a = {"replaces": K12A_REPLACES, "launches": {
+        "nccl, 1 rank": {k: nccl1["launches"][k] for k in ENC_KERNELS},
+        f"{two['transport']}, 2 ranks (rank 0)": {k: two["bench_launches"][k]
+                                                  for k in ENC_KERNELS}},
+        "all_gather_ms": {"nccl, 1 rank": nccl1["times"]["all_gather"],
+                          f"{two['transport']}, 2 ranks": two["times"]["all_gather"]},
+        "exchange_ms": {"nccl, 1 rank": nccl1["times"]["exchange"],
+                        f"{two['transport']}, 2 ranks": two["times"]["exchange"]}}
+    log(json.dumps({"kernels": kernels, "k12a": k12a}))
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

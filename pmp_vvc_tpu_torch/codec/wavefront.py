@@ -73,6 +73,8 @@ from ..ops.lmcs_generic import crs_lut
 from ..ops.mip_generic import mip_select
 from ..ops.rows import check_rows
 from ..ops.tq_generic import tq, tq_mts
+from ..parallel import comm
+from ..parallel.wavefront_dp import round_batch, shard_rows
 from .encoder import RDO, CuInfo, FrameEncoder
 from .mtt import Split, SplitState, get_implicit_split
 from .rdo_device import DeviceRDO, _skey
@@ -181,11 +183,12 @@ class _Scan:
     (updated in place), originals, order grids and the coding parameters.
     ``ts_max``: the largest transform-skip side, 0 with transform skip off;
     ``qp_j``: the internal QP of the joint Cb-Cr TU; ``crs_lut``: with LMCS
-    chroma scaling, the (1 << bd,) int32 ``crs_lut`` on the device."""
+    chroma scaling, the (1 << bd,) int32 ``crs_lut`` on the device;
+    ``mesh``: the ranks over which each step's rows are sharded (K12a)."""
 
     def __init__(self, state, oy, ou, ov, og4, og4c, qp_y, qp_c, bd, lam,
                  dw_c, rd_quant, mip=False, sdh=False, mts=False, lfnst=False,
-                 ts_max=0, cclm=False, jccr=False, qp_j=0, crs_lut=None):
+                 ts_max=0, cclm=False, jccr=False, qp_j=0, crs_lut=None, mesh=None):
         self.state = state
         self.oy, self.ou, self.ov = oy, ou, ov
         self.og4, self.og4c = og4, og4c
@@ -195,6 +198,7 @@ class _Scan:
         self.mts, self.lfnst, self.ts_max = mts, lfnst, ts_max
         self.cclm, self.jccr, self.qp_j = cclm, jccr, qp_j
         self.crs_lut = crs_lut
+        self.mesh = mesh
 
     def luma_tools(self, P):
         """(mts, lfnst, ts_max) of the P-pad class: MTS and transform skip
@@ -203,29 +207,53 @@ class _Scan:
         small = P <= 32
         return self.mts and small, self.lfnst, self.ts_max if small else 0
 
+    def _gather(self, rec, lev, codes):
+        """K12a: this rank's block of per-CU outputs (rec, lev (n, b, P, P),
+        codes (b,) each) gathered into the step's full B rows, in one
+        all-gather of one packed (b, K) int32 buffer; as they are without a
+        mesh."""
+        if self.mesh is None:
+            return rec, lev, codes
+        n, b = rec.shape[:2]
+        k = n * rec[0, 0].numel()
+        flat = [t.transpose(0, 1).reshape(b, k).to(torch.int32) for t in (rec, lev)] + \
+            [c.reshape(b, 1).to(torch.int32) for c in codes]
+        full = comm.all_gather(self.mesh, torch.cat(flat, 1))
+        B = full.shape[0]
+        tile = lambda t: t.reshape(B, n, *rec.shape[2:]).transpose(0, 1).contiguous()
+        return (tile(full[:, :k]), tile(full[:, k:2 * k]),
+                [full[:, 2 * k + i].contiguous() for i in range(len(codes))])
+
     def step(self, kind, P, row):
         """Wave-segment body for the P-pad tile class (``kind``: "st"
         single tree — luma RMD (+ MIP) + TQ, then chroma DM (or LM) + TQ of
         the co-located half-res block; "luma" the dual-tree luma pass;
         "chroma" the dual-tree chroma pass, its DM mode read from the mode
-        grid at the CU centre, with the chroma tree's own order grid)."""
+        grid at the CU centre, with the chroma tree's own order grid).
+
+        With a mesh, each pass computes this rank's ``shard_rows`` block,
+        gathers the block's outputs into the full B (``_gather``; "st" has
+        two passes, so two gathers) and scatters all B rows (K7) into the
+        replicated planes."""
         ry, ru, rv, cY, cU, cV, mg, tg, pg, cg, lg = self.state
         bd = self.bd
+        mine = row if self.mesh is None else shard_rows(self.mesh, row)
         lf = None
         if kind != "chroma":
-            refs = ref_gather([ry], self.og4, row, P, 1, bd)
-            best, pred = intra_rmd(refs, self.oy, mg, row, P, True, bd)
+            refs = ref_gather([ry], self.og4, mine, P, 1, bd)
+            best, pred = intra_rmd(refs, self.oy, mg, mine, P, True, bd)
             code = None
             if self.mip:
                 # a MIP winner shows PLANAR in the mode grid (the
                 # neighbours' MPM, the chroma DM view and LFNST's kernel
                 # set) and its code in the MIP grid
-                best, pred, code = mip_select(refs, self.oy, row, pred, best, P, bd)
-            lev, rec, tr, lf = tq_mts([self.oy], pred, row, P, self.qp_y, bd,
+                best, pred, code = mip_select(refs, self.oy, mine, pred, best, P, bd)
+            lev, rec, tr, lf = tq_mts([self.oy], pred, mine, P, self.qp_y, bd,
                                       self.rd_quant, self.lam, best, code,
                                       *self.luma_tools(P), self.sdh)
-            grids = [(mg, best)] + ([(pg, code)] if self.mip else []) + \
-                [(tg, tr), (lg, lf)]
+            codes = [best] + ([code] if self.mip else []) + [tr, lf]
+            rec, lev, codes = self._gather(rec, lev, codes)
+            grids = list(zip([mg] + ([pg] if self.mip else []) + [tg, lg], codes))
             wave_scatter(row, P, 1, [(ry, cY)], rec, lev, grids)
             if kind == "luma":
                 return
@@ -237,20 +265,19 @@ class _Scan:
         # chroma scaling, K4 derives each CU's scale from the mapped luma
         # recon and the same order grid.
         Pc = P // 2
-        refs = ref_gather([ru, rv], self.og4c, row, Pc, 2, bd)
-        _, pred = intra_rmd(refs, None, mg, row, Pc, False, bd)
+        refs = ref_gather([ru, rv], self.og4c, mine, Pc, 2, bd)
+        _, pred = intra_rmd(refs, None, mg, mine, Pc, False, bd)
         use_lm = 0
         if self.cclm:
-            pred, use_lm = cclm_select(refs, ry, [self.ou, self.ov], self.og4c, row, pred,
+            pred, use_lm = cclm_select(refs, ry, [self.ou, self.ov], self.og4c, mine, pred,
                                        Pc, bd)
         crs_src = None if self.crs_lut is None else (ry, self.og4c, self.crs_lut)
-        out = tq([self.ou, self.ov], pred, row, Pc, 2, self.qp_c, bd, self.rd_quant,
+        out = tq([self.ou, self.ov], pred, mine, Pc, 2, self.qp_c, bd, self.rd_quant,
                  self.lam, self.dw_c, sdh=self.sdh, lfnst_active=lf, jccr=self.jccr,
                  qp_j=self.qp_j, crs_src=crs_src)
-        grids = []
-        if self.cclm or self.jccr:
-            grids = [(cg, use_lm + (2 * out[2] if self.jccr else 0))]
-        wave_scatter(row, Pc, 2, [(ru, cU), (rv, cV)], out[1], out[0], grids)
+        codes = [use_lm + (2 * out[2] if self.jccr else 0)] if self.cclm or self.jccr else []
+        rec, lev, codes = self._gather(out[1], out[0], codes)
+        wave_scatter(row, Pc, 2, [(ru, cU), (rv, cV)], rec, lev, [(cg, c) for c in codes])
 
 
 def _collect_leaves_chroma(enc, decide, decide_luma=None):
@@ -457,23 +484,38 @@ class WavefrontEncoder(FrameEncoder):
     After each ``encode_frames`` call, ``leaves`` holds each frame's (luma,
     chroma or None) leaves and ``rdo_deferred`` one set per frame of the
     nodes its maps deferred to the device RDO (empty without
-    ``rdo_fallback``)."""
+    ``rdo_fallback``).
+
+    ``mesh`` (``parallel.make_mesh``): the wave scan's CU batches are
+    sharded over its ranks (K12a, ``_Scan.step``); every class batch is
+    rounded up to a multiple of the mesh size, the planes stay replicated,
+    and every rank returns the single-device stream. The device defaults
+    to the mesh's. The device RDO of ``rdo_fallback`` runs whole on every
+    rank, as the JAX package shards only the wave scan."""
 
     #: the replay writes the device decisions and reads no rates
     _rate_estimated = False
 
-    def __init__(self, cfg, *, batch=None, device=None, **kw):
+    def __init__(self, cfg, *, mesh=None, batch=None, device=None, **kw):
         bad = [f for f in UNSUPPORTED_TOOLS if getattr(cfg, f)]
         if bad:
             raise NotImplementedError(
                 f"wavefront path does not support {bad}; use FrameEncoder")
+        if mesh is not None:
+            if device is None:
+                device = mesh.device
+            elif resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
         super().__init__(cfg, device=device, **kw)
         self._device = resolve_device(device)       # the wave path's uploads
         self.crs_lut = crs_lut(cfg.bit_depth, cfg.lmcs_offset) \
             if cfg.lmcs and cfg.lmcs_chroma_scaling else None
+        self.mesh = mesh
         self.batch = dict(DEFAULT_BATCH)
         if batch:
             self.batch.update(batch)
+        if mesh is not None:
+            self.batch = round_batch(self.batch, mesh.size)
         self.steps = 0              # wave steps of the last pass
         self.leaves = []
         self.rdo_deferred = []
@@ -576,7 +618,8 @@ class WavefrontEncoder(FrameEncoder):
                      mts=bool(cfg.mts_intra), lfnst=bool(cfg.lfnst),
                      ts_max=(1 << cfg.ts_max_log2) if cfg.transform_skip else 0,
                      cclm=bool(cfg.cclm), jccr=bool(cfg.joint_cbcr), qp_j=qp_j,
-                     crs_lut=None if self.crs_lut is None else up(self.crs_lut))
+                     crs_lut=None if self.crs_lut is None else up(self.crs_lut),
+                     mesh=self.mesh)
         self._time("upload", t0)
 
         t0 = time.perf_counter()
@@ -597,7 +640,9 @@ class WavefrontEncoder(FrameEncoder):
     def _wave_scan(self, scan, active, step_arr, scheds):
         """Every wave step of a frame batch: for each step, each tile
         class with live rows runs its step body (the host knows from the
-        schedule which rows are live)."""
+        schedule which rows are live). Liveness is the whole step's, never
+        a rank's block: under a mesh every rank enters every gather, its
+        block empty or not."""
         live = [step_arr[k2][:, :, 6].any(axis=1) for k2 in active]
         S = len(live[0]) if live else 0
         for t in range(S):

@@ -56,6 +56,11 @@ SEQ_MODULES = {
         "codec.estimator", "codec.encoder", "ops.depquant", "ops.lfnst", "ops.cclm",
         "ops.intra", "ops.mip", "ops.quant", "ops.distortion", "ops.transforms",
         "cli.encode", "utils", "utils.vtmcfg", "utils.visualize", "utils.stats")}
+# the multi-device encoding slice's modules
+PARALLEL_MODULES = {
+    "pmp_vvc_tpu_torch." + m for m in (
+        "parallel", "parallel.distributed", "parallel.wavefront_dp", "parallel.comm",
+        "parallel.spatial", "parallel.dryrun")}
 
 
 def _blocker_namespace():
@@ -78,10 +83,11 @@ def test_port_imports_every_module_without_jax():
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = set(proc.stdout.split())
-    # data, models, pmp, codec, ops, native, train, cli, tools, utils and
-    # their modules, _build, _device: 46 before the training slice, 58 with
-    # it, 64 with the sequential encoder's
-    assert TRAIN_MODULES <= names and SEQ_MODULES <= names and len(names) >= 64
+    # data, models, pmp, codec, ops, native, train, cli, tools, utils,
+    # parallel and their modules, _build, _device: 46 before the training
+    # slice, 58 with it, 64 with the sequential encoder's, 70 with parallel
+    assert TRAIN_MODULES <= names and SEQ_MODULES <= names and PARALLEL_MODULES <= names
+    assert len(names) >= 70
 
 
 def test_rdo_modules_are_scanned():
@@ -95,6 +101,13 @@ def test_seq_modules_are_scanned():
     """The sequential encoder's sources are among those scanned below."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     want = {m.replace(".", "/") for m in SEQ_MODULES}
+    assert {w + ".py" if w + ".py" in names else w + "/__init__.py" for w in want} <= names
+
+
+def test_parallel_modules_are_scanned():
+    """The multi-device slice's sources are among those scanned below."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    want = {m.replace(".", "/") for m in PARALLEL_MODULES}
     assert {w + ".py" if w + ".py" in names else w + "/__init__.py" for w in want} <= names
 
 

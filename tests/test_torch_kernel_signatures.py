@@ -22,7 +22,7 @@ from pmp_vvc_tpu_torch import _build
 CSRC = pathlib.Path(_build.__file__).resolve().parent / "csrc"
 WRAPPERS = ("codec.wavefront", "ops.cclm_generic", "ops.distortion", "ops.intra",
             "ops.intra_generic", "ops.mip", "ops.mip_generic", "ops.quant", "ops.rdo_generic",
-            "ops.tq_generic", "ops.train_generic", "pmp.structural")
+            "ops.tq_generic", "ops.train_generic", "parallel.spatial", "pmp.structural")
 _PROTO = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 
 
@@ -66,7 +66,8 @@ PROTOS = _prototypes()
 
 def test_every_source_has_an_entry_point():
     assert {lib for lib, _ in PROTOS} == {p.stem for p in CSRC.glob("*.cu")}
-    assert len(PROTOS) >= 17
+    assert len(PROTOS) >= 19 and {("halo", "pmp_halo_pack"),
+                                  ("halo", "pmp_halo_unpack")} <= set(PROTOS)
 
 
 def test_tables_name_only_real_entry_points():
