@@ -170,17 +170,43 @@ scan's halo pack and unpack in ``csrc/halo.cu``), over torch.distributed:
     all-gather and the halo exchange timed. A child that fails, or outlives
     CHILD_TIMEOUT, fails the run.
 
-``python3 chip_smoke.py --seq-only`` runs the build and phases 19-22 alone,
-``--md-only`` the build and phases 23-25; neither prints a result line.
+The data-parallel CNN (K12c: the gradient bucket ``bucket_pack`` in
+``csrc/grad_bucket.cu``, the batch-sharded predictor, the data-parallel
+training step, ``entry`` and ``dryrun_multichip``):
 
-Prints the kernels' numbers as one JSON line (K12b's rows among them, and
-under "k12a" the sharded scan's K1-K7 launches and collective times per
+26. ``dp-kernels``: K12c against its plain version on the card, exactly, on
+    the luma and the chroma Q + BD pairs' gradient shapes at scales 1 and
+    1/2 and on 300 tensors (three launches); timed per call (a CUDA graph
+    of 50) on each pair with its byte bound and the share of it reached.
+27. ``dp-nccl1``: a one-rank NCCL group. The luma QP 22 predictor on the
+    1920x1080 x 2 CTUs under the mesh, bit-equal to the meshless one; 5
+    joint luma steps at batch 32 (committed QP 22 nets, seeded float
+    samples) whose losses and parameters equal the meshless run's bit for
+    bit under cuDNN's deterministic algorithms (its default backward sums in
+    a run-dependent order), with K8 / K11a / K11b / K12c launches; ``entry()`` and
+    ``dryrun_multichip`` on the mesh; warm CTU predictions/s and steps/s
+    beside the meshless ones; the all-reduce of the bucket per step.
+28. ``dp-2rank``: two children (``chip_smoke.py --dp-rank R DIR``) on
+    cuda:0 under gloo with host staging: the predictor (raw bt / dire
+    within RAW_TOL of the single-process card run, whose chunks are twice
+    a rank's block, voted QT equal where the raw maps keep RAW_TOL from a
+    threshold); 3 joint steps whose parameters are
+    bit-equal on both ranks and within the CPU tests' bounds of the
+    single-process card run; ``dryrun_multichip``; the all-reduce via host.
+
+``python3 chip_smoke.py --seq-only`` runs the build and phases 19-22 alone,
+``--md-only`` the build and phases 23-28; neither prints a result line.
+
+Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
+them; under "k12a" the sharded scan's K1-K7 launches and collective times
+per transport, under "k12c" the data-parallel rates and the all-reduce per
 transport), the card's name and power limit, and last ``{"ok": true,
 "device": {...}}``. Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import itertools
 import json
@@ -236,7 +262,11 @@ from pmp_vvc_tpu_torch.models import (ChromaMSBDNet, ChromaQNet, LumaMSBDNet, Lu
 from pmp_vvc_tpu_torch.ops import train_generic as tg
 from pmp_vvc_tpu_torch.tools import gen_dataset, train_bd
 from pmp_vvc_tpu_torch.train.driver import load_npy_split
-from pmp_vvc_tpu_torch.train.trainer import Adam, make_bd_train_step, make_qbd_train_step
+from pmp_vvc_tpu_torch.train.trainer import (Adam, make_bd_train_step, make_qbd_train_step,
+                                             shard_batch)
+from pmp_vvc_tpu_torch.entry import dryrun_multichip, entry
+from pmp_vvc_tpu_torch.models import load_trained, params_from_jax
+from pmp_vvc_tpu_torch.ops import dp_generic as dp_ops
 
 REPO = pathlib.Path(__file__).resolve().parent
 CKPT = REPO / "trained_models" / "bd"
@@ -2958,6 +2988,418 @@ def phase_md_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
     return res[0]
 
 
+# ---------------------------------------------------------------------------
+# the data-parallel CNN: K12c (the gradient bucket, csrc/grad_bucket.cu), the
+# batch-sharded predictor, the data-parallel training step, entry and the
+# dry run
+# ---------------------------------------------------------------------------
+
+DP_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
+    "bucket_pack": (dp_ops.bucket_pack, "pmp_vvc_tpu_torch/csrc/grad_bucket.cu",
+                    "pmp_vvc_tpu/train/trainer.py:63"),
+}
+DP_PATH_KERNELS = {"structural_vote": structural_vote, "qbd_loss": tg.qbd_loss,
+                   "adam_update": tg.adam_update, "bucket_pack": dp_ops.bucket_pack}
+DP_QP, DP_LR = 22, 2e-4                 # the luma QP 22 nets; the joint stage's lr
+DP_STEPS, DP_2RANK_STEPS, DP_TIMED_STEPS = 5, 3, 10
+# the CPU tests' bounds (tests/test_torch_train_step.py): the loss, and
+# after the first step the parameters whose gradient clears DP_GRAD_MARGIN
+# times the largest gradient difference. The gradient itself: cuDNN's
+# backward algorithms for a batch of 16 and of 32 sum in other orders, and
+# a sum's rounding scales with its terms, not with its result (a tensor
+# whose terms cancel has a small one): the trained luma nets on float
+# samples reach |g| ~ 58, and a draft run put the two-rank gradient 0.0124
+# from the single-process one (two single-process runs with cuDNN's default
+# algorithms: 0.0049), above the CPU tests' 1e-4 absolute. The bound:
+# RAW_TOL, the card's bound for cuDNN's algorithms, of the largest |g|
+DP_LOSS_RTOL, DP_GRAD_RTOL, DP_GRAD_MARGIN, DP_PARAM_ATOL = 1e-5, RAW_TOL, 10, 1e-7
+# after the first step, a weight whose tiny gradient took the other sign
+# has moved the other way by up to 2 lr, and the loss follows: 1.5e-5
+# relative at step 2 in a draft run; two meshless runs with cuDNN's default
+# (run-dependent) backward differ alike, and phase_dp_nccl1 logs by how much
+DP_LATER_LOSS_RTOL = 1e-4
+# raw predictor outputs of two batch cuts: cuDNN picks its convolution
+# algorithms by shape, so a rank's block of 256 CTUs and the whole chunk of
+# 512 sum in other orders (1.1e-4 apart on bt in a draft run, above the
+# CPU tests' 1e-4): RAW_TOL, the card's bound for cuDNN's algorithms. A
+# CTU's voted QT map must be equal where every pooled raw value keeps
+# RAW_TOL from a rounding threshold, and nine CTUs in ten must keep it
+DP_RAW_ATOL, DP_MARGIN, DP_MARGIN_SHARE = RAW_TOL, RAW_TOL, 0.9
+
+
+def dp_blocks() -> np.ndarray:
+    """The prediction path's luma CTUs: 1920x1080 x 2 frames (960 CTUs)."""
+    frames = natural_sequence(W, H, FRAMES, seed0=7, bit_depth=8)
+    y, u, v = (np.stack([f[i] for f in frames]).astype(np.uint8) for i in range(3))
+    return blocks_for_sequence(y, u, v)[0]
+
+
+def dp_predictor(mesh=None) -> CompPredictor:
+    return CompPredictor.from_trained(True, CKPT / f"Luma_Q_QP{DP_QP}.msgpack",
+                                      CKPT / f"Luma_BD_QP{DP_QP}.msgpack", device=DEVICE,
+                                      mesh=mesh)
+
+
+def dp_batches(n: int) -> list:
+    """``n`` global luma batches of TRAIN_BATCH CTUs of seeded float samples
+    and seeded labels (NCHW, on the host): float samples keep the nets away
+    from the near-ties of 8-bit content (ROADMAP queue 3, PR 9)."""
+    rng = np.random.RandomState(70)
+    return [(rng.uniform(0, 255, (TRAIN_BATCH, 1, 68, 68)).astype(np.float32),
+             rng.randint(0, 4, (TRAIN_BATCH, 1, 8, 8)).astype(np.float32),
+             rng.randint(0, 4, (TRAIN_BATCH, 3, 16, 16)).astype(np.float32),
+             rng.randint(-1, 2, (TRAIN_BATCH, 3, 16, 16)).astype(np.float32))
+            for _ in range(n)]
+
+
+def dp_train(batches, mesh=None, timed: int = 0) -> dict:
+    """The joint luma QP 22 step from the committed checkpoints over
+    ``batches`` (each rank on its ``shard_batch`` block under ``mesh``):
+    each step's loss and the parameters after it (flat, on the host), the
+    first step's reduced gradient (from Adam's first moment), then the warm
+    steps/s of ``timed`` more steps on the last batch."""
+    q_net, bd_net = LumaQNet().to(DEVICE), LumaMSBDNet().to(DEVICE)
+    q_net.load_state_dict(params_from_jax(load_trained(CKPT / f"Luma_Q_QP{DP_QP}.msgpack")))
+    bd_net.load_state_dict(params_from_jax(load_trained(CKPT / f"Luma_BD_QP{DP_QP}.msgpack")))
+    opt = Adam(list(q_net.parameters()) + list(bd_net.parameters()))
+    run = make_qbd_train_step(q_net, bd_net, opt, qp=DP_QP, is_luma=True, mesh=mesh)
+    flat = lambda: torch.cat([p.detach().reshape(-1) for p in opt.params]).cpu().numpy()
+    out = {"losses": [], "params": {}}
+    for k, b in enumerate(batches):
+        b = b if mesh is None else shard_batch(mesh, b)
+        out["losses"].append(float(run(*(torch.from_numpy(a).to(DEVICE) for a in b), DP_LR)))
+        if k == 0:
+            out["grads"] = (opt.mu / float(tg.ADAM_CONSTS[1])).cpu().numpy()
+        out["params"][k + 1] = flat()
+    if timed:
+        b = batches[-1] if mesh is None else shard_batch(mesh, batches[-1])
+        args = [torch.from_numpy(a).to(DEVICE) for a in b]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            run(*args, DP_LR)
+        torch.cuda.synchronize()
+        out["steps_per_s"] = timed / (time.perf_counter() - t0)
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside, its default ones after: the
+    default backward convolutions may sum in another order on every run, so
+    two runs of one step differ in the last bits."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def dp_predict(pred: CompPredictor, blocks: np.ndarray) -> tuple:
+    """(maps, warm CTU predictions/s): a cold run, then a warm one timed on
+    the host clock (``predict`` ends in the copies to the host)."""
+    pred.predict(blocks)
+    t0 = time.perf_counter()
+    maps = pred.predict(blocks)
+    return maps, len(blocks) / (time.perf_counter() - t0)
+
+
+def adam_ratio_bound(t: int) -> float:
+    """The largest |mu_hat| / sqrt(nu_hat) of optax's Adam at step ``t``
+    (Cauchy-Schwarz over the gradients' weights): 1 at step 1, 1.0014 at 2."""
+    b1, b2 = 0.9, 0.999
+    s = sum(((1 - b1) * b1 ** (t - i)) ** 2 / ((1 - b2) * b2 ** (t - i))
+            for i in range(1, t + 1))
+    return float(np.sqrt(s) * np.sqrt(1 - b2 ** t) / (1 - b1 ** t))
+
+
+def dp_hold_training(got: dict, want: dict, label: str) -> str:
+    """Hold ``got``'s steps to ``want``'s within the CPU tests' bounds: the
+    first step's loss within DP_LOSS_RTOL, the later ones' within
+    DP_LATER_LOSS_RTOL; the first step's reduced gradient within
+    DP_GRAD_RTOL of its largest magnitude; after it, the parameters whose
+    gradient clears DP_GRAD_MARGIN times the largest difference within
+    DP_PARAM_ATOL and the rest within 2 lr; after the last, within 2 lr
+    times the sum of Adam's ratio bounds (a weight whose gradient sign
+    differs may move the other way every step). Returns a summary."""
+    n = len(got["losses"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"][:n])]
+    check(rel[0] <= DP_LOSS_RTOL and max(rel) <= DP_LATER_LOSS_RTOL,
+          f"{label}: losses off by {rel} relative")
+    diff = float(np.abs(got["grads"] - want["grads"]).max())
+    g_max = float(np.abs(want["grads"]).max())
+    check(diff <= DP_GRAD_RTOL * g_max, f"{label}: the reduced gradient off by {diff} (the "
+          f"largest |g| {g_max})")
+    big = np.abs(want["grads"]) > DP_GRAD_MARGIN * diff
+    p1, w1 = got["params"][1], want["params"][1]
+    off = np.abs(p1 - w1)
+    check(bool((off[big] <= DP_PARAM_ATOL + 1e-6 * np.abs(w1[big])).all()),
+          f"{label}: step-1 parameters off by {float(off[big].max())} above the margin")
+    check(float(off.max()) <= 2 * DP_LR * (1 + 1e-6), f"{label}: step-1 parameters off "
+          f"by {float(off.max())}")
+    bound = 2 * DP_LR * sum(adam_ratio_bound(t) for t in range(1, n + 1)) * (1 + 1e-6)
+    last = float(np.abs(got["params"][n] - want["params"][n]).max())
+    check(last <= bound, f"{label}: step-{n} parameters off by {last} (bound {bound})")
+    return (f"losses within {rel[0]:.3g} relative at step 1 and {max(rel):.3g} after; "
+            f"gradient within {diff:.3g} ({diff / g_max:.3g} of the largest |g|, {g_max:.4g}); "
+            f"step-1 parameters within {float(off[big].max()):.3g} on the {int(big.sum())} "
+            f"whose gradient clears the margin ({float(off.max()):.3g} on all); step-{n} "
+            f"within {last:.3g} (bound {bound:.3g})")
+
+
+def dp_hold_maps(got, want, qt_raw: np.ndarray, label: str) -> str:
+    """Raw bt and dire within DP_RAW_ATOL; voted QT maps equal on every CTU
+    whose pooled raw values (``qt_raw``, the reference's) keep DP_MARGIN
+    from a rounding threshold, which nine CTUs in ten must."""
+    errs = [float(np.abs(a - b).max()) for a, b in zip(got[1:], want[1:])]
+    check(max(errs) <= DP_RAW_ATOL, f"{label}: raw bt / dire differ by {errs}")
+    pooled = qt_raw.reshape(-1, 4, 2, 4, 2).max(axis=(2, 4))
+    keep = (np.abs(pooled - np.floor(pooled) - 0.5) >= DP_MARGIN).all(axis=(1, 2))
+    check(keep.mean() >= DP_MARGIN_SHARE, f"{label}: only {int(keep.sum())} of {len(keep)} "
+          f"CTUs keep the margin")
+    same = (got[0] == want[0]).all(axis=(1, 2))
+    check(bool(same[keep].all()), f"{label}: voted QT maps differ away from a threshold")
+    return (f"raw bt / dire within {max(errs):.3g}, voted QT equal on {int(same.sum())} of "
+            f"{len(same)} CTUs ({int(keep.sum())} keep the margin)")
+
+
+def all_reduce_ms(mesh, n: int, calls: int) -> float:
+    """Host-clock time of one ``comm.all_reduce_sum`` of an ``n``-value
+    bucket on the card, over ``calls`` calls ending in a synchronize (every
+    rank runs the same calls)."""
+    buf = torch.zeros(n, dtype=torch.float32, device=DEVICE)
+    for _ in range(3):
+        comm.all_reduce_sum(mesh, buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        comm.all_reduce_sum(mesh, buf)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def reset_dp_counts() -> None:
+    for fn in DP_PATH_KERNELS.values():
+        fn.launches = 0
+    comm.reset_stats()
+
+
+def dp_counts() -> dict:
+    return {name: fn.launches for name, fn in DP_PATH_KERNELS.items()}
+
+
+def pair_grads(nets, seed: int) -> list:
+    """Seeded gradients of the shapes of ``nets``' parameters on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(p.shape, generator=gen, device=DEVICE) * 10.0 ** (
+                torch.rand(p.shape, generator=gen, device=DEVICE) * 8 - 7)
+            for net in nets for p in net.parameters()]
+
+
+def phase_dp_kernels() -> tuple[dict, dict]:
+    """K12c against its plain version on the card, exactly: the luma and
+    the chroma Q + BD pairs' gradient shapes at scales 1 and 1/2, and 300
+    tensors (three launches); then its device time per call (a CUDA graph
+    of 50) on the luma pair at scale 1/2, the plain version's and the byte
+    bound."""
+    errs = {"bucket_pack": 0.0}
+    pairs = {"luma": (LumaQNet(), LumaMSBDNet()), "chroma": (ChromaQNet(), ChromaMSBDNet())}
+    loss = torch.tensor(0.8125, device=DEVICE)
+    cases = {name: pair_grads(nets, seed=k) for k, (name, nets) in enumerate(pairs.items())}
+    cases["300 tensors"] = [g[:7].contiguous() for g in cases["chroma"] * 10][:300]
+    for name, grads in cases.items():
+        for scale in (1.0, 0.5):
+            before = dp_ops.bucket_pack.launches
+            got = dp_ops.bucket_pack(grads, loss, scale)
+            want = dp_ops.bucket_pack_reference(grads, loss, scale)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["bucket_pack"] = max(errs["bucket_pack"], err)
+            check(torch.equal(got, want), f"K12c on the {name} shapes at scale {scale} differs "
+                  f"from its plain version by {err}")
+            check(dp_ops.bucket_pack.launches - before == -(-(len(grads) + 1) // 128),
+                  f"K12c on {len(grads)} tensors: launches")
+        log(f"[dp-kernels] K12c on the {name} gradient shapes ({len(grads)} tensors, "
+            f"{sum(g.numel() for g in grads)} values and the loss) at scales 1 and 1/2: equal "
+            f"to the plain version")
+    times = {}
+    for name in ("luma", "chroma"):
+        grads = cases[name]
+        n = sum(g.numel() for g in grads) + 1
+        ms = graph_ms(lambda: dp_ops.bucket_pack(grads, loss, 0.5))
+        plain_ms = call_ms(lambda: dp_ops.bucket_pack_reference(grads, loss, 0.5), 20)
+        nbytes = 8 * n
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[dp-kernels] K12c, the {name} pair ({len(grads)} tensors, {n} values): device "
+            f"time per call (CUDA graph of 50) {ms:.6f} ms; plain version from Python "
+            f"{plain_ms:.6f} ms; bound {bound:.6f} ms by bytes ({nbytes} B), "
+            f"{100 * bound / ms:.1f}% of it")
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes")
+    return errs, times["luma"]
+
+
+def phase_dp_nccl1(tmp: pathlib.Path) -> dict:
+    """A one-rank NCCL group on the card: the luma QP 22 predictor on the
+    1080p x 2 CTUs under the mesh, bit-equal to the meshless one (the
+    block is the whole chunk); DP_STEPS joint steps at batch 32 whose losses
+    and parameters equal the meshless run's bit for bit; ``entry()`` and
+    ``dryrun_multichip`` on the mesh; warm CTU predictions/s and steps/s
+    beside the meshless ones; the all-reduce's time per step and K12c's
+    launches. Tears the group down."""
+    blocks = dp_blocks()
+    batches = dp_batches(DP_STEPS)
+    check(md.initialize(f"file://{tmp}/dp_nccl1_store", 1, 0, device=DEVICE),
+          "the one-rank NCCL group did not start")
+    mesh = md.make_mesh(device=DEVICE)
+    out = {"blocks": blocks, "batches": batches}
+    preds = {"meshless": dp_predictor(), "mesh": dp_predictor(mesh)}
+    for label, pred in preds.items():
+        reset_dp_counts()
+        out[label], out[f"{label}_ctus_per_s"] = dp_predict(pred, blocks)
+        log(f"[dp-nccl1] luma QP {DP_QP} predictor, {label}, {len(blocks)} CTUs (1920x1080 x "
+            f"{FRAMES}), batch {BATCH}: {out[f'{label}_ctus_per_s']:.1f} warm CTU "
+            f"predictions/s; launches {dp_counts()}, all-gathers "
+            f"{comm.stats['all_gather']}")
+    check(all(np.array_equal(a, b) for a, b in zip(out["mesh"], out["meshless"])),
+          "the one-rank mesh predictor differs from the meshless one")
+    with torch.inference_mode():
+        x = torch.from_numpy(blocks).to(DEVICE).permute(0, 3, 1, 2).contiguous()
+        out["qt_raw"] = np.concatenate([preds["meshless"].forward(x[i:i + BATCH])[0].cpu()
+                                        .numpy() for i in range(0, len(x), BATCH)])
+
+    for label, m in (("meshless", None), ("mesh", mesh)):
+        reset_dp_counts()
+        with cudnn_deterministic():
+            out[f"train_{label}"] = dp_train(batches, m)
+        launches, reduces = dp_counts(), list(comm.stats["all_reduce"])
+        steps = dp_train(batches[-1:], m, timed=DP_TIMED_STEPS)["steps_per_s"]
+        out[f"train_{label}"]["steps_per_s"] = steps
+        log(f"[dp-nccl1] luma joint step, batch {TRAIN_BATCH}, {label}: {DP_STEPS} steps, "
+            f"losses {out[f'train_{label}']['losses']}, launches {launches}, all-reduces "
+            f"{reduces}; {steps:.2f} warm steps/s")
+        if m is not None:
+            out["launches"] = launches
+    tm, tl = out["train_mesh"], out["train_meshless"]
+    check(tm["losses"] == tl["losses"] and all(np.array_equal(tm["params"][k], tl["params"][k])
+                                               for k in tl["params"]),
+          "the one-rank mesh steps differ from the meshless ones")
+    n = DP_2RANK_STEPS
+    again = [dp_train(batches[:n]) for _ in range(2)]
+    spread = float(np.abs(again[0]["params"][n] - again[1]["params"][n]).max())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(again[0]["losses"], again[1]["losses"]))
+    g_spread = float(np.abs(again[0]["grads"] - again[1]["grads"]).max())
+    log(f"[dp-nccl1] with cuDNN's deterministic algorithms the mesh and meshless steps are "
+        f"bit-equal; with its default ones two meshless runs of {n} steps are "
+        f"{'bit-equal' if spread == 0 else 'not bit-equal'}: first gradients up to "
+        f"{g_spread:.3g} apart, parameters up to {spread:.3g}, losses up to {rel:.3g} "
+        f"relative")
+    check(out["launches"]["bucket_pack"] == DP_STEPS and out["launches"]["qbd_loss"] == DP_STEPS
+          and out["launches"]["adam_update"] == DP_STEPS,
+          f"the mesh steps' launches {out['launches']}")
+    n_values = tl["params"][1].size + 1
+    out["all_reduce_ms"] = all_reduce_ms(mesh, n_values, MD_TIMING_CALLS)
+    log(f"[dp-nccl1] the one-rank mesh's losses and parameters equal the meshless run's bit "
+        f"for bit; NCCL all-reduce of the {n_values}-value bucket at world size 1: "
+        f"{out['all_reduce_ms']:.6f} ms a step")
+
+    reset_dp_counts()
+    fn, (x,) = entry()
+    qt, bt, dire = fn(x)
+    torch.cuda.synchronize()
+    check(qt.shape == (8, 8, 8, 1) and bt.shape == dire.shape == (8, 16, 16, 3)
+          and bool(torch.isfinite(bt).all() and torch.isfinite(dire).all())
+          and bool(torch.isin(qt, torch.arange(4.0, device=DEVICE)).all())
+          and structural_vote.launches == 1, "entry()")
+    res = dryrun_multichip(mesh)
+    check(np.isfinite(res["train"]) and len(res["wave"]) > 0 and res["spatial"] is None,
+          f"dryrun_multichip on one rank: {res['train']}")
+    log(f"[dp-nccl1] entry(): voted QT, bt and dire of the (8, 68, 68, 1) example through K8; "
+        f"dryrun_multichip on one rank: loss {res['train']:.6f}, wave stream "
+        f"{len(res['wave'])} bytes; launches {dp_counts()}")
+    md.shutdown()
+    return out
+
+
+def dp_child(rank: int, tmp: pathlib.Path) -> int:
+    """One of the two-rank data-parallel phase's ranks (``chip_smoke.py
+    --dp-rank R DIR``): gloo on cuda:0 with host-staged tensors; the mesh
+    predictor, DP_2RANK_STEPS joint steps, ``dryrun_multichip``, the
+    all-reduce's time; results pickled to DIR. Prints no result line."""
+    job = pickle.loads((tmp / "dp_job.pkl").read_bytes())
+    md.initialize(f"file://{tmp}/dp_store", 2, rank, backend="gloo", device=DEVICE)
+    mesh = md.make_mesh(device=DEVICE)
+    res = {"transport": comm.transport(mesh)}
+    reset_dp_counts()
+    res["maps"], res["ctus_per_s"] = dp_predict(dp_predictor(mesh), job["blocks"])
+    res["predict_launches"], res["gathers"] = dp_counts(), list(comm.stats["all_gather"])
+    reset_dp_counts()
+    with cudnn_deterministic():     # as the single-process run it is held to
+        res["train"] = dp_train(job["batches"], mesh)
+    res["train_launches"], res["reduces"] = dp_counts(), list(comm.stats["all_reduce"])
+    res["train"]["steps_per_s"] = dp_train(job["batches"][-1:], mesh,
+                                           timed=DP_TIMED_STEPS)["steps_per_s"]
+    res["dryrun"] = dryrun_multichip(mesh)
+    res["all_reduce_ms"] = all_reduce_ms(mesh, job["n_values"], 20)
+    (tmp / f"dp_rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    md.shutdown()
+    return 0
+
+
+def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
+    """Two spawned processes on cuda:0 under gloo (NCCL does not run two
+    ranks on one GPU), tensors staged through host memory: the predictor on
+    the 1080p x 2 CTUs within the raw and vote bounds of the single-process
+    card run; DP_2RANK_STEPS joint steps whose parameters are bit-equal on
+    the two ranks and within the CPU tests' bounds of the single-process
+    card run; ``dryrun_multichip``; the all-reduce via host. A child that
+    fails or outlives CHILD_TIMEOUT fails the phase."""
+    want = nccl1["train_meshless"]
+    n_values = want["params"][1].size + 1
+    (tmp / "dp_job.pkl").write_bytes(pickle.dumps(
+        {"blocks": nccl1["blocks"], "batches": nccl1["batches"][:DP_2RANK_STEPS],
+         "n_values": n_values}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--dp-rank",
+                               str(r), str(tmp)], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=CHILD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"two-rank data-parallel child {r} failed (exit "
+              f"{p.returncode}):\n{out[-6000:]}")
+    res = [pickle.loads((tmp / f"dp_rank{r}.pkl").read_bytes()) for r in range(2)]
+    a, b = (x["train"] for x in res)
+    check(a["losses"] == b["losses"] and all(np.array_equal(a["params"][k], b["params"][k])
+                                             for k in a["params"]),
+          "the two ranks' losses or parameters differ")
+    check(all(np.array_equal(m, n) for m, n in zip(res[0]["maps"], res[1]["maps"])),
+          "the two ranks' predictor maps differ")
+    for r, x in enumerate(res):
+        maps_txt = dp_hold_maps(x["maps"], nccl1["meshless"], nccl1["qt_raw"],
+                                f"rank {r}'s predictor")
+        train_txt = dp_hold_training(x["train"], want, f"rank {r}'s steps")
+        dr = x["dryrun"]
+        check(np.isfinite(dr["train"]) and len(dr["wave"]) > 0 and len(dr["spatial"]) > 0,
+              f"rank {r}: dryrun_multichip")
+        check(x["predict_launches"]["structural_vote"] > 0 and x["gathers"][0] > 0 and
+              all(x["train_launches"][k] == DP_2RANK_STEPS
+                  for k in ("qbd_loss", "adam_update", "bucket_pack")) and
+              x["reduces"][0] == DP_2RANK_STEPS, f"rank {r}: launches {x['train_launches']}")
+        log(f"[dp-2rank] rank {r} ({x['transport']}): predictor {maps_txt}; "
+            f"{x['ctus_per_s']:.1f} warm CTU predictions/s a rank, all-gathers "
+            f"{x['gathers']}; {DP_2RANK_STEPS} joint steps: {train_txt}; launches "
+            f"{x['train_launches']}, all-reduces {x['reduces']}; {x['train']['steps_per_s']:.2f} "
+            f"warm steps/s; dryrun_multichip loss {dr['train']:.6f}, wave {len(dr['wave'])} "
+            f"bytes, spatial {len(dr['spatial'])} bytes; all-reduce of the {n_values}-value "
+            f"bucket via host {x['all_reduce_ms']:.6f} ms")
+    log(f"[dp-2rank] both ranks' parameters bit-equal after every step; phase "
+        f"{time.perf_counter() - t0:.3f} s")
+    return res[0]
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2977,6 +3419,9 @@ def md_only() -> int:
              for comp in ("Luma", "Chroma")}
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_md_") as tmp:
         phase_md_2rank(phase_md_nccl1(preds, pathlib.Path(tmp)), pathlib.Path(tmp))
+    phase_dp_kernels()
+    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_dp_") as tmp:
+        phase_dp_2rank(phase_dp_nccl1(pathlib.Path(tmp)), pathlib.Path(tmp))
     log(card_line())
     log("[multidevice-only] partial run: no result line")
     return 0
@@ -3011,6 +3456,8 @@ def main() -> int:
         return seq_only()
     if sys.argv[1:2] == ["--md-rank"]:
         return md_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
     phase_build()
@@ -3020,6 +3467,7 @@ def main() -> int:
     train_errs, train_times = phase_train_kernels()
     seq_errs, seq_times = phase_seq_kernels()
     md_errs, md_times = phase_halo_kernels()
+    dp_errs, dp_times = phase_dp_kernels()
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_") as tmp:
         preds, blocks, launches = phase_main_path(pathlib.Path(tmp))
     phase_cpu_vs_card(preds, blocks)
@@ -3041,6 +3489,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_md_") as tmp:
         nccl1 = phase_md_nccl1(preds, pathlib.Path(tmp))
         two = phase_md_2rank(nccl1, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_dp_") as tmp:
+        dp1 = phase_dp_nccl1(pathlib.Path(tmp))
+        dp2 = phase_dp_2rank(dp1, pathlib.Path(tmp))
     phase_encode_profile(frames, maps_l, maps_c)
 
     kernels = [{
@@ -3098,6 +3549,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": two["spatial_launches"][name], "max_abs_err": md_errs[name],
             **md_times[name], "library_ms": None})
+    # K12c: no single PyTorch call packs and scales a table of tensors;
+    # launches are the one-rank NCCL mesh's DP_STEPS training steps
+    for name, (_, source, replaces) in DP_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": dp1["launches"][name], "max_abs_err": dp_errs[name],
+            **dp_times, "library_ms": None})
     # K12a is no kernel of its own: each rank runs K1-K7 on its block of the
     # step and one all-gather per pass; its launches under each mesh
     k12a = {"replaces": K12A_REPLACES, "launches": {
@@ -3108,7 +3566,18 @@ def main() -> int:
                           f"{two['transport']}, 2 ranks": two["times"]["all_gather"]},
         "exchange_ms": {"nccl, 1 rank": nccl1["times"]["exchange"],
                         f"{two['transport']}, 2 ranks": two["times"]["exchange"]}}
-    log(json.dumps({"kernels": kernels, "k12a": k12a}))
+    # K12c's data-parallel CNN under each mesh: the predictor's and the
+    # step's rates, the all-reduce of the gradient bucket per step
+    k12c = {"ctus_per_s": {"meshless": dp1["meshless_ctus_per_s"],
+                           "nccl, 1 rank": dp1["mesh_ctus_per_s"],
+                           f"{dp2['transport']}, 2 ranks (rank 0)": dp2["ctus_per_s"]},
+            "steps_per_s": {"meshless": dp1["train_meshless"]["steps_per_s"],
+                            "nccl, 1 rank": dp1["train_mesh"]["steps_per_s"],
+                            f"{dp2['transport']}, 2 ranks (rank 0)":
+                                dp2["train"]["steps_per_s"]},
+            "all_reduce_ms": {"nccl, 1 rank": dp1["all_reduce_ms"],
+                              f"{dp2['transport']}, 2 ranks": dp2["all_reduce_ms"]}}
+    log(json.dumps({"kernels": kernels, "k12a": k12a, "k12c": k12c}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,12 @@ packages read).
 
 ``--init`` takes a checkpoint holding {"q": ..., "bd": ...} (a stage-"qbd"
 checkpoint) to start from; ``--device cpu`` runs on the CPU.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) every process trains data-parallel
+on its block of each batch over the mesh of all ranks, one card each (the
+JAX driver shards over every device it sees); rank 0 writes:
+
+  torchrun --nproc-per-node 4 -m pmp_vvc_tpu_torch.cli.train --stage qbd ...
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..models.checkpoint import load_trained, params_from_jax
+    from ..parallel import initialize, make_mesh, shutdown
     from ..train.driver import load_npy_split, synth_dataset, train
 
     if args.synth:
@@ -59,12 +66,16 @@ def main(argv=None):
             ap.error(f"--init {args.init} does not hold q and bd params")
         init = {k: params_from_jax(v) for k, v in tree.items()}
 
-    train(args.stage, train_data, val_data, qp=args.qp,
-          is_luma=not args.chroma, epochs=args.epochs, lr=args.lr,
-          decay_every=args.decay_every, batch=args.batch,
-          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-          log_path=args.log, init_params=init, seed=args.seed,
-          device=args.device)
+    mesh = make_mesh(device=args.device) if initialize(device=args.device) else None
+    try:
+        train(args.stage, train_data, val_data, qp=args.qp,
+              is_luma=not args.chroma, epochs=args.epochs, lr=args.lr,
+              decay_every=args.decay_every, batch=args.batch,
+              ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+              log_path=args.log, init_params=init, seed=args.seed,
+              device=args.device, mesh=mesh)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

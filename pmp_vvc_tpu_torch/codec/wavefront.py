@@ -74,7 +74,7 @@ from ..ops.mip_generic import mip_select
 from ..ops.rows import check_rows
 from ..ops.tq_generic import tq, tq_mts
 from ..parallel import comm
-from ..parallel.wavefront_dp import round_batch, shard_rows
+from ..parallel.wavefront_dp import check_device, round_batch, shard_rows
 from .encoder import RDO, CuInfo, FrameEncoder
 from .mtt import Split, SplitState, get_implicit_split
 from .rdo_device import DeviceRDO, _skey
@@ -501,11 +501,9 @@ class WavefrontEncoder(FrameEncoder):
         if bad:
             raise NotImplementedError(
                 f"wavefront path does not support {bad}; use FrameEncoder")
-        if mesh is not None:
-            if device is None:
-                device = mesh.device
-            elif resolve_device(device).type != mesh.device.type:
-                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        if mesh is not None and device is None:
+            device = mesh.device
+        check_device(mesh, device)
         super().__init__(cfg, device=device, **kw)
         self._device = resolve_device(device)       # the wave path's uploads
         self.crs_lut = crs_lut(cfg.bit_depth, cfg.lmcs_offset) \

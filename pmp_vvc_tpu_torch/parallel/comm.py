@@ -1,8 +1,12 @@
-"""Every collective of multi-device encoding, in one place.
+"""Every collective of the port's multi-device work, in one place.
 
 - ``all_gather``: the wave step's gather of each rank's block of per-CU
-  outputs into the full batch (K12a), and the spatial scan's final gather
-  of the stripes;
+  outputs into the full batch (K12a), the spatial scan's final gather of
+  the stripes, and the data-parallel predictor's gather of each rank's
+  maps (K12c);
+- ``all_reduce_sum``: the data-parallel training step's sum of the
+  gradient bucket (K12c), the counterpart of the gradient ``psum`` XLA
+  inserts;
 - ``neighbour_exchange``: the spatial scan's halo send / receive with
   ranks d - 1 and d + 1 (K12b), the counterpart of the JAX package's two
   ``ppermute`` calls.
@@ -23,7 +27,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-stats = {"all_gather": [0, 0], "exchange": [0, 0]}   # name: [calls, bytes sent]
+# name: [calls, bytes sent]
+stats = {"all_gather": [0, 0], "all_reduce": [0, 0], "exchange": [0, 0]}
 
 
 def reset_stats() -> None:
@@ -58,6 +63,20 @@ def all_gather(mesh, block: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
     dist.all_gather(parts, src, group=mesh.group)
     return torch.cat(parts).to(mesh.device)
+
+
+def all_reduce_sum(mesh, buf: torch.Tensor) -> torch.Tensor:
+    """Sum the flat float32 ``buf`` over the mesh, in place; returns it.
+    Every rank gets the same sum, bit for bit. Every rank must call it."""
+    if buf.dtype != torch.float32 or buf.ndim != 1 or not buf.is_contiguous():
+        raise ValueError("all_reduce_sum takes a flat contiguous float32 buffer")
+    _count("all_reduce", buf)
+    if mesh.backend == "nccl" or buf.device.type == "cpu":
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+        return buf
+    host = buf.cpu()
+    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=mesh.group)
+    return buf.copy_(host)
 
 
 def neighbour_exchange(mesh, buf: torch.Tensor, split: int) -> torch.Tensor:

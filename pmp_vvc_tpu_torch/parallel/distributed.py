@@ -12,15 +12,21 @@ All-intra frames are independent, so the encoder's multi-process mode
 across frames is frame sharding: each rank encodes its own POC range
 (``process_frame_range``) and the bitstreams concatenate after the
 parameter sets.
+
+``host_shard`` is the data-parallel counterpart of a batch that each
+process loads for itself: every rank passes its own slice of the global
+batch, and the slices become the ranks' blocks once their lengths agree.
 """
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
+from . import comm
 
 
 def initialize(init_method: str | None = None, world_size: int | None = None,
@@ -71,3 +77,22 @@ def process_frame_range(n_frames: int, rank: int | None = None,
     world_size = (dist.get_world_size() if up else 1) if world_size is None else world_size
     per = (n_frames + world_size - 1) // world_size
     return range(rank * per, min((rank + 1) * per, n_frames))
+
+
+def host_shard(mesh, tree):
+    """This rank's slice of a global batch as its block on ``mesh``: each
+    array of ``tree`` (an array or a tuple / list of arrays, numpy or torch)
+    becomes a tensor on ``mesh.device``. The counterpart of the JAX
+    package's ``host_shard`` (``jax.make_array_from_process_local_data``):
+    every rank passes its own slice, and every slice of one array must have
+    the same length on every rank, which one all-gather of the lengths
+    checks (every rank raises together otherwise). Every rank must call
+    it."""
+    leaves = list(tree) if isinstance(tree, (tuple, list)) else [tree]
+    blocks = [(a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a)))
+              .to(mesh.device) for a in leaves]
+    mine = torch.tensor([[len(b) for b in blocks]], dtype=torch.int64, device=mesh.device)
+    lengths = comm.all_gather(mesh, mine)
+    if not bool((lengths == lengths[:1]).all()):
+        raise ValueError(f"the ranks' slices differ in length: {lengths.tolist()}")
+    return type(tree)(blocks) if isinstance(tree, (tuple, list)) else blocks[0]

@@ -1,7 +1,15 @@
-"""The encode half of the JAX package's ``dryrun_multichip``
-(``__graft_entry__.py:72-108``) on the port.
+"""The JAX package's ``dryrun_multichip`` (``__graft_entry__.py:38-108``)
+on the port: ``dryrun_multichip(mesh)`` runs its training half, then its
+encode half. Every rank of the mesh calls each.
 
-Every rank of the mesh calls ``dryrun_multichip_encode(mesh)``:
+``dryrun_multichip_train(mesh)``, the training half (38-71): one joint qbd
+step of the luma nets at QP 32, data-parallel over the mesh (K12c), on
+``n = 2 * D`` CTUs drawn by ``np.random.RandomState(0)`` as the JAX
+function draws them (x, qt, bt, dire), lr 1e-4; the nets' initial
+parameters come from flax's initialisation with seeds 0 (Q) and 1 (BD),
+or from ``params``.
+
+``dryrun_multichip_encode(mesh)``, the encode half (72-108):
 
 - a 128x128 frame encoded by ``WavefrontEncoder(mesh=...)`` in the dual-tree
   configuration with every device tool and LMCS with chroma scaling, its CU
@@ -16,17 +24,72 @@ v of the first, then of the second.
 from __future__ import annotations
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from ..codec.encoder import FrameEncoder
 from ..codec.headers import VVCConfig
 from ..codec.wavefront import WavefrontEncoder
+from ..models import LumaMSBDNet, LumaQNet, init_params
+from ..pmp.predict import strict_fp32
+from ..train.trainer import Adam, make_qbd_train_step, shard_batch
 from .spatial import spatial_wave_planes
 from .wavefront_dp import make_mesh
 
 W = H = 128
 TOOLS = dict(dual_tree=True, mts_intra=True, mip=True, cclm=True, lfnst=True,
              sign_hiding=True, joint_cbcr=True, lmcs=True, lmcs_chroma_scaling=True)
+
+
+TRAIN_QP, TRAIN_LR = 32, 1e-4
+
+
+def luma_nets(params=None, device=None):
+    """The luma Q and BD nets on ``device``: ``params`` ({"q": state dict,
+    "bd": state dict}) or flax's initialisation with seeds 0 (Q) and 1 (BD),
+    as the JAX entry points draw them with ``PRNGKey(0)`` and ``PRNGKey(1)``
+    (other numbers: torch's generator is not JAX's)."""
+    q_net, bd_net = LumaQNet(), LumaMSBDNet()
+    for k, net in enumerate((q_net, bd_net)):
+        if params is None:
+            init_params(net, torch.Generator().manual_seed(k))
+        else:
+            net.load_state_dict(params[("q", "bd")[k]], strict=True)
+    return q_net.to(device), bd_net.to(device)
+
+
+def dryrun_train_batch(n: int):
+    """The training half's (x, qt, bt, dire), NHWC float32, as
+    ``__graft_entry__.py:52-56`` draws them."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0, 255, (n, 68, 68, 1)).astype(np.float32)
+    qt = rng.randint(0, 4, (n, 8, 8, 1)).astype(np.float32)
+    bt = rng.randint(0, 3, (n, 16, 16, 3)).astype(np.float32)
+    dire = rng.randint(-1, 2, (n, 16, 16, 3)).astype(np.float32)
+    return x, qt, bt, dire
+
+
+def dryrun_multichip_train(mesh, params=None) -> float:
+    """One data-parallel joint step on every rank of ``mesh``; asserts a
+    finite loss and returns it (the loss of the global batch, the same on
+    every rank)."""
+    strict_fp32()
+    q_net, bd_net = luma_nets(params, mesh.device)
+    opt = Adam(list(q_net.parameters()) + list(bd_net.parameters()))
+    run = make_qbd_train_step(q_net, bd_net, opt, qp=TRAIN_QP, is_luma=True, mesh=mesh)
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+                  for a in dryrun_train_batch(2 * mesh.size))
+    x, qt, bt, dire = (a.to(mesh.device) for a in shard_batch(mesh, batch))
+    loss = float(run(x, qt, bt, dire, TRAIN_LR))
+    if not np.isfinite(loss):
+        raise RuntimeError(f"the dry run's training step gave a loss of {loss}")
+    return loss
+
+
+def dryrun_multichip(mesh) -> dict:
+    """Both halves on every rank of ``mesh``: {"train": the step's loss,
+    "wave": bytes, "spatial": bytes or None}."""
+    return {"train": dryrun_multichip_train(mesh), **dryrun_multichip_encode(mesh)}
 
 
 def dryrun_frames():

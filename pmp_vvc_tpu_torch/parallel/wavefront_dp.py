@@ -54,6 +54,13 @@ def make_mesh(group=None, device=None) -> Mesh:
     return Mesh(group, rank, dist.get_world_size(group), backend, dev)
 
 
+def check_device(mesh, device: torch.device) -> None:
+    """Raise unless ``device`` is of the kind the mesh's tensors live on
+    (no mesh: nothing to check)."""
+    if mesh is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+
+
 def round_batch(batch: dict, size: int) -> dict:
     """Each class's CUs per step rounded up to a multiple of the mesh size,
     so that every rank's block of a step has the same number of rows (the
@@ -62,9 +69,10 @@ def round_batch(batch: dict, size: int) -> dict:
 
 
 def shard_rows(mesh: Mesh, rows: torch.Tensor) -> torch.Tensor:
-    """This rank's contiguous block of a step's (B, 8) schedule rows: the
-    ``P(None, "dp")`` cut of the batch axis. B must be a multiple of the
-    mesh size (``round_batch``); a block may hold only padding rows."""
+    """This rank's contiguous block of a step's (B, 8) schedule rows (or of
+    any batch, tensor or array): the ``P(None, "dp")`` cut of the batch
+    axis. B must be a multiple of the mesh size (``round_batch``); a block
+    may hold only padding rows."""
     B = rows.shape[0]
     if B % mesh.size:
         raise ValueError(f"{B} rows do not split over {mesh.size} ranks")

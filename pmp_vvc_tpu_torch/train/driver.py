@@ -12,6 +12,11 @@ The QT label is shifted by -1 (QT depth starts at 1 under CTU-128).
 ``synth_dataset`` fabricates a small learnable set for smoke training.
 
 The whole split goes to the device once; each step gathers its batch there.
+With ``mesh=`` (K12c) every rank draws the same permutation and the same
+initialisation, steps on its ``shard_batch`` block of every batch,
+validates unsharded and returns the same rows (but for their wall time
+``time_s``); only rank 0 prints and writes the checkpoints and the loss
+CSV.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from ..models import ChromaMSBDNet, ChromaQNet, LumaMSBDNet, LumaQNet, init_para
 from ..models.checkpoint import params_to_jax, save_params
 from ..pmp.predict import strict_fp32
 from .trainer import (Adam, make_bd_train_step, make_q_train_step, make_qbd_train_step,
-                      step_decay_schedule)
+                      shard_batch, step_decay_schedule)
 
 
 def load_npy_split(data_dir, split, comp="Luma", qp=32):
@@ -116,10 +121,11 @@ def _tree(stage, q_net, bd_net):
 
 def train(stage, train_data, val_data, *, qp=32, is_luma=True, epochs=20,
           lr=1e-3, decay_every=10, batch=64, ckpt_dir=None, ckpt_every=10,
-          log_path=None, init_params=None, seed=0, device=None,
+          log_path=None, init_params=None, seed=0, device=None, mesh=None,
           print_fn=print):
     """Run one training stage ("q" | "bd" | "qbd") on ``device`` (the card
-    unless "cpu" is given); returns (params, log rows).
+    unless "cpu" is given; under ``mesh`` the mesh's device); returns
+    (params, log rows).
 
     Adam with the step-halving lr, per-epoch train loss and validation
     accuracies, loss CSV, a checkpoint every ``ckpt_every`` epochs and at
@@ -128,8 +134,15 @@ def train(stage, train_data, val_data, *, qp=32, is_luma=True, epochs=20,
     ``models/checkpoint.py``) with a generator seeded by ``seed``. The
     returned params are the trained net's state dict (stage "q" or "bd") or
     {"q": ..., "bd": ...} (stage "qbd"), on the device.
+
+    ``mesh`` (``trainer.data_mesh``): data-parallel over its ranks, each
+    stepping on its block of every batch (``batch`` must split evenly);
+    every rank must call ``train`` with the same arguments.
     """
+    if mesh is not None and device is None:
+        device = mesh.device
     dev = resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     strict_fp32()
     q_net = LumaQNet() if is_luma else ChromaQNet()
     bd_net = LumaMSBDNet() if is_luma else ChromaMSBDNet()
@@ -144,13 +157,13 @@ def train(stage, train_data, val_data, *, qp=32, is_luma=True, epochs=20,
     bd_net.to(dev)
     if stage == "q":
         opt = Adam(q_net.parameters())
-        run = make_q_train_step(q_net, opt)
+        run = make_q_train_step(q_net, opt, mesh=mesh)
     elif stage == "bd":
         opt = Adam(bd_net.parameters())
-        run = make_bd_train_step(bd_net, opt, qp=qp, is_luma=is_luma)
+        run = make_bd_train_step(bd_net, opt, qp=qp, is_luma=is_luma, mesh=mesh)
     elif stage == "qbd":
         opt = Adam(list(q_net.parameters()) + list(bd_net.parameters()))
-        run = make_qbd_train_step(q_net, bd_net, opt, qp=qp, is_luma=is_luma)
+        run = make_qbd_train_step(q_net, bd_net, opt, qp=qp, is_luma=is_luma, mesh=mesh)
     else:
         raise ValueError(f"unknown stage {stage!r}")
     x, qt, bt, dire = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -166,6 +179,8 @@ def train(stage, train_data, val_data, *, qp=32, is_luma=True, epochs=20,
         t0 = time.time()
         for i in range(0, n - batch + 1, batch):
             sl = perm[i:i + batch]
+            if mesh is not None:
+                sl = shard_batch(mesh, sl)
             if stage == "q":
                 losses.append(run(x[sl], qt[sl], cur_lr))
             else:
@@ -182,18 +197,19 @@ def train(stage, train_data, val_data, *, qp=32, is_luma=True, epochs=20,
         elif val_data is not None:
             row["qt"] = validate(q_net, bd_net, val_data)["qt"]
         log_rows.append(row)
-        print_fn(" ".join(f"{k}={v:.4g}" if isinstance(v, float) else
-                          f"{k}={v}" for k, v in row.items()))
-        if ckpt_dir and (epoch + 1) % ckpt_every == 0:
+        if writer:
+            print_fn(" ".join(f"{k}={v:.4g}" if isinstance(v, float) else
+                              f"{k}={v}" for k, v in row.items()))
+        if writer and ckpt_dir and (epoch + 1) % ckpt_every == 0:
             save_params(pathlib.Path(ckpt_dir) / f"{stage}_epoch{epoch + 1}.msgpack",
                         _tree(stage, q_net, bd_net))
-    if log_path:
+    if writer and log_path:
         keys = sorted({k for r in log_rows for k in r})
         with open(log_path, "w", newline="") as f:
             wcsv = csv.DictWriter(f, fieldnames=keys)
             wcsv.writeheader()
             wcsv.writerows(log_rows)
-    if ckpt_dir:
+    if writer and ckpt_dir:
         save_params(pathlib.Path(ckpt_dir) / f"{stage}_final.msgpack",
                     _tree(stage, q_net, bd_net))
     params = {"q": q_net.state_dict(), "bd": bd_net.state_dict()}

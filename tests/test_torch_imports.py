@@ -62,6 +62,9 @@ PARALLEL_MODULES = {
         "parallel", "parallel.distributed", "parallel.wavefront_dp", "parallel.comm",
         "parallel.spatial", "parallel.dryrun")}
 
+# the data-parallel CNN slice's new modules (K12c)
+DP_MODULES = {"pmp_vvc_tpu_torch." + m for m in ("ops.dp_generic", "entry")}
+
 
 def _blocker_namespace():
     ns = {}
@@ -84,10 +87,12 @@ def test_port_imports_every_module_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = set(proc.stdout.split())
     # data, models, pmp, codec, ops, native, train, cli, tools, utils,
-    # parallel and their modules, _build, _device: 46 before the training
-    # slice, 58 with it, 64 with the sequential encoder's, 70 with parallel
+    # parallel and their modules, _build, _device, entry: 46 before the
+    # training slice, 58 with it, 64 with the sequential encoder's, 70 with
+    # parallel, 72 with the data-parallel CNN's
     assert TRAIN_MODULES <= names and SEQ_MODULES <= names and PARALLEL_MODULES <= names
-    assert len(names) >= 70
+    assert DP_MODULES <= names
+    assert len(names) >= 72
 
 
 def test_rdo_modules_are_scanned():
@@ -109,6 +114,12 @@ def test_parallel_modules_are_scanned():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     want = {m.replace(".", "/") for m in PARALLEL_MODULES}
     assert {w + ".py" if w + ".py" in names else w + "/__init__.py" for w in want} <= names
+
+
+def test_dp_modules_are_scanned():
+    """The data-parallel CNN slice's sources are among those scanned below."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {m.replace(".", "/") + ".py" for m in DP_MODULES} <= names
 
 
 def test_train_modules_are_scanned():

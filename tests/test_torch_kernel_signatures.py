@@ -20,9 +20,10 @@ import pytest
 from pmp_vvc_tpu_torch import _build
 
 CSRC = pathlib.Path(_build.__file__).resolve().parent / "csrc"
-WRAPPERS = ("codec.wavefront", "ops.cclm_generic", "ops.distortion", "ops.intra",
-            "ops.intra_generic", "ops.mip", "ops.mip_generic", "ops.quant", "ops.rdo_generic",
-            "ops.tq_generic", "ops.train_generic", "parallel.spatial", "pmp.structural")
+WRAPPERS = ("codec.wavefront", "ops.cclm_generic", "ops.distortion", "ops.dp_generic",
+            "ops.intra", "ops.intra_generic", "ops.mip", "ops.mip_generic", "ops.quant",
+            "ops.rdo_generic", "ops.tq_generic", "ops.train_generic", "parallel.spatial",
+            "pmp.structural")
 _PROTO = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 
 
@@ -66,8 +67,8 @@ PROTOS = _prototypes()
 
 def test_every_source_has_an_entry_point():
     assert {lib for lib, _ in PROTOS} == {p.stem for p in CSRC.glob("*.cu")}
-    assert len(PROTOS) >= 19 and {("halo", "pmp_halo_pack"),
-                                  ("halo", "pmp_halo_unpack")} <= set(PROTOS)
+    assert len(PROTOS) >= 20 and {("halo", "pmp_halo_pack"), ("halo", "pmp_halo_unpack"),
+                                  ("grad_bucket", "pmp_bucket_pack")} <= set(PROTOS)
 
 
 def test_tables_name_only_real_entry_points():

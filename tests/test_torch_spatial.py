@@ -1,6 +1,6 @@
 """The port's spatial-stripe scan (K12b) on the CPU over gloo.
 
-Two rank processes (see ``test_torch_multidevice_encode.Ranks``) run, on
+Two rank processes (see ``torch_ranks.Ranks``) run, on
 256x128 frames, ``spatial_wave_planes`` with tools off and with the JAX
 package's spatial tool set (tests/test_spatial_sharding.py:22-26) and
 ``dryrun_multichip_encode`` at D = 2; every rank must return the same. With
@@ -32,7 +32,7 @@ from pmp_vvc_tpu_torch.parallel import process_frame_range
 from pmp_vvc_tpu_torch.parallel import spatial as sp
 from pmp_vvc_tpu_torch.parallel.dryrun import dryrun_config, dryrun_frames
 from test_spatial_sharding import _TOOLSET, _synth
-from test_torch_multidevice_encode import Ranks, same_on_every_rank
+from torch_ranks import Ranks, same_on_every_rank
 
 torch.set_num_threads(2)
 
