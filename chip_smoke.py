@@ -37,8 +37,10 @@ Phases, each of which fails the run on error (nothing is caught):
    residual differences of both signs; K4 with the LMCS chroma residual
    scale (K6b) for U/V and the joint TU, with and without sign-data hiding,
    its per-CU scale held to ``crs_scale_reference`` too, on a 208x120 frame
-   where every CRS case occurs (``CRS_CASES``); timed at the main path's
-   batch shapes.
+   where every CRS case occurs (``CRS_CASES``); K2 also on its tie and edge
+   cases (``RMD_TIES``: a 35-way tie planar must win, modes 2 and 66
+   winning with the refinement's clamp repeating them, 4xN and Nx4 CUs);
+   timed at the main path's batch shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
@@ -122,14 +124,17 @@ in ``csrc/adam.cu``):
 
 The sequential ``FrameEncoder`` (K10a ``predict_block`` in
 ``csrc/seq_intra.cu``, K10b ``predict_mip_all`` in ``csrc/seq_mip.cu``, K10c
-``seq_tq`` in ``csrc/seq_tq.cu``, K10d ``satd`` in ``csrc/seq_satd.cu``) and
+``seq_tq`` in ``csrc/seq_tq.cu``, K10d ``satd`` in ``csrc/seq_satd.cu``;
+K10e ``sad`` / ``sse`` in ``csrc/seq_dist.cu``, which no path calls) and
 the encode CLI:
 
-19. K10a-d against their plain versions on the card, exactly: K10a on all
+19. K10a-e against their plain versions on the card, exactly: K10a on all
     67 modes at every luma size 4-64 and chroma size 2-32 at 8 and 10 bits,
     K10b at every size class, K10c on every MTS pair, DCT-2 at 64 and the
     ISP shapes at QP 0/22/37/51 with every stage mask, K10d on every tile
-    shape; each timed at 16x16 (a CUDA graph of 50 calls) beside its plain
+    shape, K10e at every side 2-64 against one original and one per block,
+    on a block whose int32 SSE wraps and on differences at the int32
+    limits; each timed at 16x16 (a CUDA graph of 50 calls) beside its plain
     version and the wrapper's round trip from numpy to numpy.
 20. The sequential path: ``FrameEncoder(mode_select="satd")`` with all 67
     RMD modes on 416x240 x 2 frames of natural content, the bench's tools
@@ -195,7 +200,12 @@ training step, ``entry`` and ``dryrun_multichip``):
     single-process card run; ``dryrun_multichip``; the all-reduce via host.
 
 ``python3 chip_smoke.py --seq-only`` runs the build and phases 19-22 alone,
-``--md-only`` the build and phases 23-28; neither prints a result line.
+``--md-only`` the build and phases 23-28, ``--k2-times PARENT`` the build,
+phases 6 and 19 and K2's time beside the parent commit's K2 (``PARENT``:
+a directory holding that commit's ``pmp_vvc_tpu_torch/csrc``, e.g. from
+``git archive``) and beside this K2 built in the other shapes of
+``K2_VARIANTS``, in turns in one process (``phase_k2_times``); none
+prints a result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -207,6 +217,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
+import functools
 import hashlib
 import itertools
 import json
@@ -230,6 +242,7 @@ from pmp_vvc_tpu_torch.codec.headers import VVCConfig
 from pmp_vvc_tpu_torch.data.synthcontent import natural_frame, natural_sequence
 from pmp_vvc_tpu_torch.data.yuv import blocks_for_sequence, write_yuv420
 from pmp_vvc_tpu_torch.ops import distortion as dist_ops
+from pmp_vvc_tpu_torch.ops import intra_generic as ig
 from pmp_vvc_tpu_torch.ops import intra as intra_ops
 from pmp_vvc_tpu_torch.ops import mip as mip_ops
 from pmp_vvc_tpu_torch.ops import quant as quant_ops
@@ -238,7 +251,8 @@ from pmp_vvc_tpu_torch.ops import tq_generic as ttq
 from pmp_vvc_tpu_torch.ops.cclm_generic import (
     cclm_costs, cclm_models, cclm_neighbours, cclm_select, cclm_select_reference)
 from pmp_vvc_tpu_torch.ops.intra_generic import (
-    gather_plane, intra_rmd, intra_rmd_reference, ref_gather, ref_gather_reference)
+    gather_plane, intra_rmd, intra_rmd_reference, predict_generic, ref_gather,
+    ref_gather_reference)
 from pmp_vvc_tpu_torch.ops.lmcs_generic import (
     UNIT_SCALE, crs_forward, crs_lut, crs_neighbours, crs_scale_reference)
 from pmp_vvc_tpu_torch.ops.mip_generic import mip_select, mip_select_reference
@@ -277,6 +291,20 @@ BATCH = 512
 VOTE_N = 65_536
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12                # H100 SXM float32 outside tensor cores
+# 32-bit integer add, multiply-add, compare and shift: 64 results per clock
+# per SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0); times the SMs and the max SM clock, int32_ops_per_s
+INT32_PER_CLOCK_PER_SM = 64
+# The kernels whose counted operations are all integer, from their sources:
+# K1 (reference substitution and filter), K2 and K9a (angular prediction,
+# Hadamard SATD), K3 (MIP), K6a (CCLM fit and SATDs), K9b (SATDs) and K10a-e
+# (prediction, MIP, the integer transform and quantiser, SATD, SAD / SSE).
+# K4, K5 and K9c mix int32 transforms with float32 rate-distortion costs, and
+# K8 and K11 are float32: they keep FP32_OPS_PER_S, which bounds any mix
+# from below.
+INT32_KERNELS = frozenset({"ref_gather", "intra_rmd", "mip_rmd", "cclm", "rdo_luma_select",
+                           "rdo_chroma_select", "seq_intra", "seq_mip", "seq_tq", "seq_satd",
+                           "seq_sad", "seq_sse"})
 # Card against CPU, both float32 with TF32 off. The convolutions sum up to
 # 1,600 terms in another order on each side, and cuDNN may pick Winograd or
 # FFT algorithms whose float32 error exceeds a direct sum's. The CPU port
@@ -289,6 +317,23 @@ RAW_TOL = 1e-3
 # every map; case A (num0 <= 12) adds 16 promotions + 4 x (4 adds + 4 tests
 # + 2 range tests + 4 selects); case B (12 < num0 < 16) adds 16 stores.
 OPS_COMMON, OPS_CASE_A, OPS_CASE_B = 112, 72, 16
+
+
+@functools.cache
+def int32_ops_per_s() -> float:
+    """The card's 32-bit integer rate: INT32_PER_CLOCK_PER_SM times its SMs
+    times its max SM clock as nvidia-smi reports it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    mhz = float(smi.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def ops_rate(name: str) -> float:
+    """Operations per second that bound kernel ``name``'s counted operations."""
+    return int32_ops_per_s() if name in INT32_KERNELS else FP32_OPS_PER_S
 
 
 def log(msg: str) -> None:
@@ -379,14 +424,20 @@ def graph_ms(fn, reps: int = 50, iters: int = 20) -> float:
     return _events_ms(graph.replay, iters) / reps
 
 
+def ptxas_lines(out: str) -> list:
+    """ptxas's -v lines that name a kernel or give its registers, stack
+    frame and spills."""
+    return [line.strip() for line in out.splitlines()
+            if "Function properties" in line or "registers" in line or "spill" in line]
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"[build] {len(logs)} kernel(s) in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_lines(out):
+            log(f"[build] {name}: {line}")
 
 
 def phase_vote() -> dict:
@@ -644,6 +695,98 @@ def kernel_planes(seed: int, width: int, height: int, scale: int):
     return (rec.astype(np.int32), org.astype(np.int32), og.astype(np.int32))
 
 
+# K2's tie and edge cases: the kind of each CU per luma class, (kind, w, h).
+# "flat": flat references (every candidate predicts the same constant) and
+# a flat original, so that all 35 RMD costs are equal and planar must win;
+# "mode 2" / "mode 66": the original is that mode's prediction (cost 0), so
+# it wins and the refinement's clamp repeats it; "random": kernel_planes'
+# content. 4xN and Nx4 CUs (4x4 SATD tiles) occur among them.
+RMD_TIE_CASES = ("flat: planar wins a 35-way tie", "mode 2 wins", "mode 66 wins", "4xN", "Nx4")
+RMD_TIES = {
+    32: (("flat", 16, 16), ("flat", 8, 32), ("mode 2", 32, 32), ("mode 2", 4, 16),
+         ("mode 66", 32, 16), ("mode 66", 16, 4), ("random", 4, 32), ("random", 4, 8),
+         ("random", 32, 4), ("random", 8, 4)),
+    64: (("flat", 64, 64), ("mode 2", 64, 32), ("mode 2", 4, 64), ("mode 66", 32, 64),
+         ("mode 66", 64, 4), ("random", 4, 64), ("random", 64, 16)),
+}
+FLAT_REC, FLAT_ORG = 512, 600
+
+
+def rmd_tie_inputs(P: int, seed: int, width: int = 256, height: int = 192):
+    """(rows, rec, org, og, kinds) as numpy for K2's tie cases (``RMD_TIES``)
+    in the P-pad luma class: one CU of each kind in its own P x P cell (at
+    the cell's top-left), then one padding row. A flat CU's references
+    (the recon from one sample above-left to 2w right and 2h down) are
+    FLAT_REC and its original FLAT_ORG; the flat CUs take the last cells,
+    so that their flat recon reaches no other CU's references. A "mode"
+    CU's original is the prediction of that mode from its references
+    (``predict_generic``); it lies off the frame's top row and left column
+    and comes after every coded CU (order 400), so that its references are
+    the recon's and not one substituted constant."""
+    rng = np.random.RandomState(seed)
+    rec, org, og = kernel_planes(seed, width, height, 1)
+    nx, ncells = width // P, (width // P) * (height // P)
+    free = rng.permutation(ncells)
+    cells = {}
+    for kind in ("flat", "mode", "random"):
+        for i, (k, _, _) in enumerate(RMD_TIES[P]):
+            if not k.startswith(kind):
+                continue
+            if kind == "flat":          # the last cell still free
+                cells[i] = max(free)
+            else:                       # the first free (interior for a mode CU)
+                cells[i] = next(c for c in free if kind == "random" or
+                                (c >= nx and c % nx > 0))
+            free = free[free != cells[i]]
+    rows, kinds = [], []
+    for i, (kind, w, h) in enumerate(RMD_TIES[P]):
+        cy, cx = divmod(cells[i], nx)
+        fi, x, y = rng.randint(2), cx * P, cy * P
+        order = 400 if kind.startswith("mode") else rng.randint(0, 400)
+        rows.append((fi, x, y, w, h, order, 1, 0))
+        kinds.append(kind)
+        if kind == "flat":
+            rec[fi, max(y - 1, 0):y + 2 * h, max(x - 1, 0):x + 2 * w] = FLAT_REC
+            org[fi, y:y + h, x:x + w] = FLAT_ORG
+    rows = np.array(rows + [(0,) * 8], np.int32)
+    rows_t = torch.from_numpy(rows)
+    refs = ref_gather_reference([torch.from_numpy(rec)], torch.from_numpy(og), rows_t, P, 1, BD)
+    target = [int(k.split()[1]) if k.startswith("mode") else 0 for k in kinds] + [0]
+    _, _, _, ws, hs, _, _ = unpack_rows(rows_t, 1)
+    pred = predict_generic(*refs[0], torch.tensor(target, dtype=torch.int32)[:, None], ws, hs,
+                           pad=P, is_luma=True, bit_depth=BD)[:, 0].numpy()
+    for b, kind in enumerate(kinds):
+        if kind.startswith("mode"):
+            fi, x, y, w, h = rows[b, :5]
+            org[fi, y:y + h, x:x + w] = pred[b, :h, :w]
+    return rows, rec, org, og, kinds
+
+
+def rmd_tie_seen(rows: np.ndarray, kinds: list, modes: np.ndarray) -> np.ndarray:
+    """(5,) counts of ``RMD_TIE_CASES`` among K2's chosen ``modes``; every
+    flat CU must choose planar and every mode CU its mode."""
+    seen = np.zeros(len(RMD_TIE_CASES), np.int64)
+    for b, kind in enumerate(kinds):
+        want = 0 if kind == "flat" else int(kind.split()[1]) if kind != "random" else None
+        check(want is None or modes[b] == want, f"K2 chose mode {modes[b]} for a {kind} CU")
+        w, h = rows[b, 3:5]
+        seen += [kind == "flat", kind == "mode 2", kind == "mode 66", w == 4 < h, h == 4 < w]
+    return seen
+
+
+def rmd_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
+    """K2 against its plain version on ``rmd_tie_inputs``; the cases seen."""
+    rows_np, rec, org, og, kinds = rmd_tie_inputs(P, seed)
+    dev = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    rows, org_t = dev(rows_np), dev(org)
+    refs = ref_gather([dev(rec)], dev(og), rows, P, 1, BD)
+    mg = torch.zeros((2, og.shape[1], og.shape[2]), dtype=torch.uint8, device=DEVICE)
+    got = intra_rmd(refs, org_t, mg, rows, P, True, BD)
+    _cmp("intra_rmd", list(got), list(intra_rmd_reference(refs, org_t, mg, rows, P, True, BD)),
+         errs)
+    return rmd_tie_seen(rows_np, kinds, got[0].cpu().numpy())
+
+
 def _cmp(name: str, got, want, errs: dict) -> None:
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
@@ -852,7 +995,7 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
         ops = 0
         nbytes = n * int((w * h).sum()) * (8 + 6) + B * 32 + \
             ngrids * (int((w // 4 * h // 4).sum()) + len(live) * 4)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate(name)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
@@ -1051,6 +1194,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     cclm_seen = np.zeros(len(CCLM_CASES), np.int64)
     jccr_seen = np.zeros(len(JCCR_CASES), np.int64)
     crs_seen = np.zeros(len(CRS_CASES), np.int64)
+    ties_seen = np.zeros(len(RMD_TIE_CASES), np.int64)
     lut = device_crs_lut()
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
@@ -1078,6 +1222,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
                      * (np.arange(len(rows_np)) % 3 == 0))
         grids = []
         if luma:
+            ties_seen += rmd_tie_checks(P, seed=P + qp, errs=errs)
             args = (refs, orgs[0], rows, pred, modes, P, BD)
             best, pred3, codes = mip_select(*args)
             _cmp("mip_rmd", [best, pred3, codes], list(mip_select_reference(*args)), errs)
@@ -1181,6 +1326,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     check((cclm_seen > 0).all(), f"some K6a case never occurred: {cclm_seen}")
     check((jccr_seen > 0).all(), f"some joint Cb-Cr case never occurred: {jccr_seen}")
     check((crs_seen > 0).all(), f"some chroma residual scaling case never occurred: {crs_seen}")
+    check((ties_seen > 0).all(), f"some K2 tie case never occurred: {ties_seen}")
     log(f"[encode-kernels] K1/K2/K3/K4 (with K6b, K6c)/K5/K6a/K7 equal to their plain "
         f"versions on every "
         f"CU size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
@@ -1191,8 +1337,14 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         + "; K6a cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CCLM_CASES, cclm_seen))
         + "; joint Cb-Cr cases: "
         + ", ".join(f"{k} {int(c)}" for k, c in zip(JCCR_CASES, jccr_seen))
-        + "; K6b cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CRS_CASES, crs_seen)))
+        + "; K6b cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CRS_CASES, crs_seen))
+        + "; K2 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(RMD_TIE_CASES,
+                                                                         ties_seen)))
     return errs, phase_encode_kernel_times(width, height)
+
+
+# (pad, scale, CUs): each tile class at the main path's batch (DEFAULT_BATCH)
+TIMED_CLASSES = ((32, 1, 16), (64, 1, 8), (16, 2, 16), (32, 2, 8))
 
 
 def phase_encode_kernel_times(width: int, height: int) -> dict:
@@ -1207,7 +1359,7 @@ def phase_encode_kernel_times(width: int, height: int) -> dict:
     follows U (``cclm_luma``), so that LM and the joint trial win on some
     CUs; every chroma row has the CCLM gate set."""
     times = {}
-    for P, scale, B in ((32, 1, 16), (64, 1, 8), (16, 2, 16), (32, 2, 8)):
+    for P, scale, B in TIMED_CLASSES:
         luma = scale == 1
         rows_np = kernel_rows(P, scale, seed=1, width=width, height=height)[:B]
         rows_np[:, 7] = 0 if luma else 1
@@ -1783,7 +1935,7 @@ def rdo_bounds(name: str, rows: np.ndarray, P: int, nqp: int) -> tuple[float, st
         samples = int((w * h + 2 * cw * ch).sum())
         ops = 6 * nqp * samples
         nbytes = (2 * nqp + 1) * samples * 4 + B * (32 + 4 * nqp)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate(name)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
@@ -2400,6 +2552,14 @@ SEQ_KERNELS = {  # name: (wrapper, source, the TPU kernel it replaces)
     "seq_satd": (dist_ops.satd, "pmp_vvc_tpu_torch/csrc/seq_satd.cu",
                  "pmp_vvc_tpu/ops/distortion.py:86"),
 }
+# K10e: no path of either package calls sad or sse (the JAX package
+# re-exports them only), so their launches on the sequential path are 0
+K10E_KERNELS = {
+    "seq_sad": (dist_ops.sad, "pmp_vvc_tpu_torch/csrc/seq_dist.cu",
+                "pmp_vvc_tpu/ops/distortion.py:99"),
+    "seq_sse": (dist_ops.sse, "pmp_vvc_tpu_torch/csrc/seq_dist.cu",
+                "pmp_vvc_tpu/ops/distortion.py:105"),
+}
 # the sequential engine's configuration: the bench's tools (TOOLS[BENCH])
 # without sign-data hiding, which dependent quantization excludes, and with
 # the three tools only this engine codes
@@ -2418,8 +2578,9 @@ SEQ_TIME_W = SEQ_TIME_H = 16          # the timed block
 # Scalar integer operations per output, counted from the kernels' inner
 # loops: a K10b upsampled sample (two linear passes) and reduced sample (an
 # 8-term product); K10c's quantiser and dequantiser per coefficient (abs,
-# product, add, shift, sign, clip); two per multiply-add of a transform.
-OPS_SEQ_QUANT = 8
+# product, add, shift, sign, clip); two per multiply-add of a transform;
+# K10e's difference, |.| or square, and sum per sample.
+OPS_SEQ_QUANT, OPS_DIST = 8, 3
 
 
 def seq_refs(n: int, w: int, h: int, bd: int, luma: bool, rng) -> tuple:
@@ -2448,8 +2609,9 @@ def seq_bounds(name: str, w: int, h: int, k: int) -> tuple[float, str, int, int]
     block: K10a predicts k modes from four reference rows; K10b all k
     candidates; K10c the fused round trip (a DCT-2 pair each way, the
     quantiser and dequantiser), its four outputs written; K10d k SATDs of
-    the block's 8x8 tiles (six butterfly stages, abs and sum a sample).
-    Inputs read once, outputs written once."""
+    the block's 8x8 tiles (six butterfly stages, abs and sum a sample);
+    K10e k sums of |difference| or its square. Inputs read once, outputs
+    written once."""
     hw = w * h
     if name == "seq_intra":
         nbytes, ops = 4 * (2 * (2 * w + 3) + 2 * (2 * h + 3)) + 4 * k * hw, k * hw * OPS_PRED
@@ -2460,9 +2622,11 @@ def seq_bounds(name: str, w: int, h: int, k: int) -> tuple[float, str, int, int]
     elif name == "seq_tq":
         nbytes = 4 * hw + 4 * 4 * hw
         ops = 2 * 2 * hw * (w + h) + 2 * OPS_SEQ_QUANT * hw
-    else:
+    elif name == "seq_satd":
         nbytes, ops = 4 * hw + 4 * k * hw + 4 * k, k * hw * OPS_SATD
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    else:
+        nbytes, ops = 4 * hw + 4 * k * hw + 4 * k, k * hw * OPS_DIST
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate(name)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
@@ -2480,17 +2644,35 @@ def host_round_trip_ms(fn, iters: int = 200) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+def k10e_inputs(rng) -> list:
+    """(org, cur) int32 pairs on the card for K10e: a 64x64 block of
+    differences of 1023 (its int32 sse wraps) first; random samples at
+    every side 2..64 against one original and against one per block;
+    differences at the int32 limits, which wrap."""
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)  # noqa: E731
+    pairs = [(dev(np.full((64, 64), 1023)), dev(np.zeros((1, 64, 64))))]
+    for w, h in itertools.product((2, 4, 8, 16, 32, 64), repeat=2):
+        cur = rng.randint(0, 1024, (3, h, w))
+        pairs.append((dev(rng.randint(0, 1024, (h, w))), dev(cur)))
+        pairs.append((dev(rng.randint(0, 1024, (3, h, w))), dev(cur)))
+    lim = np.iinfo(np.int32)
+    pairs.append((dev(rng.choice([lim.max, lim.min, 0, 1], (2, 8, 8))),
+                  dev(rng.choice([lim.max, lim.min, -1, 5], (2, 8, 8)))))
+    return pairs
+
+
 def phase_seq_kernels() -> tuple[dict, dict]:
-    """K10a-d against their plain versions on the card, exactly: K10a on all
+    """K10a-e against their plain versions on the card, exactly: K10a on all
     67 modes at every luma size 4..64 and chroma size 2..32 (sides of 2
     included) at 8 and 10 bits; K10b at every size class; K10c on every MTS
     pair, DCT-2 at 64 and the ISP shapes at QP 0/22/37/51 (the fused round
-    trip) and with every stage mask; K10d on every tile shape. Then each
+    trip) and with every stage mask; K10d on every tile shape; K10e on
+    ``k10e_inputs``. Then each
     kernel's device time per call at 16x16 (a CUDA graph of 50 calls), its
     plain version's and the wrapper's round trip from numpy to numpy."""
     rng = np.random.RandomState(10)
-    errs = dict.fromkeys(SEQ_KERNELS, 0.0)
-    n_checked = dict.fromkeys(SEQ_KERNELS, 0)
+    errs = dict.fromkeys([*SEQ_KERNELS, *K10E_KERNELS], 0.0)
+    n_checked = dict.fromkeys(errs, 0)
     modes = tuple(range(67))
     for luma, sides in ((True, SEQ_LUMA_SIDES), (False, SEQ_CHROMA_SIDES)):
         for w, h, bd in itertools.product(sides, sides, (8, 10)):
@@ -2529,9 +2711,16 @@ def phase_seq_kernels() -> tuple[dict, dict]:
         n_checked["seq_satd"] += 1
     check(tiles == {(8, 16), (16, 8), (4, 8), (8, 4), (8, 8), (4, 4), (2, 2)},
           f"K10d tile shapes checked: {sorted(tiles)}")
+    pairs = k10e_inputs(rng)
+    for org, cur in pairs:
+        for name, (kernel, _, _) in K10E_KERNELS.items():
+            plain = dist_ops.sad_reference if name == "seq_sad" else dist_ops.sse_reference
+            _cmp(name, kernel(org, cur), plain(org, cur), errs)
+            n_checked[name] += 1
     torch.cuda.synchronize()
-    log(f"[seq-kernels] K10a-d equal to their plain versions on the card (max_abs_err "
-        f"{errs}; calls checked {n_checked})")
+    log(f"[seq-kernels] K10a-e equal to their plain versions on the card (max_abs_err "
+        f"{errs}; calls checked {n_checked}); K10e's 64x64 block of differences of 1023 "
+        f"has sse {int(dist_ops.sse(*pairs[0])[0])} (the int32 sum wraps)")
 
     # times at 16x16: K10a's 67 modes (luma), K10b's 12 candidates, K10c's
     # fused DCT-2 round trip at QP 37, K10d's 67 SATDs
@@ -2566,6 +2755,13 @@ def phase_seq_kernels() -> tuple[dict, dict]:
         "seq_satd": (len(modes), lambda: dist_ops.satd(org, cur),
                      lambda: dist_ops.satd_reference(org, cur),
                      lambda: dist_ops.satd(up(org_np), up(cur_np)).cpu().numpy()),
+        # K10e on the same 67 candidates
+        "seq_sad": (len(modes), lambda: dist_ops.sad(org, cur),
+                    lambda: dist_ops.sad_reference(org, cur),
+                    lambda: dist_ops.sad(up(org_np), up(cur_np)).cpu().numpy()),
+        "seq_sse": (len(modes), lambda: dist_ops.sse(org, cur),
+                    lambda: dist_ops.sse_reference(org, cur),
+                    lambda: dist_ops.sse(up(org_np), up(cur_np)).cpu().numpy()),
     }
     times = {}
     for name, (k, kernel, plain, host) in cases.items():
@@ -2607,7 +2803,7 @@ def phase_seq_encode(preds: dict) -> dict:
     seq_encode(enc, frames[:1], maps_l, maps_c)
     log(f"[seq-encode] {SEQ_W}x{SEQ_H}, {SEQ}: cold run (1 frame) "
         f"{time.perf_counter() - t0:.3f} s")
-    for fn, _, _ in SEQ_KERNELS.values():
+    for fn, _, _ in [*SEQ_KERNELS.values(), *K10E_KERNELS.values()]:
         fn.launches = 0
     enc.timings = {}
     counts = collections.Counter()
@@ -2620,6 +2816,7 @@ def phase_seq_encode(preds: dict) -> dict:
     launches = {name: fn.launches for name, (fn, _, _) in SEQ_KERNELS.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the sequential path")
+    launches.update({name: fn.launches for name, (fn, _, _) in K10E_KERNELS.items()})
     for tool in ("mrl", "isp", "depquant"):
         check(counts[tool] > 0, f"{tool} never fired on the sequential path ({dict(counts)})")
     stages = ", ".join(f"{k} {v:.3f}" for k, v in enc.timings.items())
@@ -3400,6 +3597,112 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
     return res[0]
 
 
+# ---------------------------------------------------------------------------
+# K2 beside the parent commit's K2 and its own one-block-per-CU form
+# ---------------------------------------------------------------------------
+
+def k2_library(src: pathlib.Path, out: pathlib.Path, defines: tuple = ()) -> ctypes.CDLL:
+    """``src`` (a K2 source beside its headers) built with the port's nvcc
+    flags and ``defines`` into ``out`` and bound as ``intra_rmd`` binds it;
+    ptxas's registers, stack frame and spills are logged."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    for line in ptxas_lines(proc.stdout + proc.stderr):
+        log(f"[k2-times] {out.name}: {line}")
+    lib = ctypes.CDLL(str(out))
+    lib.pmp_intra_rmd.argtypes = list(ig.SIGNATURES["intra_rmd"]["pmp_intra_rmd"])
+    lib.pmp_intra_rmd.restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def k2_from(lib):
+    """``intra_rmd`` launching ``lib``'s K2 (None: the port's own build)."""
+    saved = ig._lib
+    if lib is not None:
+        ig._lib = lambda name: lib if name == "intra_rmd" else saved(name)
+    try:
+        yield
+    finally:
+        ig._lib = saved
+
+
+# this tree's K2 built with its other shapes, timed beside it to show the
+# shipped one (a cluster of 8 blocks of 16 warps, two blocks an SM) is the
+# fastest: {label: nvcc defines}
+K2_VARIANTS = {"one block per CU": ("-DK2_CLUSTER=1",),
+               "4 blocks per CU": ("-DK2_CLUSTER=4",),
+               "32 warps a block, one block an SM": ("-DK2_WARPS=32", "-DK2_BLOCKS_PER_SM=1")}
+
+
+def phase_k2_times(parent: pathlib.Path, width: int = 256, height: int = 192) -> dict:
+    """K2's device time per call (CUDA graph) at ``TIMED_CLASSES``' shapes,
+    as ``phase_encode_kernel_times`` builds them, for the parent commit's K2
+    (``parent``: a checkout of it; its ``csrc/intra_rmd.cu`` built into its
+    own ``build/``), this tree's, and this tree's built with each of
+    ``K2_VARIANTS``' defines, in turns: parent, new, the variants, the
+    variants again in reverse, new, parent; then, to split K2's time into
+    what every call costs and what grows with the CUs, 16 32-pad CUs all of
+    4x4 and all of 32x32. Each equals the plain version on those inputs."""
+    libs = {"parent": k2_library(parent / "pmp_vvc_tpu_torch" / "csrc" / "intra_rmd.cu",
+                                 parent / "build" / "kernels" / "libintra_rmd-parent.so"),
+            "new": None}
+    for i, (label, defines) in enumerate(K2_VARIANTS.items()):
+        libs[label] = k2_library(_build.CSRC / "intra_rmd.cu",
+                                 _build.BUILD_DIR / f"libintra_rmd-variant{i}.so", defines)
+    order = ("parent", "new", *K2_VARIANTS, *reversed(K2_VARIANTS), "new", "parent")
+    errs: dict = {}
+    res = {}
+    cases = [(f"{P}-pad {'luma' if scale == 1 else 'chroma'}, {B} CUs", P, scale,
+              kernel_rows(P, scale, seed=1, width=width, height=height)[:B])
+             for P, scale, B in TIMED_CLASSES]
+    for side in (4, 32):
+        rows_np = kernel_rows(32, 1, seed=1, width=width, height=height)[:16]
+        rows_np[:, 1:3] -= rows_np[:, 1:3] % 32          # each at its cell's top-left
+        rows_np[:, 3:5] = side
+        cases.append((f"32-pad luma, 16 CUs of {side}x{side}", 32, 1, rows_np))
+    for cls, P, scale, rows_np in cases:
+        luma = scale == 1
+        rec, org, og = kernel_planes(1, width, height, scale)
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+        rows = dev(rows_np)
+        recs = [dev(r) for r in (rec, 1023 - rec)[:1 if luma else 2]]
+        org0 = dev(org) if luma else None
+        mg = torch.from_numpy(np.random.RandomState(2).randint(
+            0, 67, (2, height // 4, width // 4)).astype(np.uint8)).to(DEVICE)
+        refs = ref_gather(recs, dev(og), rows, P, scale, BD)
+        call = lambda: intra_rmd(refs, org0, mg, rows, P, luma, BD)  # noqa: E731
+        want = list(intra_rmd_reference(refs, org0, mg, rows, P, luma, BD))
+        times = collections.defaultdict(list)
+        for label in order:
+            with k2_from(libs[label]):
+                _cmp(f"intra_rmd ({label})", list(call()), want, errs)
+                times[label].append(graph_ms(call))
+        res[cls] = {label: t for label, t in times.items()}
+        log(f"[k2-times] {cls}: device time per call (CUDA graph of 50) "
+            + "; ".join(f"{label} " + " / ".join(f"{t * 1e3:.3f}" for t in ts) + " us"
+                        for label, ts in times.items())
+            + f"; parent / new {min(times['parent']) / min(times['new']):.1f}x")
+    log(f"[k2-times] every variant equal to the plain version (max_abs_err {errs})")
+    return res
+
+
+def k2_only(parent: pathlib.Path) -> int:
+    """``--k2-times PARENT``: the build, the encode kernels' checks and times
+    (the K2 tie cases among them), K10a-e's checks, and ``phase_k2_times``
+    against the parent checkout; prints no result line."""
+    phase_build()
+    log(f"[k2-times] int32 rate {int32_ops_per_s():.6e} ops/s")
+    phase_encode_kernels()
+    phase_seq_kernels()
+    phase_k2_times(parent)
+    log(card_line())
+    log("[k2-times] partial run: no result line")
+    return 0
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -3460,6 +3763,8 @@ def main() -> int:
         return dp_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
+    if sys.argv[1:2] == ["--k2-times"]:
+        return k2_only(pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()
     enc_errs, enc_times = phase_encode_kernels()
@@ -3535,9 +3840,11 @@ def main() -> int:
             **train_times[name]})
     # K10: no single PyTorch call computes one block's intra predictions for
     # a list of modes, the MIP candidates, the integer transform-quantisation
-    # stages or the tiled Hadamard SATD; launches are the sequential path's
-    # warm run (phase_seq_encode)
-    for name, (_, source, replaces) in SEQ_KERNELS.items():
+    # stages, the tiled Hadamard SATD, or a block's int32 sum of |org - cur|
+    # or its square that wraps (PyTorch's integer sums promote to int64, and
+    # its distance calls take floats); launches are the sequential path's
+    # warm run (phase_seq_encode), 0 for K10e, which no path calls
+    for name, (_, source, replaces) in [*SEQ_KERNELS.items(), *K10E_KERNELS.items()]:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": seq_launches[name], "max_abs_err": seq_errs[name],

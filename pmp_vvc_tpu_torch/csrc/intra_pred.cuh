@@ -1,6 +1,6 @@
-// Intra prediction device code shared by K2 (csrc/intra_rmd.cu) and K9
-// (csrc/rdo_leaf.cu), so that the wave step's predictions and the device
-// RDO's round alike.
+// Intra prediction device code shared by K2 (csrc/intra_rmd.cu), K9
+// (csrc/rdo_leaf.cu) and K10a (csrc/seq_intra.cu), so that the wave step's,
+// the device RDO's and the sequential encoder's predictions round alike.
 //
 // The port of pmp_vvc_tpu/ops/intra_generic.py:predict_generic (142) with
 // _planar_dc (90) for one CU: per-(size, mode) parameters from the
@@ -38,7 +38,8 @@ struct Mode {
     int mode, angle, inv, ver, filt, gauss, pdpc, scale, dc;
 };
 
-static __device__ Mode mode_params(const Cu& c, int m) {
+// mode_params without DC's reference sum (p.dc stays 0): the table reads.
+static __device__ __forceinline__ Mode mode_table(const Cu& c, int m) {
     Mode p;
     p.mode = clampi(m, 0, 66);
     const int f = ((c.lw - 1) * 6 + (c.lh - 1)) * 67;
@@ -55,6 +56,11 @@ static __device__ Mode mode_params(const Cu& c, int m) {
         p.pdpc = c.tabs[5 * NTAB + f];
     }
     p.dc = 0;
+    return p;
+}
+
+static __device__ Mode mode_params(const Cu& c, int m) {
+    Mode p = mode_table(c, m);
     if (p.mode == 1) {                 // DC on the unfiltered references
         int st = 0, sl = 0;
         for (int x = 0; x < c.w; ++x) st += c.tu[1 + x];
@@ -64,6 +70,20 @@ static __device__ Mode mode_params(const Cu& c, int m) {
         p.dc = (s + (denom >> 1)) >> ilog2(denom);
     }
     return p;
+}
+
+// DC's value (Mode.dc) with the reference sum taken by the whole warp;
+// every lane calls it. Equal to mode_params(c, 1).dc.
+static __device__ int warp_dc(const Cu& c) {
+    const int lane = threadIdx.x & 31;
+    int s = 0;
+    if (c.w >= c.h)
+        for (int x = lane; x < c.w; x += 32) s += c.tu[1 + x];
+    if (c.w <= c.h)
+        for (int y = lane; y < c.h; y += 32) s += c.lu[1 + y];
+    s = __reduce_add_sync(0xffffffffu, s);
+    const int denom = c.w == c.h ? c.w << 1 : max(c.w, c.h);
+    return (s + (denom >> 1)) >> ilog2(denom);
 }
 
 // Prediction of tile sample (r, c) (row, column) for mode p.
@@ -136,6 +156,67 @@ static __device__ int predict_sample(const Cu& c, const Mode& p, int r, int col)
         }
     }
     return pred;
+}
+
+// The line form of predict_sample for an angular mode (p.mode >= 2), for the
+// warp form of K2: the TS samples x = x0 .. x0 + TS - 1 of line y in the
+// mode's own space (a row for a vertical mode; for a horizontal one a CU
+// column, transposed), from one window of TS + 3 reference samples and the
+// line's one set of filter taps. out[j] equals predict_sample at that
+// sample: (y, x0 + j) for a vertical mode, (x0 + j, y) for a horizontal one.
+template <int TS>
+static __device__ __forceinline__ void predict_line(const Cu& c, const Mode& p, int y, int x0,
+                                                    int (&out)[TS]) {
+    const int32_t* main = p.ver ? (p.filt ? c.tf : c.tu) : (p.filt ? c.lf : c.lu);
+    const int32_t* side = p.ver ? (p.filt ? c.lf : c.lu) : (p.filt ? c.tf : c.tu);
+    const int wp = p.ver ? c.w : c.h, hp = p.ver ? c.h : c.w;
+    const int lwp = p.ver ? c.lw : c.lh, lhp = p.ver ? c.lh : c.lw;
+    const int P = c.P, L = c.L, ltot = P + L;
+    const int dpos = p.angle * (1 + y);
+    const int dint = dpos >> 5, dfrac = dpos & 31;
+    int f[4];
+    if (c.luma && p.gauss) {
+        const int half = dfrac >> 1;
+        f[0] = 16 - half; f[1] = 32 - half; f[2] = 16 + half; f[3] = half;
+    } else if (c.luma) {
+        f[0] = CHROMA_FILTER[dfrac][0]; f[1] = CHROMA_FILTER[dfrac][1];
+        f[2] = CHROMA_FILTER[dfrac][2]; f[3] = CHROMA_FILTER[dfrac][3];
+    } else {
+        f[0] = 0; f[1] = 64 - 2 * dfrac; f[2] = 2 * dfrac; f[3] = 0;
+    }
+    int v[TS + 3];                         // reference samples x0 + i + dint
+#pragma unroll
+    for (int i = 0; i < TS + 3; ++i) {
+        const int idx = min(P + dint + x0 + i, ltot - 1);
+        if (idx >= P) {
+            v[i] = main[idx - P];
+        } else {                           // negative-angle side projection
+            const int j = P - idx;
+            v[i] = side[clampi(min((j * p.inv + 256) >> 9, hp), 0, L - 1)];
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < TS; ++j) {
+        const int x = x0 + j;
+        const int acc = f[0] * v[j] + f[1] * v[j + 1] + f[2] * v[j + 2] + f[3] * v[j + 3];
+        int pred = clampi((acc + 32) >> 6, 0, c.pel_max);
+        if (p.pdpc) {
+            if (p.angle == 0) {
+                const int sc0 = (lwp + lhp - 2) >> 2;
+                if (x < min(3 << sc0, wp)) {
+                    const int wl0 = 32 >> min(31, (2 * x) >> sc0);
+                    pred = clampi(pred + ((wl0 * (side[1 + y] - main[0]) + 32) >> 6),
+                                  0, c.pel_max);
+                }
+            } else if (x < min(16, P) && x < min(3 << p.scale, wp)) {
+                const int inv_sum = 256 + (x + 1) * p.inv;
+                const int sv = side[clampi(y + (inv_sum >> 9) + 1, 0, L - 1)];
+                const int wl = 32 >> min(31, (2 * x) >> p.scale);
+                pred += (wl * (sv - pred) + 32) >> 6;
+            }
+        }
+        out[j] = pred;
+    }
 }
 
 static __device__ void predict_tile(const Cu& c, const Mode& p, int32_t* out) {

@@ -1,6 +1,8 @@
 // SATD device code shared by K2 (csrc/intra_rmd.cu), K3 (csrc/mip_rmd.cu),
-// K6a (csrc/cclm.cu) and K9 (csrc/rdo_leaf.cu), so that the angular, MIP,
-// CCLM and RDO costs round the same way.
+// K6a (csrc/cclm.cu), K9 (csrc/rdo_leaf.cu) and K10d (csrc/seq_satd.cu), so
+// that the angular, MIP, CCLM and RDO costs round the same way. K2 uses the
+// warp form ``warp_tile_satd``; the others the block and tile forms
+// (``satd``, ``tile_satd``, ``block_sum``).
 //
 // The port of pmp_vvc_tpu/ops/tq_generic.py:satd_generic (160): 8x8
 // Walsh-Hadamard tiles when min(w, h) >= 8, else 4x4, over the CU's (h, w)
@@ -71,4 +73,43 @@ static __device__ int satd(int w, int h, int P, const int32_t* org,
         total += tile_satd(d, ts);
     }
     return block_sum(total, red);
+}
+
+// The warp form: SATD of up to 32 / TS tiles of TS x TS differences (TS 4
+// or 8), held in registers one row per lane: lanes TS*g .. TS*g + TS - 1
+// hold the rows of tile g in ``d``. Every lane of the warp must call it.
+// The row transform runs in registers, the column transform across the
+// tile's lanes with __shfl_xor_sync at distances 1, 2 (and 4); then the sum
+// of |coefficients| with VTM's DC/4 and rounding, as ``tile_satd``. Returns
+// the tile's SATD in each of its lanes (0 for a tile of zero differences).
+template <int TS>
+static __device__ __forceinline__ int warp_tile_satd(int (&d)[TS]) {
+    static_assert(TS == 4 || TS == 8, "SATD tiles are 4x4 or 8x8");
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int len = 1; len < TS; len <<= 1)
+#pragma unroll
+        for (int j = 0; j < TS; ++j)
+            if (!(j & len)) {
+                const int a = d[j], b = d[j + len];
+                d[j] = a + b;
+                d[j + len] = a - b;
+            }
+#pragma unroll
+    for (int len = 1; len < TS; len <<= 1) {
+        const bool upper = lane & len;             // row i + len of the pair
+#pragma unroll
+        for (int j = 0; j < TS; ++j) {
+            const int o = __shfl_xor_sync(0xffffffffu, d[j], len);
+            d[j] = upper ? o - d[j] : d[j] + o;
+        }
+    }
+    int s = 0;
+#pragma unroll
+    for (int j = 0; j < TS; ++j) s += abs(d[j]);
+#pragma unroll
+    for (int len = 1; len < TS; len <<= 1) s += __shfl_xor_sync(0xffffffffu, s, len);
+    const int dc = __shfl_sync(0xffffffffu, abs(d[0]), lane & ~(TS - 1));
+    const int tv = s - dc + (dc >> 2);
+    return TS == 8 ? (tv + 2) >> 2 : (tv + 1) >> 1;
 }

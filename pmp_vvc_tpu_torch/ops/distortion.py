@@ -1,5 +1,5 @@
 """Hadamard SATD with VTM's tile rule, and the sequential encoder's SATD
-kernel (K10d).
+kernel (K10d); SAD and SSE (K10e).
 
 Bit-exact contract (RdCost.cpp xGetHADs, :2828-2951): the block is tiled
 per VTM's rules (16x8 / 8x16 / 8x4 / 4x8 / 8x8 / 4x4 / 2x2); each tile's 2-D
@@ -21,6 +21,13 @@ these sizes, and the plain version here in int64.
 ``satd_reference``, a CUDA tensor launches the kernel or raises;
 ``satd.launches`` counts the launches. The size-generic SATD of the wave
 path (square tiles only) is ``ops/tq_generic.py:satd_generic``.
+
+**K10e** ``sad`` / ``sse`` (``csrc/seq_dist.cu``) replace the JAX package's
+``ops/distortion.py:sad`` and ``sse``: the sum of |org - cur| or
+(org - cur)^2 over the last two axes, in int32 as the JAX package sums with
+x64 off, where the sum wraps (a 64x64 block of differences of 1023 has
+``sse`` -8,384,512); ``sad_reference`` / ``sse_reference`` wrap the same
+way. No path of either package calls them.
 """
 from __future__ import annotations
 
@@ -65,6 +72,23 @@ def _tile_scale(th: int, tw: int) -> float:
     return float(np.float32(2.0 / math.sqrt(th * tw)))
 
 
+def _wrap_int32(s: torch.Tensor) -> torch.Tensor:
+    """int64 sums -> the int32 the JAX package's wrapping int32 sum gives."""
+    return ((s + (1 << 31)) % (1 << 32) - (1 << 31)).int()
+
+
+def sad_reference(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10) -> torch.Tensor:
+    """(..., H, W) x2 (broadcast) -> (...,) int32 sum of |org - cur|, wrapping."""
+    d = org.int() - cur.int()
+    return _wrap_int32(d.abs().long().sum((-2, -1)))
+
+
+def sse_reference(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10) -> torch.Tensor:
+    """(..., H, W) x2 (broadcast) -> (...,) int32 sum of (org - cur)^2, wrapping."""
+    d = (org.int() - cur.int()).long()
+    return _wrap_int32((d * d).sum((-2, -1)))
+
+
 def satd_reference(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10) -> torch.Tensor:
     """(..., H, W) x2 (broadcast) -> (...,) int32 SATD (xGetHADs)."""
     h, w = org.shape[-2], org.shape[-1]
@@ -90,7 +114,9 @@ def satd_reference(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10)
 
 
 SIGNATURES = {"seq_satd": {"pmp_seq_satd": (_build.PTR,) * 2 + (_build.INT,) * 6
-                                           + (_build.FLOAT, _build.PTR, _build.PTR)}}
+                                           + (_build.FLOAT, _build.PTR, _build.PTR)},
+              "seq_dist": {"pmp_seq_dist": (_build.PTR,) * 2 + (_build.INT,) * 4
+                                           + (_build.PTR,) * 2}}
 
 
 @functools.cache
@@ -122,3 +148,42 @@ def satd(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10) -> torch.
 
 
 satd.launches = 0
+
+
+def _dist(wrapper, org: torch.Tensor, cur: torch.Tensor, square: bool) -> torch.Tensor:
+    """K10e's launch: ``cur`` (..., H, W); ``org`` one (H, W) block (any
+    leading ones) or one per block, of ``cur``'s shape."""
+    _build.check_cuda(wrapper.__name__, org, cur)
+    if org.dtype != torch.int32 or cur.dtype != torch.int32:
+        raise TypeError(f"{wrapper.__name__} takes int32 tensors")
+    h, w = cur.shape[-2], cur.shape[-1]
+    k = cur.numel() // (h * w) if h * w else 0
+    if org.shape[-2:] != (h, w) or org.numel() not in (h * w, k * h * w):
+        raise ValueError(f"{wrapper.__name__}: original {tuple(org.shape)} against "
+                         f"{tuple(cur.shape)}")
+    out = torch.empty(k, dtype=torch.int32, device=cur.device)
+    err = _lib("seq_dist").pmp_seq_dist(
+        org.data_ptr(), cur.data_ptr(), k, h * w, 0 if org.numel() == h * w else h * w,
+        int(square), out.data_ptr(), _build.stream(cur))
+    _build.count_launch(wrapper, err)
+    return out.reshape(cur.shape[:-2])
+
+
+def sad(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10) -> torch.Tensor:
+    """K10e: see ``sad_reference``; CPU tensors take it, CUDA tensors launch
+    ``csrc/seq_dist.cu``."""
+    if cur.device.type == "cpu":
+        return sad_reference(org, cur, bit_depth=bit_depth)
+    return _dist(sad, org, cur, False)
+
+
+def sse(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10) -> torch.Tensor:
+    """K10e: see ``sse_reference``; CPU tensors take it, CUDA tensors launch
+    ``csrc/seq_dist.cu``."""
+    if cur.device.type == "cpu":
+        return sse_reference(org, cur, bit_depth=bit_depth)
+    return _dist(sse, org, cur, True)
+
+
+sad.launches = 0
+sse.launches = 0
