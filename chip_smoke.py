@@ -40,7 +40,12 @@ Phases, each of which fails the run on error (nothing is caught):
    where every CRS case occurs (``CRS_CASES``); K2 also on its tie and edge
    cases (``RMD_TIES``: a 35-way tie planar must win, modes 2 and 66
    winning with the refinement's clamp repeating them, 4xN and Nx4 CUs);
-   timed at the main path's batch shapes.
+   K3 on its tie and edge cases after K2 (``MIP_TIES``: flat references on
+   which every MIP candidate ties K2's planar and MIP must lose, CUs whose
+   original is one candidate's prediction with t = 0 and t = 1, which must
+   win, CUs on which every candidate ties below K2 and the first must win,
+   every MIP size class, the padding row); timed at the main path's
+   batch shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
@@ -204,8 +209,9 @@ training step, ``entry`` and ``dryrun_multichip``):
 phases 6 and 19 and K2's time beside the parent commit's K2 (``PARENT``:
 a directory holding that commit's ``pmp_vvc_tpu_torch/csrc``, e.g. from
 ``git archive``) and beside this K2 built in the other shapes of
-``K2_VARIANTS``, in turns in one process (``phase_k2_times``); none
-prints a result line.
+``K2_VARIANTS``, in turns in one process (``phase_variant_times``);
+``--k3-times PARENT`` the same for K3 (``K3_VARIANTS``, the luma classes);
+none prints a result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -255,7 +261,9 @@ from pmp_vvc_tpu_torch.ops.intra_generic import (
     ref_gather_reference)
 from pmp_vvc_tpu_torch.ops.lmcs_generic import (
     UNIT_SCALE, crs_forward, crs_lut, crs_neighbours, crs_scale_reference)
-from pmp_vvc_tpu_torch.ops.mip_generic import mip_select, mip_select_reference
+from pmp_vvc_tpu_torch.ops import mip_generic as mip_g
+from pmp_vvc_tpu_torch.ops.mip_generic import (
+    mip_select, mip_select_reference, predict_mip_generic)
 from pmp_vvc_tpu_torch.ops.rows import unpack_rows
 from pmp_vvc_tpu_torch.ops.sdh_generic import _cg_tables, sdh_moves
 from pmp_vvc_tpu_torch.ops.lfnst_generic import inv_lfnst_generic
@@ -712,54 +720,71 @@ RMD_TIES = {
 FLAT_REC, FLAT_ORG = 512, 600
 
 
-def rmd_tie_inputs(P: int, seed: int, width: int = 256, height: int = 192):
-    """(rows, rec, org, og, kinds) as numpy for K2's tie cases (``RMD_TIES``)
-    in the P-pad luma class: one CU of each kind in its own P x P cell (at
-    the cell's top-left), then one padding row. A flat CU's references
+def tie_inputs(P: int, seed: int, ties, target, prepare=None, width: int = 256,
+               height: int = 192):
+    """(rows, rec, org, og, kinds) as numpy for tie cases in the P-pad luma
+    class: one CU of each (kind, w, h) of ``ties`` in its own P x P cell (at
+    the cell's top-left), then one padding row. A "flat" CU's references
     (the recon from one sample above-left to 2w right and 2h down) are
     FLAT_REC and its original FLAT_ORG; the flat CUs take the last cells,
-    so that their flat recon reaches no other CU's references. A "mode"
-    CU's original is the prediction of that mode from its references
-    (``predict_generic``); it lies off the frame's top row and left column
+    so that their flat recon reaches no other CU's references. A "random"
+    CU keeps kernel_planes' content. Any other kind is a target: its
+    original is ``target(refs, rows, kinds, P)``'s (B, P, P) prediction
+    from its references; it lies off the frame's top row and left column
     and comes after every coded CU (order 400), so that its references are
-    the recon's and not one substituted constant."""
+    the recon's and not one substituted constant. ``prepare(rec, og, kind,
+    row)``, where given, shapes a CU's neighbourhood before the flat CUs'
+    recon is written."""
     rng = np.random.RandomState(seed)
     rec, org, og = kernel_planes(seed, width, height, 1)
     nx, ncells = width // P, (width // P) * (height // P)
+    group = lambda k: k if k in ("flat", "random") else "target"  # noqa: E731
     free = rng.permutation(ncells)
     cells = {}
-    for kind in ("flat", "mode", "random"):
-        for i, (k, _, _) in enumerate(RMD_TIES[P]):
-            if not k.startswith(kind):
+    for kind in ("flat", "target", "random"):
+        for i, (k, _, _) in enumerate(ties):
+            if group(k) != kind:
                 continue
             if kind == "flat":          # the last cell still free
                 cells[i] = max(free)
-            else:                       # the first free (interior for a mode CU)
+            else:                       # the first free (interior for a target)
                 cells[i] = next(c for c in free if kind == "random" or
                                 (c >= nx and c % nx > 0))
             free = free[free != cells[i]]
     rows, kinds = [], []
-    for i, (kind, w, h) in enumerate(RMD_TIES[P]):
+    for i, (kind, w, h) in enumerate(ties):
         cy, cx = divmod(cells[i], nx)
         fi, x, y = rng.randint(2), cx * P, cy * P
-        order = 400 if kind.startswith("mode") else rng.randint(0, 400)
+        order = 400 if group(kind) == "target" else rng.randint(0, 400)
         rows.append((fi, x, y, w, h, order, 1, 0))
         kinds.append(kind)
+    for kind, (fi, x, y, w, h, _, _, _) in zip(kinds, rows):
+        if prepare is not None:
+            prepare(rec, og, kind, (fi, x, y, w, h))
+    for kind, (fi, x, y, w, h, _, _, _) in zip(kinds, rows):
         if kind == "flat":
             rec[fi, max(y - 1, 0):y + 2 * h, max(x - 1, 0):x + 2 * w] = FLAT_REC
             org[fi, y:y + h, x:x + w] = FLAT_ORG
     rows = np.array(rows + [(0,) * 8], np.int32)
     rows_t = torch.from_numpy(rows)
     refs = ref_gather_reference([torch.from_numpy(rec)], torch.from_numpy(og), rows_t, P, 1, BD)
-    target = [int(k.split()[1]) if k.startswith("mode") else 0 for k in kinds] + [0]
-    _, _, _, ws, hs, _, _ = unpack_rows(rows_t, 1)
-    pred = predict_generic(*refs[0], torch.tensor(target, dtype=torch.int32)[:, None], ws, hs,
-                           pad=P, is_luma=True, bit_depth=BD)[:, 0].numpy()
+    pred = target(refs, rows_t, kinds, P)
     for b, kind in enumerate(kinds):
-        if kind.startswith("mode"):
+        if group(kind) == "target":
             fi, x, y, w, h = rows[b, :5]
             org[fi, y:y + h, x:x + w] = pred[b, :h, :w]
     return rows, rec, org, og, kinds
+
+
+def rmd_tie_inputs(P: int, seed: int):
+    """``tie_inputs`` for K2's cases (``RMD_TIES``): a "mode M" CU's
+    original is mode M's prediction (``predict_generic``)."""
+    def target(refs, rows_t, kinds, P):
+        modes = [int(k.split()[1]) if k.startswith("mode") else 0 for k in kinds] + [0]
+        _, _, _, ws, hs, _, _ = unpack_rows(rows_t, 1)
+        return predict_generic(*refs[0], torch.tensor(modes, dtype=torch.int32)[:, None], ws,
+                               hs, pad=P, is_luma=True, bit_depth=BD)[:, 0].numpy()
+    return tie_inputs(P, seed, RMD_TIES[P], target)
 
 
 def rmd_tie_seen(rows: np.ndarray, kinds: list, modes: np.ndarray) -> np.ndarray:
@@ -785,6 +810,85 @@ def rmd_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
     _cmp("intra_rmd", list(got), list(intra_rmd_reference(refs, org_t, mg, rows, P, True, BD)),
          errs)
     return rmd_tie_seen(rows_np, kinds, got[0].cpu().numpy())
+
+
+# K3's tie and edge cases: the kind of each CU per luma class, (kind, w, h).
+# "flat": flat references at FLAT_REC = 512, which at 10 bits make every
+# MIP input zero, so that every candidate predicts 512, every MIP cost
+# equals K2's planar cost and MIP must lose; "mip K": the original is MIP
+# candidate K = t*16 + m's prediction (cost 0, strictly below K2's), so it
+# must win with code 1 + K; "tie": references that alternate 512 +- TIE_D
+# along the CU's top and left sides (coded before it), so that every Haar
+# group averages 512, every MIP input is zero and every candidate gives
+# the same prediction, which is the original: all tie at cost 0 below K2's,
+# and the first, code 1, must win; "random": kernel_planes' content. Every
+# size class occurs: 4x4 (sizeId 0, 32 candidates), 8x8 and 4xN / Nx4
+# (sizeId 1, 16), the rest (sizeId 2, 12) up to 64x64; and the padding row.
+MIP_TIE_CASES = ("flat: K2's winner keeps a tie", "MIP wins, t = 0", "MIP wins, t = 1",
+                 "MIP wins a tie: the first candidate", "sizeId 0", "sizeId 1", "sizeId 2",
+                 "padding row")
+MIP_TIES = {
+    32: (("flat", 16, 16), ("flat", 4, 4), ("mip 17", 4, 4), ("mip 3", 8, 8), ("mip 20", 4, 16),
+         ("mip 6", 16, 4), ("mip 21", 16, 16), ("mip 2", 32, 8), ("tie", 4, 4), ("tie", 16, 8),
+         ("random", 8, 8), ("random", 4, 4), ("random", 16, 32)),
+    64: (("flat", 64, 64), ("mip 16", 64, 64), ("mip 5", 64, 16), ("mip 23", 4, 64),
+         ("mip 1", 64, 4), ("tie", 64, 32), ("random", 16, 64), ("random", 64, 8)),
+}
+TIE_D = 37
+
+
+def mip_tie_inputs(P: int, seed: int):
+    """``tie_inputs`` for K3's cases (``MIP_TIES``): a "mip K" CU's
+    original is MIP candidate K's prediction (``predict_mip_generic``), a
+    "tie" CU's candidate 0's on its alternating references."""
+    def prepare(rec, og, kind, row):
+        fi, x, y, w, h = row
+        if kind == "tie":
+            rec[fi, y - 1, x:x + w] = FLAT_REC + TIE_D * (1 - 2 * (np.arange(w) % 2))
+            rec[fi, y:y + h, x - 1] = FLAT_REC - TIE_D * (1 - 2 * (np.arange(h) % 2))
+            og[fi, (y - 1) // 4, x // 4:(x + w) // 4] = 0
+            og[fi, y // 4:(y + h) // 4, (x - 1) // 4] = 0
+
+    def target(refs, rows_t, kinds, P):
+        _, _, _, ws, hs, _, ok = unpack_rows(rows_t, 1)
+        preds, _ = predict_mip_generic(refs[0, 0], refs[0, 1], torch.where(ok, ws, 4),
+                                       torch.where(ok, hs, 4), pad=P, bit_depth=BD)
+        k = [int(k.split()[1]) if k.startswith("mip") else 0 for k in kinds] + [0]
+        return preds[torch.arange(len(k)), torch.tensor(k)].numpy()
+    return tie_inputs(P, seed, MIP_TIES[P], target, prepare)
+
+
+def mip_tie_seen(rows: np.ndarray, kinds: list, codes: np.ndarray) -> np.ndarray:
+    """(8,) counts of ``MIP_TIE_CASES`` among K3's MIP ``codes``; every flat
+    CU and the padding row must keep code 0, every "mip K" CU take 1 + K,
+    every "tie" CU 1."""
+    seen = np.zeros(len(MIP_TIE_CASES), np.int64)
+    for b, (fi, x, y, w, h, _, live, _) in enumerate(rows):
+        kind = kinds[b] if live > 0 else "padding row"
+        want = (1 + int(kind.split()[1]) if kind.startswith("mip") else 1 if kind == "tie" else
+                0 if kind in ("flat", "padding row") else None)
+        check(want is None or codes[b] == want,
+              f"K3 chose code {codes[b]} for a {kind} {w}x{h} CU (want {want})")
+        sid = 0 if w == h == 4 else 1 if w == 4 or h == 4 or w == h == 8 else 2
+        mip = kind.startswith("mip")
+        seen += [kind == "flat", mip and want <= 16, mip and want > 16, kind == "tie",
+                 live > 0 and sid == 0, live > 0 and sid == 1, live > 0 and sid == 2, live <= 0]
+    return seen
+
+
+def mip_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
+    """K3 against its plain version on ``mip_tie_inputs``, after K2; the
+    cases seen."""
+    rows_np, rec, org, og, kinds = mip_tie_inputs(P, seed)
+    dev = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    rows, org_t = dev(rows_np), dev(org)
+    refs = ref_gather([dev(rec)], dev(og), rows, P, 1, BD)
+    mg = torch.zeros((2, og.shape[1], og.shape[2]), dtype=torch.uint8, device=DEVICE)
+    modes, pred = intra_rmd(refs, org_t, mg, rows, P, True, BD)
+    args = (refs, org_t, rows, pred, modes, P, BD)
+    got = mip_select(*args)
+    _cmp("mip_rmd", list(got), list(mip_select_reference(*args)), errs)
+    return mip_tie_seen(rows_np, kinds, got[2].cpu().numpy())
 
 
 def _cmp(name: str, got, want, errs: dict) -> None:
@@ -1195,6 +1299,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     jccr_seen = np.zeros(len(JCCR_CASES), np.int64)
     crs_seen = np.zeros(len(CRS_CASES), np.int64)
     ties_seen = np.zeros(len(RMD_TIE_CASES), np.int64)
+    mip_ties_seen = np.zeros(len(MIP_TIE_CASES), np.int64)
     lut = device_crs_lut()
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
@@ -1223,6 +1328,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         grids = []
         if luma:
             ties_seen += rmd_tie_checks(P, seed=P + qp, errs=errs)
+            mip_ties_seen += mip_tie_checks(P, seed=P + qp, errs=errs)
             args = (refs, orgs[0], rows, pred, modes, P, BD)
             best, pred3, codes = mip_select(*args)
             _cmp("mip_rmd", [best, pred3, codes], list(mip_select_reference(*args)), errs)
@@ -1327,6 +1433,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     check((jccr_seen > 0).all(), f"some joint Cb-Cr case never occurred: {jccr_seen}")
     check((crs_seen > 0).all(), f"some chroma residual scaling case never occurred: {crs_seen}")
     check((ties_seen > 0).all(), f"some K2 tie case never occurred: {ties_seen}")
+    check((mip_ties_seen > 0).all(), f"some K3 tie case never occurred: {mip_ties_seen}")
     log(f"[encode-kernels] K1/K2/K3/K4 (with K6b, K6c)/K5/K6a/K7 equal to their plain "
         f"versions on every "
         f"CU size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
@@ -1339,7 +1446,9 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         + ", ".join(f"{k} {int(c)}" for k, c in zip(JCCR_CASES, jccr_seen))
         + "; K6b cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CRS_CASES, crs_seen))
         + "; K2 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(RMD_TIE_CASES,
-                                                                         ties_seen)))
+                                                                         ties_seen))
+        + "; K3 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(MIP_TIE_CASES,
+                                                                         mip_ties_seen)))
     return errs, phase_encode_kernel_times(width, height)
 
 
@@ -3598,108 +3707,149 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# K2 beside the parent commit's K2 and its own one-block-per-CU form
+# A redesigned kernel (K2, K3) beside the parent commit's and its other shapes
 # ---------------------------------------------------------------------------
 
-def k2_library(src: pathlib.Path, out: pathlib.Path, defines: tuple = ()) -> ctypes.CDLL:
-    """``src`` (a K2 source beside its headers) built with the port's nvcc
-    flags and ``defines`` into ``out`` and bound as ``intra_rmd`` binds it;
-    ptxas's registers, stack frame and spills are logged."""
+def variant_library(kernel: str, src: pathlib.Path, out: pathlib.Path,
+                    defines: tuple = ()) -> ctypes.CDLL:
+    """``src`` (a source of ``kernel``'s library, ``TIMED_KERNELS``, beside
+    its headers) built with the port's nvcc flags and ``defines`` into
+    ``out`` and bound as its wrapper module binds it; ptxas's registers,
+    stack frame and spills are logged."""
+    name, module = TIMED_KERNELS[kernel][:2]
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(out),
                            str(src)], capture_output=True, text=True)
     check(proc.returncode == 0, f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
     for line in ptxas_lines(proc.stdout + proc.stderr):
-        log(f"[k2-times] {out.name}: {line}")
+        log(f"[{kernel}-times] {out.name}: {line}")
     lib = ctypes.CDLL(str(out))
-    lib.pmp_intra_rmd.argtypes = list(ig.SIGNATURES["intra_rmd"]["pmp_intra_rmd"])
-    lib.pmp_intra_rmd.restype = ctypes.c_int
+    for fn, args in module.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = list(args)
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
 @contextlib.contextmanager
-def k2_from(lib):
-    """``intra_rmd`` launching ``lib``'s K2 (None: the port's own build)."""
-    saved = ig._lib
+def launching(kernel: str, lib):
+    """``kernel``'s wrapper (``TIMED_KERNELS``) launching ``lib`` (None: the
+    port's own build)."""
+    name, module = TIMED_KERNELS[kernel][:2]
+    saved = module._lib
     if lib is not None:
-        ig._lib = lambda name: lib if name == "intra_rmd" else saved(name)
+        module._lib = lambda n: lib if n == name else saved(n)
     try:
         yield
     finally:
-        ig._lib = saved
+        module._lib = saved
 
 
-# this tree's K2 built with its other shapes, timed beside it to show the
-# shipped one (a cluster of 8 blocks of 16 warps, two blocks an SM) is the
-# fastest: {label: nvcc defines}
+def rmd_inputs(P: int, scale: int, rows_np: np.ndarray, width: int, height: int):
+    """K2's inputs on these rows, as ``phase_encode_kernel_times`` builds
+    them: (refs, the luma original or None, the mode grid, rows)."""
+    luma = scale == 1
+    rec, org, og = kernel_planes(1, width, height, scale)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    rows = dev(rows_np)
+    recs = [dev(r) for r in (rec, 1023 - rec)[:1 if luma else 2]]
+    mg = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 67, (2, height // 4, width // 4)).astype(np.uint8)).to(DEVICE)
+    return ref_gather(recs, dev(og), rows, P, scale, BD), dev(org) if luma else None, mg, rows
+
+
+def k2_call(P: int, scale: int, rows_np: np.ndarray, width: int, height: int):
+    """(K2's call on these rows, its plain version's outputs)."""
+    refs, org0, mg, rows = rmd_inputs(P, scale, rows_np, width, height)
+    args = (refs, org0, mg, rows, P, scale == 1, BD)
+    return (lambda: intra_rmd(*args)), list(intra_rmd_reference(*args))
+
+
+def k3_call(P: int, scale: int, rows_np: np.ndarray, width: int, height: int):
+    """(K3's call on these luma rows after the port's K2, its plain
+    version's outputs)."""
+    refs, org0, mg, rows = rmd_inputs(P, 1, rows_np, width, height)
+    modes, pred = intra_rmd(refs, org0, mg, rows, P, True, BD)
+    args = (refs, org0, rows, pred, modes, P, BD)
+    return (lambda: mip_select(*args)), list(mip_select_reference(*args))
+
+
+# this tree's kernels built with their other shapes, timed beside the
+# shipped one (a cluster of 8 blocks per CU for K2, 4 for K3, of 16 warps,
+# two blocks an SM): {label: nvcc defines}
 K2_VARIANTS = {"one block per CU": ("-DK2_CLUSTER=1",),
                "4 blocks per CU": ("-DK2_CLUSTER=4",),
                "32 warps a block, one block an SM": ("-DK2_WARPS=32", "-DK2_BLOCKS_PER_SM=1")}
+K3_VARIANTS = {"one block per CU": ("-DK3_CLUSTER=1",),
+               "2 blocks per CU": ("-DK3_CLUSTER=2",),
+               "8 blocks per CU": ("-DK3_CLUSTER=8",),
+               "32 warps a block, one block an SM": ("-DK3_WARPS=32", "-DK3_BLOCKS_PER_SM=1")}
+# ``--k2-times`` / ``--k3-times``: (library, wrapper module, variants, the
+# function that makes the call and its plain outputs, the tile classes timed)
+TIMED_KERNELS = {"k2": ("intra_rmd", ig, K2_VARIANTS, k2_call, TIMED_CLASSES),
+                 "k3": ("mip_rmd", mip_g, K3_VARIANTS, k3_call,
+                        tuple(c for c in TIMED_CLASSES if c[1] == 1))}
 
 
-def phase_k2_times(parent: pathlib.Path, width: int = 256, height: int = 192) -> dict:
-    """K2's device time per call (CUDA graph) at ``TIMED_CLASSES``' shapes,
-    as ``phase_encode_kernel_times`` builds them, for the parent commit's K2
-    (``parent``: a checkout of it; its ``csrc/intra_rmd.cu`` built into its
-    own ``build/``), this tree's, and this tree's built with each of
-    ``K2_VARIANTS``' defines, in turns: parent, new, the variants, the
-    variants again in reverse, new, parent; then, to split K2's time into
-    what every call costs and what grows with the CUs, 16 32-pad CUs all of
-    4x4 and all of 32x32. Each equals the plain version on those inputs."""
-    libs = {"parent": k2_library(parent / "pmp_vvc_tpu_torch" / "csrc" / "intra_rmd.cu",
-                                 parent / "build" / "kernels" / "libintra_rmd-parent.so"),
+def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
+                        height: int = 192) -> dict:
+    """``kernel``'s (``TIMED_KERNELS``) device time per call (CUDA graph)
+    at its timed classes' shapes, as ``phase_encode_kernel_times`` builds
+    them, for the parent commit's source (``parent``: a checkout of it; its
+    ``csrc/<library>.cu`` built into its own ``build/``), this tree's, and
+    this tree's built with each of its variants' defines, in turns: parent,
+    new, the variants, the variants again in reverse, new, parent; then, to
+    split the time into what every call costs and what grows with the CUs,
+    16 32-pad CUs all of 4x4 and all of 32x32. Each equals the plain
+    version on those inputs."""
+    name, _, variants, make_call, classes = TIMED_KERNELS[kernel]
+    tag = f"[{kernel}-times]"
+    libs = {"parent": variant_library(kernel,
+                                      parent / "pmp_vvc_tpu_torch" / "csrc" / f"{name}.cu",
+                                      parent / "build" / "kernels" / f"lib{name}-parent.so"),
             "new": None}
-    for i, (label, defines) in enumerate(K2_VARIANTS.items()):
-        libs[label] = k2_library(_build.CSRC / "intra_rmd.cu",
-                                 _build.BUILD_DIR / f"libintra_rmd-variant{i}.so", defines)
-    order = ("parent", "new", *K2_VARIANTS, *reversed(K2_VARIANTS), "new", "parent")
+    for i, (label, defines) in enumerate(variants.items()):
+        libs[label] = variant_library(kernel, _build.CSRC / f"{name}.cu",
+                                      _build.BUILD_DIR / f"lib{name}-variant{i}.so", defines)
+    order = ("parent", "new", *variants, *reversed(variants), "new", "parent")
     errs: dict = {}
     res = {}
     cases = [(f"{P}-pad {'luma' if scale == 1 else 'chroma'}, {B} CUs", P, scale,
               kernel_rows(P, scale, seed=1, width=width, height=height)[:B])
-             for P, scale, B in TIMED_CLASSES]
+             for P, scale, B in classes]
     for side in (4, 32):
         rows_np = kernel_rows(32, 1, seed=1, width=width, height=height)[:16]
         rows_np[:, 1:3] -= rows_np[:, 1:3] % 32          # each at its cell's top-left
         rows_np[:, 3:5] = side
         cases.append((f"32-pad luma, 16 CUs of {side}x{side}", 32, 1, rows_np))
     for cls, P, scale, rows_np in cases:
-        luma = scale == 1
-        rec, org, og = kernel_planes(1, width, height, scale)
-        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
-        rows = dev(rows_np)
-        recs = [dev(r) for r in (rec, 1023 - rec)[:1 if luma else 2]]
-        org0 = dev(org) if luma else None
-        mg = torch.from_numpy(np.random.RandomState(2).randint(
-            0, 67, (2, height // 4, width // 4)).astype(np.uint8)).to(DEVICE)
-        refs = ref_gather(recs, dev(og), rows, P, scale, BD)
-        call = lambda: intra_rmd(refs, org0, mg, rows, P, luma, BD)  # noqa: E731
-        want = list(intra_rmd_reference(refs, org0, mg, rows, P, luma, BD))
+        call, want = make_call(P, scale, rows_np, width, height)
         times = collections.defaultdict(list)
         for label in order:
-            with k2_from(libs[label]):
-                _cmp(f"intra_rmd ({label})", list(call()), want, errs)
+            with launching(kernel, libs[label]):
+                _cmp(f"{name} ({label})", list(call()), want, errs)
                 times[label].append(graph_ms(call))
         res[cls] = {label: t for label, t in times.items()}
-        log(f"[k2-times] {cls}: device time per call (CUDA graph of 50) "
+        log(f"{tag} {cls}: device time per call (CUDA graph of 50) "
             + "; ".join(f"{label} " + " / ".join(f"{t * 1e3:.3f}" for t in ts) + " us"
                         for label, ts in times.items())
             + f"; parent / new {min(times['parent']) / min(times['new']):.1f}x")
-    log(f"[k2-times] every variant equal to the plain version (max_abs_err {errs})")
+    log(f"{tag} every variant equal to the plain version (max_abs_err {errs})")
     return res
 
 
-def k2_only(parent: pathlib.Path) -> int:
-    """``--k2-times PARENT``: the build, the encode kernels' checks and times
-    (the K2 tie cases among them), K10a-e's checks, and ``phase_k2_times``
-    against the parent checkout; prints no result line."""
+def times_only(kernel: str, parent: pathlib.Path) -> int:
+    """``--k2-times PARENT`` / ``--k3-times PARENT``: the build, the encode
+    kernels' checks and times (the K2 and K3 tie cases among them), K10a-e's
+    checks and times (K10b shares K3's ``csrc/mip.cuh``), and
+    ``phase_variant_times`` against the parent checkout; prints no result
+    line."""
     phase_build()
-    log(f"[k2-times] int32 rate {int32_ops_per_s():.6e} ops/s")
+    log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
     phase_encode_kernels()
     phase_seq_kernels()
-    phase_k2_times(parent)
+    phase_variant_times(kernel, parent)
     log(card_line())
-    log("[k2-times] partial run: no result line")
+    log(f"[{kernel}-times] partial run: no result line")
     return 0
 
 
@@ -3763,8 +3913,8 @@ def main() -> int:
         return dp_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
-    if sys.argv[1:2] == ["--k2-times"]:
-        return k2_only(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] in (["--k2-times"], ["--k3-times"]):
+        return times_only(sys.argv[1][2:4], pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()
     enc_errs, enc_times = phase_encode_kernels()

@@ -10,6 +10,11 @@
 // most 8 terms per reduced sample, the sizeId-2 matrix at input columns
 // 1..7), then the horizontal linear upsampling against the left boundary and
 // the vertical one against the top row.
+//
+// The per-sample formulas (``mip_down``, ``mip_reduced``, ``mip_up``,
+// ``mip_left``) are the rounding both kernels share: K10b runs them
+// through ``mip_candidate`` one candidate a block, K3 through its own
+// cluster layout.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,14 +41,17 @@ static __device__ void mip_size_class(Mip& c, int w, int h) {
     c.n_modes = c.sid == 0 ? 16 : c.sid == 1 ? 8 : 6;
 }
 
-// Haar downsampling of n boundary samples to nb: groups of f = n / nb.
-static __device__ void mip_downsample(const int32_t* v, int n, int nb, int* out) {
+// Haar downsampling of n boundary samples to nb: output j, the rounded
+// mean of group j of f = n / nb samples.
+static __device__ __forceinline__ int mip_down(const int32_t* v, int n, int nb, int j) {
     const int f = n / nb, lf = ilog2(f);
-    for (int j = 0; j < nb; ++j) {
-        int s = 0;
-        for (int i = j * f; i < (j + 1) * f; ++i) s += v[i];
-        out[j] = (s + (f >> 1)) >> lf;
-    }
+    int s = 0;
+    for (int i = j * f; i < (j + 1) * f; ++i) s += v[i];
+    return (s + (f >> 1)) >> lf;
+}
+
+static __device__ void mip_downsample(const int32_t* v, int n, int nb, int* out) {
+    for (int j = 0; j < nb; ++j) out[j] = mip_down(v, n, nb, j);
 }
 
 // The packed boundaries [top, left] and [left, top] into ``sbdry`` (2, 8);
@@ -60,28 +68,45 @@ static __device__ void mip_boundaries(const Mip& c, int32_t* sbdry) {
     }
 }
 
+// Reduced sample (r, col) of candidate (t, m): the 8-term product of the
+// weight row against the packed boundary ``bdry + 8 * t`` (t = 1 reads the
+// matrix transposed; the sizeId-2 matrix sits at input columns 1..7).
+static __device__ __forceinline__ int mip_reduced(const Mip& c, int t, int m, int r, int col) {
+    const int rp = c.red_p;
+    const int32_t* bd = c.bdry + 8 * t;
+    const int off = bd[0];
+    const int oi = t ? col * rp + r : r * rp + col;        // transposed read
+    const int32_t* row = c.mats + ((c.sid * 16 + m) * 64 + oi) * 8;
+    int acc = 0, vsum = 0;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+        int v;
+        if (kk == 0) v = c.sid < 2 ? (1 << (c.bd - 1)) - off : 0;
+        else v = kk < 2 * c.red_b ? bd[kk] - off : 0;
+        acc += row[kk] * v;
+        vsum += v;
+    }
+    const int res = (acc + 32 - 32 * vsum) >> 6;
+    return clampi(res + off, 0, (1 << c.bd) - 1);
+}
+
+// Linear upsampling by a factor f = 1 << lf: position p (1..f) between
+// ``prev`` and ``red``; factor 1 is the identity.
+static __device__ __forceinline__ int mip_up(int prev, int red, int p, int f, int lf) {
+    return ((f - p) * prev + p * red + (f >> 1)) >> lf;
+}
+
+// The left boundary sample of reduced row r for the horizontal pass.
+static __device__ __forceinline__ int mip_left(const Mip& c, int r) {
+    return c.left[clampi((r + 1) * (c.h / c.red_p) - 1, 0, c.h - 1)];
+}
+
 // Candidate k = t * 16 + m's prediction into ``out`` (P-strided, the (h, w)
 // region); every thread of the block calls it.
 static __device__ void mip_candidate(const Mip& c, int k, int32_t* out) {
     const int t = k >> 4, m = k & 15, rp = c.red_p;
-    const int32_t* bd = c.bdry + 8 * t;
-    const int off = bd[0];
-    const int maxv = (1 << c.bd) - 1;
-    for (int i = threadIdx.x; i < rp * rp; i += blockDim.x) {
-        const int r = i / rp, col = i % rp;
-        const int oi = t ? col * rp + r : r * rp + col;    // transposed read
-        const int32_t* row = c.mats + ((c.sid * 16 + m) * 64 + oi) * 8;
-        int acc = 0, vsum = 0;
-        for (int kk = 0; kk < 8; ++kk) {
-            int v;
-            if (kk == 0) v = c.sid < 2 ? (1 << (c.bd - 1)) - off : 0;
-            else v = kk < 2 * c.red_b ? bd[kk] - off : 0;
-            acc += row[kk] * v;
-            vsum += v;
-        }
-        const int res = (acc + 32 - 32 * vsum) >> 6;
-        c.sred[r * 8 + col] = clampi(res + off, 0, maxv);
-    }
+    for (int i = threadIdx.x; i < rp * rp; i += blockDim.x)
+        c.sred[(i / rp) * 8 + i % rp] = mip_reduced(c, t, m, i / rp, i % rp);
     __syncthreads();
     const int f_h = c.w / rp, f_v = c.h / rp;
     const int lf_h = ilog2(f_h), lf_v = ilog2(f_v);
@@ -89,9 +114,8 @@ static __device__ void mip_candidate(const Mip& c, int k, int32_t* out) {
         const int r = i / c.w, x = i % c.w;
         const int jh = x * rp / c.w, ph = x - jh * f_h + 1;
         const int red = c.sred[r * 8 + jh];
-        const int prev = jh == 0 ? c.left[clampi((r + 1) * f_v - 1, 0, c.h - 1)]
-                                 : c.sred[r * 8 + jh - 1];
-        c.sh[r * MIP_MAXP + x] = ((f_h - ph) * prev + ph * red + (f_h >> 1)) >> lf_h;
+        const int prev = jh == 0 ? mip_left(c, r) : c.sred[r * 8 + jh - 1];
+        c.sh[r * MIP_MAXP + x] = mip_up(prev, red, ph, f_h, lf_h);
     }
     __syncthreads();
     for (int i = threadIdx.x; i < c.h * c.w; i += blockDim.x) {
@@ -99,7 +123,7 @@ static __device__ void mip_candidate(const Mip& c, int k, int32_t* out) {
         const int jv = y * rp / c.h, pv = y - jv * f_v + 1;
         const int red = c.sh[jv * MIP_MAXP + x];
         const int prev = jv == 0 ? c.top[x] : c.sh[(jv - 1) * MIP_MAXP + x];
-        out[y * c.P + x] = ((f_v - pv) * prev + pv * red + (f_v >> 1)) >> lf_v;
+        out[y * c.P + x] = mip_up(prev, red, pv, f_v, lf_v);
     }
     __syncthreads();
 }

@@ -1,7 +1,7 @@
 // SATD device code shared by K2 (csrc/intra_rmd.cu), K3 (csrc/mip_rmd.cu),
 // K6a (csrc/cclm.cu), K9 (csrc/rdo_leaf.cu) and K10d (csrc/seq_satd.cu), so
-// that the angular, MIP, CCLM and RDO costs round the same way. K2 uses the
-// warp form ``warp_tile_satd``; the others the block and tile forms
+// that the angular, MIP, CCLM and RDO costs round the same way. K2 and K3
+// use the warp form ``warp_tile_satd``; the others the block and tile forms
 // (``satd``, ``tile_satd``, ``block_sum``).
 //
 // The port of pmp_vvc_tpu/ops/tq_generic.py:satd_generic (160): 8x8
