@@ -44,8 +44,13 @@ Phases, each of which fails the run on error (nothing is caught):
    which every MIP candidate ties K2's planar and MIP must lose, CUs whose
    original is one candidate's prediction with t = 0 and t = 1, which must
    win, CUs on which every candidate ties below K2 and the first must win,
-   every MIP size class, the padding row); timed at the main path's
-   batch shapes.
+   every MIP size class, the padding row); K5 on its tie and edge cases
+   (``K5_TIES``, at QP 4: with lam 0 DCT-2 ties transform skip at cost 0
+   and must win, a zero residual ties the zero TU, the MIP gate keeps
+   LFNST out, an impulse goes to transform skip, every size of the luma
+   classes; with lam 2 transform skip's nonzero levels tie the zero TU,
+   which must win; the padding row); timed at the main path's batch
+   shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
@@ -211,7 +216,9 @@ a directory holding that commit's ``pmp_vvc_tpu_torch/csrc``, e.g. from
 ``git archive``) and beside this K2 built in the other shapes of
 ``K2_VARIANTS``, in turns in one process (``phase_variant_times``);
 ``--k3-times PARENT`` the same for K3 (``K3_VARIANTS``, the luma classes);
-none prints a result line.
+``--k5-times PARENT`` the same for K5 (``K5_VARIANTS``, ``k5_cases``: the
+luma classes, the tools off, the RDO's 8-pad chunk); none prints a result
+line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -234,6 +241,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -307,9 +315,11 @@ INT32_PER_CLOCK_PER_SM = 64
 # K1 (reference substitution and filter), K2 and K9a (angular prediction,
 # Hadamard SATD), K3 (MIP), K6a (CCLM fit and SATDs), K9b (SATDs) and K10a-e
 # (prediction, MIP, the integer transform and quantiser, SATD, SAD / SSE).
-# K4, K5 and K9c mix int32 transforms with float32 rate-distortion costs, and
+# K4 and K9c mix int32 transforms with float32 rate-distortion costs, and
 # K8 and K11 are float32: they keep FP32_OPS_PER_S, which bounds any mix
-# from below.
+# from below. K5 counts its integer and float operations apart, each
+# against its own rate (``kernel_bounds``). A multiply-add counts once
+# against the int32 rate, which counts one result per multiply-add.
 INT32_KERNELS = frozenset({"ref_gather", "intra_rmd", "mip_rmd", "cclm", "rdo_luma_select",
                            "rdo_chroma_select", "seq_intra", "seq_mip", "seq_tq", "seq_satd",
                            "seq_sad", "seq_sse"})
@@ -617,17 +627,24 @@ K6B = ("tq_crs", "pmp_vvc_tpu_torch/csrc/tq.cu", "pmp_vvc_tpu/codec/wavefront.py
 # scan per group slot, and per move tried where a group's parity is wrong.
 # K5 runs K4's stages once per candidate with the same per-coefficient,
 # per-sample and per-slot counts (transform skip: the quantiser and the
-# sample work only), plus two operations per multiply-add of its transforms
-# and 16 x 48 LFNST products and one per sample of its legality count
+# sample work only), plus one operation per multiply-add of its transforms
+# and 16 x 48 LFNST products and one per sample of its legality count, all
+# int32 but for OPS_RD_FLOAT of each coefficient's OPS_QUANT (the RD gain's
+# two conversions, difference, two squares, difference and division, its
+# float64 conversion and sum, the comparison) and OPS_COST a candidate
 # (``k5_ops``). K6a downsamples one luma sample pair per chroma sample (7
 # operations), predicts U and V (4 each) and scores four SATDs; the joint
 # Cb-Cr trial adds a third round trip and, per sample, the joint residual and
 # two reconstructions with their SSE. K6b adds per CU the 128 neighbour
 # samples' sum, and per sample of each round trip the forward scale (shift,
 # add, division, clip, sign) and the inverse (clip, product, add, shift,
-# clip, sign). Bounded against the float32 rate outside the tensor cores,
-# which the int32 rate does not exceed.
+# clip, sign). K4's count is bounded against the float32 rate outside the
+# tensor cores, which the int32 rate does not exceed; K5's integer and float
+# counts each against its own rate. A multiply-add counts one operation at
+# the int32 rate (INT32_PER_CLOCK_PER_SM counts one result per multiply-add)
+# and two at the float32 rate (67e12 counts an FMA as two).
 OPS_PRED, OPS_SATD, OPS_QUANT, OPS_SAMPLE = 12, 8, 30, 10
+OPS_RD_FLOAT, OPS_COST = 10, 4
 OPS_UPSAMPLE, OPS_REDUCED, OPS_SDH_SLOT, OPS_SDH_MOVE = 10, 20, 5, 14
 OPS_DOWNSAMPLE, OPS_LM = 7, 4
 OPS_CRS_NEIGHBOUR, OPS_CRS_SAMPLE = 2, 12
@@ -891,6 +908,216 @@ def mip_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
     return mip_tie_seen(rows_np, kinds, got[2].cpu().numpy())
 
 
+# K5's tie and edge cases: per luma class, one call per lam (K5_TIES: {lam:
+# (kind, w, h), ...}), all at internal QP 4 (K5_TIE_QP) with the main
+# path's tools (``k5_tie_tools``). At QP 4 transform skip rebuilds every
+# residual exactly (scale 16384 and qBits 14; inverse scale 64 and shift
+# 6). With lam 0 a cost is its SSE: "exact": the residual is the inverse
+# DCT-2 of one dequantised level set that DCT-2 rebuilds exactly (SSE 0,
+# asserted), so DCT-2 and transform skip (and any MTS or LFNST slot that
+# also reaches 0) tie at cost 0 and DCT-2, the first, must win; "zero": a
+# zero residual, where DCT-2's cost 0 equals the zero TU's, so the CU must
+# not be coded; "gated": a residual that is one LFNST basis function
+# (``k5_inputs``) on a MIP CU below 16x16, where the gate keeps LFNST out
+# (legal without it, asserted); "impulse": one impulse that only transform
+# skip rebuilds exactly, so it must win; "random": residuals of +-20, every
+# size of the class among them. With lam 2: "TS tie": impulses of 3, 3 and
+# 6, whose transform-skip levels cost 2 (bits + 1) = 58 = SSE0 + 2 lam, the
+# zero TU's cost, below every other candidate's (asserted): the zero TU
+# must win, although transform skip's levels are not zero. Each call ends
+# with a padding row. Every SSE stays below 2^24, where the JAX package's
+# float32 sums are exact.
+K5_TIE_CASES = ("DCT-2 wins a tie at cost 0", "zero TU wins a tie at cost 0",
+                "LFNST gated off on a MIP CU", "transform skip wins an impulse",
+                "zero TU wins a tie with coded levels", "32-pad CU", "64-pad CU",
+                "padding row")
+K5_TIES = {
+    32: {0.0: (("exact", 8, 8), ("exact", 4, 16), ("exact", 32, 32), ("exact", 16, 4),
+               ("zero", 16, 16), ("zero", 4, 4), ("zero", 32, 8), ("gated", 8, 8),
+               ("gated", 4, 8), ("gated", 16, 8), ("impulse", 4, 4), ("impulse", 8, 16),
+               ("impulse", 32, 32)),
+         2.0: (("TS tie", 8, 4), ("TS tie", 8, 8), ("TS tie", 16, 16))},
+    64: {0.0: (("exact", 64, 64), ("exact", 16, 64), ("zero", 64, 32), ("zero", 64, 4),
+               ("gated", 64, 8), ("gated", 4, 64))},
+}
+K5_TIE_QP = 4
+
+
+def k5_tie_tools(P: int) -> tuple:
+    """(mts, lfnst, ts_max, sdh): the main path's luma tools in the P-pad
+    class (MTS and transform skip in the 32-pad class only)."""
+    return P <= 32, True, 32 if P <= 32 else 0, True
+
+
+def _k5_one(P: int, lam: float, resid: np.ndarray, pred: np.ndarray, w: int, h: int):
+    """``tq_mts_candidates`` at K5_TIE_QP and ``lam`` on one CU (mode 0, no
+    MIP) whose residual over its pred is ``resid``: (candidates, zero TU's
+    cost)."""
+    org = np.zeros((1, P, P), np.int32)
+    org[0] = pred + resid
+    rows = torch.tensor([[0, 0, 0, w, h, 0, 1, 0]], dtype=torch.int32)
+    cands, _, _, _, cost_zero = tq_mts_candidates(
+        [torch.from_numpy(org)], torch.from_numpy(pred[None, None].copy()), rows, P,
+        K5_TIE_QP, BD, True, lam, torch.tensor([0], dtype=torch.int32), None,
+        *k5_tie_tools(P))
+    return cands, float(cost_zero[0])
+
+
+def _k5_resid(P: int, lam: float, kind: str, w: int, h: int, pred: np.ndarray,
+              rng) -> np.ndarray:
+    """A ``K5_TIES`` CU's (P, P) residual, zero outside its (h, w)."""
+    ws, hs = torch.tensor([w]), torch.tensor([h])
+    inside = np.zeros((P, P), np.int32)
+    inside[:h, :w] = 1
+    if kind == "zero":
+        return np.zeros((P, P), np.int32)
+    if kind == "random":
+        return rng.randint(-20, 21, (P, P)).astype(np.int32) * inside
+    if kind == "gated":                 # one LFNST basis function (mode 0: a MIP CU's)
+        sec = np.zeros((1, P, P), np.int32)
+        sec[0, 0, 0] = rng.choice([-1, 1]) * rng.randint(600, 1200)
+        sec[0, 1, 0] = rng.randint(-400, 400)
+        pri = inv_lfnst_generic(torch.from_numpy(sec), torch.zeros(1, dtype=torch.int32), ws,
+                                hs, 1 + rng.randint(2))
+        return ttq.inverse_transform_generic(pri, ws, hs, bit_depth=BD)[0].numpy() * inside
+    for attempt in range(64):
+        resid = np.zeros((P, P), np.int32)
+        if kind == "exact":             # a level set that DCT-2 rebuilds exactly
+            lev = np.zeros((1, P, P), np.int32)     # QP 4's step shrinks as the TU grows
+            step = max(1, w * h // 16)
+            lev[0, 0, 0] = rng.choice([-1, 1]) * rng.randint(step, 5 * step)
+            lev[0, rng.randint(2), 1] = rng.randint(-3 * step, 3 * step + 1)
+            deq = ttq.dequantize_generic(torch.from_numpy(lev), ws, hs, K5_TIE_QP, bit_depth=BD)
+            resid = ttq.inverse_transform_generic(deq, ws, hs, bit_depth=BD)[0].numpy() * inside
+        elif kind == "impulse":         # transform skip alone rebuilds it
+            resid[rng.randint(h), rng.randint(w)] = rng.choice([-1, 1]) * rng.randint(200, 300)
+        else:                           # TS tie: impulses 3, 3, 6 at distinct places
+            at = rng.permutation(w * h)[:3]
+            resid[at // w, at % w] = rng.choice([-1, 1], 3) * np.array([3, 3, 6])
+        cands, cost_zero = _k5_one(P, lam, resid, pred, w, h)
+        costs = [float(c[2][0]) for c in cands]
+        if kind == "exact" and costs[0] == 0 and np.abs(resid).max() > 0:
+            return resid
+        if kind == "impulse" and costs[-1] == 0 and min(costs[:-1]) > 0:
+            return resid
+        if kind == "TS tie" and costs[-1] == cost_zero < min(costs[:-1]):
+            return resid
+    raise RuntimeError(f"no {kind} residual found for a {w}x{h} CU")
+
+
+def k5_tie_inputs(P: int, seed: int) -> list:
+    """K5's cases in the P-pad luma class: one (lam, rows, org, pred, modes,
+    codes, kinds) call, as numpy, for each lam of ``K5_TIES[P]`` (the lam 0
+    call also holds a "random" CU of every size of the class), each ending
+    with a padding row: each CU in its own P x P cell of two 256x256
+    frames, its prediction random in 400..623, its original the prediction
+    plus the case's residual. Each case is asserted with the plain version:
+    an "exact" CU's DCT-2 costs 0 (so does transform skip in the 32-pad
+    class); a "zero" CU's DCT-2 and zero TU cost 0; a "gated" CU's LFNST
+    candidates are out with its MIP code and legal without it; an "impulse"
+    CU's transform skip alone costs 0; a "TS tie" CU's transform skip costs
+    what its zero TU costs, and less than every other candidate; no SSE
+    reaches 2^24."""
+    rng = np.random.RandomState(seed)
+    width = height = 256
+    sides = [s for s in (4, 8, 16, 32, 64) if s <= P]
+    sizes = [(w, h) for w, h in itertools.product(sides, sides) if P == 32 or max(w, h) > 32]
+    calls = []
+    for lam, cases in K5_TIES[P].items():
+        ties = list(cases) + ([("random", w, h) for w, h in sizes] if lam == 0 else [])
+        nx = width // P
+        cells = rng.permutation(2 * nx * (height // P))[:len(ties)]
+        org = rng.randint(400, 624, (2, height, width)).astype(np.int32)
+        preds = np.zeros((len(ties) + 1, P, P), np.int32)
+        rows, modes, codes, kinds = [], [], [], []
+        for b, (kind, w, h) in enumerate(ties):
+            fi, cell = divmod(int(cells[b]), nx * (height // P))
+            cy, cx = divmod(cell, nx)
+            x, y = cx * P, cy * P
+            preds[b] = rng.randint(400, 624, (P, P))
+            resid = _k5_resid(P, lam, kind, w, h, preds[b], rng)
+            org[fi, y:y + h, x:x + w] = preds[b, :h, :w] + resid[:h, :w]
+            rows.append((fi, x, y, w, h, rng.randint(0, 400), 1, 0))
+            gated = kind == "gated"
+            modes.append(0 if gated else rng.randint(0, 67))
+            codes.append(1 + rng.randint(32) if gated or rng.rand() < 0.3 else 0)
+            kinds.append(kind)
+        rows.append((0,) * 8)
+        modes.append(0)
+        codes.append(0)
+        rows, modes, codes = (np.array(a, np.int32) for a in (rows, modes, codes))
+        # the cases are what they claim, in the plain version on the whole call
+        args = ([torch.from_numpy(org)], torch.from_numpy(preds[None]), torch.from_numpy(rows),
+                P, K5_TIE_QP, BD, True, lam, torch.from_numpy(modes))
+        cands, resid, _, ok, cost_zero = tq_mts_candidates(*args, torch.from_numpy(codes),
+                                                           *k5_tie_tools(P))
+        open_cands = tq_mts_candidates(*args, None, *k5_tie_tools(P))[0]
+        costs = torch.stack([c[2] for c in cands], 1).numpy()
+        cost_zero = cost_zero.numpy()
+        lf = np.array([c[4] for c in cands])
+        ts = [i for i, c in enumerate(cands) if c[3] == 1]
+        sse0 = (resid.long() ** 2).sum((1, 2)).numpy()
+        check(sse0.max() < 2 ** 24 and costs[np.isfinite(costs)].max() < 2 ** 24,
+              "a K5 tie case's SSE reaches 2^24")
+        for b, kind in enumerate(kinds):
+            c = costs[b]
+            if kind == "exact":
+                check(c[0] == 0 and (not ts or c[ts[0]] == 0) and sse0[b] > 0,
+                      f"exact {rows[b, 3]}x{rows[b, 4]}: costs {c}")
+            elif kind == "zero":
+                check(c[0] == 0 and cost_zero[b] == 0, f"zero: costs {c}")
+            elif kind == "gated":
+                check(not np.isfinite(c[lf > 0]).any() and
+                      np.isfinite(np.array([float(open_cands[i][2][b]) for i in
+                                            np.nonzero(lf > 0)[0]])).any(),
+                      f"gated {rows[b, 3]}x{rows[b, 4]}: costs {c}")
+            elif kind == "impulse":
+                check(c[ts[0]] == 0 and np.delete(c, ts[0]).min() > 0, f"impulse: costs {c}")
+            elif kind == "TS tie":
+                check(c[ts[0]] == cost_zero[b] < np.delete(c, ts[0]).min() and
+                      cands[ts[0]][0][b].any(), f"TS tie: costs {c}, zero TU {cost_zero[b]}")
+        check(not ok[-1], "the last row is the padding row")
+        calls.append((lam, rows, org, preds, modes, codes, kinds))
+    return calls
+
+
+def k5_tie_seen(rows: np.ndarray, kinds: list, lev: np.ndarray, tr: np.ndarray,
+                lf: np.ndarray) -> np.ndarray:
+    """(8,) counts of ``K5_TIE_CASES`` among K5's results (``lev`` (B, P, P),
+    ``tr``, ``lf`` (B,)): an "exact" CU must be coded with DCT-2 (mts_idx
+    0, lfnst_idx 0), a "zero" or "TS tie" CU and the padding row not coded,
+    a "gated" CU must not take LFNST, an "impulse" CU must take transform
+    skip."""
+    seen = np.zeros(len(K5_TIE_CASES), np.int64)
+    P = lev.shape[-1]
+    for b, (fi, x, y, w, h, _, live, _) in enumerate(rows):
+        kind = kinds[b] if live > 0 else "padding row"
+        coded = bool(lev[b].any())
+        uncoded = not coded and tr[b] == 0 and lf[b] == 0
+        want = {"exact": coded and tr[b] == 0 and lf[b] == 0, "zero": uncoded,
+                "gated": lf[b] == 0, "impulse": coded and tr[b] == 1 and lf[b] == 0,
+                "TS tie": uncoded, "padding row": uncoded}.get(kind, True)
+        check(want, f"K5 on a {kind} {w}x{h} CU: coded {coded}, mts_idx {tr[b]}, "
+              f"lfnst_idx {lf[b]}")
+        seen += [kind == "exact", kind == "zero", kind == "gated", kind == "impulse",
+                 kind == "TS tie", live > 0 and P == 32, live > 0 and P == 64, live <= 0]
+    return seen
+
+
+def k5_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
+    """K5 against its plain version on ``k5_tie_inputs``; the cases seen."""
+    seen = np.zeros(len(K5_TIE_CASES), np.int64)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    for lam, rows_np, org, pred, modes, codes, kinds in k5_tie_inputs(P, seed):
+        args = ([dev(org)], dev(pred[None]), dev(rows_np), P, K5_TIE_QP, BD, True, lam,
+                dev(modes), dev(codes), *k5_tie_tools(P))
+        got = tq_mts(*args)
+        _cmp("tq_mts", list(got), list(tq_mts_reference(*args)), errs)
+        lev, _, tr, lf = (t.cpu().numpy() for t in got)
+        seen += k5_tie_seen(rows_np, kinds, lev[0], tr, lf)
+    return seen
+
+
 def _cmp(name: str, got, want, errs: dict) -> None:
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
@@ -988,42 +1215,51 @@ def sdh_groups(resids, rows, P: int, scale: int, qp: int, lam: float) -> tuple[i
     return len(resids) * int(per_tb[(lw * 7 + lh).long()][ok].sum()), fixed
 
 
-def k5_ops(rows: np.ndarray, P: int, k5) -> tuple[int, int]:
-    """(integer operations, coefficient groups that sign-data hiding scans)
-    of one K5 call, from ``k5`` = (mts, lfnst, ts_max, sdh, legal): each
-    candidate a CU runs (DCT-2 always; MTS where w, h <= 32; LFNST where the
-    MIP gate allows; transform skip where w, h <= ts_max) costs its forward
-    transform and quantisation, and a legal one (``legal``: (B, candidates)
-    from ``tq_mts_candidates``, in its order) also its inverse and sums. A
-    multiply-add counts two operations."""
+def k5_ops(rows: np.ndarray, P: int, k5) -> tuple[int, int, int]:
+    """(integer operations, float operations, coefficient groups that
+    sign-data hiding scans) of one K5 call, from ``k5`` = (mts, lfnst,
+    ts_max, sdh, legal, gate): each candidate a CU runs (DCT-2 always; MTS
+    where w, h <= 32; LFNST where the MIP gate allows; transform skip where
+    w, h <= ts_max) costs its forward transform and quantisation, and a legal
+    one (``legal``: (B, candidates) from ``tq_mts_candidates``, in its order)
+    also its inverse and sums. A multiply-add counts one integer operation.
+    LFNST needs only the secondary products on DCT-2's coefficients, its 16
+    secondary coefficients' quantisation, and the inverse DCT-2 of the 8x8
+    (4x4 below 8x8 TUs) region it fills."""
     mts, lfnst, ts_max, sdh, legal, gate = k5
     per_tb = (_cg_tables(P) >= 0).any(-1).sum(-1)
-    ops = groups = 0
+    int_ops = float_ops = groups = 0
+    quant_int = OPS_QUANT - OPS_RD_FLOAT
     for b, (w, h) in enumerate(rows[:, 3:5]):
         if rows[b, 6] <= 0:
             continue
         n16 = 8 if (w, h) in ((4, 4), (8, 8)) else 16
+        r = 8 if min(w, h) >= 8 else 4
         cands = [(min(w, 32), min(h, 32), "tr")]
         cands += [(min(w, 16), min(h, 16), "tr")] * 4 if mts else []
-        cands += [(min(w, 32), min(h, 32), "lfnst")] * 2 if lfnst else []
+        cands += [(r, r, "lfnst")] * 2 if lfnst else []
         cands += [(w, h, "ts")] if ts_max else []
         for c, (kw, kh, kind) in enumerate(cands):
             if (kind == "tr" and 1 <= c <= 4 and max(w, h) > 32) or \
                     (kind == "lfnst" and not gate[b]) or (kind == "ts" and max(w, h) > ts_max):
                 continue
+            float_ops += OPS_COST
             if kind == "ts":
-                ops += OPS_QUANT * w * h + (OPS_SAMPLE * w * h if legal[b, c] else 0)
+                int_ops += quant_int * w * h + (OPS_SAMPLE * w * h if legal[b, c] else 0)
                 continue
-            fwd = h * kw * w + kh * kw * h if kind == "tr" else n16 * 48
-            inv = h * kw * kh + h * w * kw + (48 * n16 if kind == "lfnst" else 0)
-            ops += 2 * fwd + OPS_QUANT * kw * kh + w * h
+            if kind == "tr":
+                fwd, inv, nq = h * kw * w + kh * kw * h, h * kw * kh + h * w * kw, kw * kh
+            else:
+                fwd, inv, nq = n16 * 48, 48 * n16 + h * r * r + h * w * r, 16
+            int_ops += fwd + quant_int * nq + w * h
+            float_ops += OPS_RD_FLOAT * nq
             if sdh:
                 g = int(per_tb[int(np.log2(w)) * 7 + int(np.log2(h))])
-                ops += g * 16 * OPS_SDH_SLOT
+                int_ops += g * 16 * OPS_SDH_SLOT
                 groups += g
             if legal[b, c]:
-                ops += 2 * inv + OPS_SAMPLE * w * h
-    return ops, groups
+                int_ops += inv + OPS_SAMPLE * w * h
+    return int_ops, float_ops, groups
 
 
 def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
@@ -1092,14 +1328,18 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
             len(live) * (2 * 4 * 4 + 2 * 4) + B * (2 * P * P * 4 + 4 + 32)
         ops = int((w * h).sum()) * (OPS_DOWNSAMPLE + 2 * OPS_LM + 4 * OPS_SATD)
     elif name == "tq_mts":
-        ops, groups = k5_ops(rows, P, k5)
+        int_ops, float_ops, groups = k5_ops(rows, P, k5)
+        ops = int_ops + float_ops
+        t_ops = max(int_ops / int32_ops_per_s(), float_ops / FP32_OPS_PER_S)
         nbytes = int((w * h).sum()) * 4 + B * P * P * 4 * 3 + B * (32 + 4 * 4) + \
             groups * 16 * 4
     else:                               # wave_scatter, up to four grids
         ops = 0
         nbytes = n * int((w * h).sum()) * (8 + 6) + B * 32 + \
             ngrids * (int((w // 4 * h // 4).sum()) + len(live) * 4)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate(name)
+    if name != "tq_mts":
+        t_ops = ops / ops_rate(name)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
@@ -1300,6 +1540,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     crs_seen = np.zeros(len(CRS_CASES), np.int64)
     ties_seen = np.zeros(len(RMD_TIE_CASES), np.int64)
     mip_ties_seen = np.zeros(len(MIP_TIE_CASES), np.int64)
+    k5_ties_seen = np.zeros(len(K5_TIE_CASES), np.int64)
     lut = device_crs_lut()
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
@@ -1329,6 +1570,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         if luma:
             ties_seen += rmd_tie_checks(P, seed=P + qp, errs=errs)
             mip_ties_seen += mip_tie_checks(P, seed=P + qp, errs=errs)
+            k5_ties_seen += k5_tie_checks(P, seed=P + qp, errs=errs)
             args = (refs, orgs[0], rows, pred, modes, P, BD)
             best, pred3, codes = mip_select(*args)
             _cmp("mip_rmd", [best, pred3, codes], list(mip_select_reference(*args)), errs)
@@ -1434,6 +1676,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     check((crs_seen > 0).all(), f"some chroma residual scaling case never occurred: {crs_seen}")
     check((ties_seen > 0).all(), f"some K2 tie case never occurred: {ties_seen}")
     check((mip_ties_seen > 0).all(), f"some K3 tie case never occurred: {mip_ties_seen}")
+    check((k5_ties_seen > 0).all(), f"some K5 tie case never occurred: {k5_ties_seen}")
     log(f"[encode-kernels] K1/K2/K3/K4 (with K6b, K6c)/K5/K6a/K7 equal to their plain "
         f"versions on every "
         f"CU size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
@@ -1448,7 +1691,9 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         + "; K2 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(RMD_TIE_CASES,
                                                                          ties_seen))
         + "; K3 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(MIP_TIE_CASES,
-                                                                         mip_ties_seen)))
+                                                                         mip_ties_seen))
+        + "; K5 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(K5_TIE_CASES,
+                                                                         k5_ties_seen)))
     return errs, phase_encode_kernel_times(width, height)
 
 
@@ -2049,6 +2294,18 @@ def rdo_bounds(name: str, rows: np.ndarray, P: int, nqp: int) -> tuple[float, st
             nbytes, ops)
 
 
+def rdo_chunk_rows(rng, B: int, chroma: bool) -> np.ndarray:
+    """(B, 8) int32 rows of one 8-pad chunk of 1080p rects at random
+    4-aligned places: the luma tree's 4x4 to 8x8, or the chroma tree's 8x8."""
+    sizes = [(8, 8)] if chroma else [(4, 4), (4, 8), (8, 4), (8, 8)]
+    rows = np.zeros((B, 8), np.int32)
+    rows[:, 3:5] = np.array(sizes)[rng.randint(len(sizes), size=B)]
+    rows[:, 1] = rng.randint(0, (ENC_W - 8) // 4, B) * 4
+    rows[:, 2] = rng.randint(0, (ENC_H - 8) // 4, B) * 4
+    rows[:, 5:] = 1
+    return rows
+
+
 def phase_rdo_kernels() -> tuple[dict, dict]:
     """K9a/K9b/K9c, and K1, K4, K5, K6a as the RDO calls them, against their
     plain versions on ``rdo_rows`` of every tile class (``RDO_CASES`` must
@@ -2076,13 +2333,7 @@ def phase_rdo_kernels() -> tuple[dict, dict]:
     times = {}
     for name in RDO_KERNELS:
         chroma = name == "rdo_chroma_select"
-        sizes = [(8, 8)] if chroma else [(4, 4), (4, 8), (8, 4), (8, 8)]
-        wh = np.array(sizes)[rng.randint(len(sizes), size=B)]
-        rows_np = np.zeros((B, 8), np.int32)
-        rows_np[:, 1] = rng.randint(0, (ENC_W - 8) // 4, B) * 4
-        rows_np[:, 2] = rng.randint(0, (ENC_H - 8) // 4, B) * 4
-        rows_np[:, 3:5] = wh
-        rows_np[:, 5:] = 1
+        rows_np = rdo_chunk_rows(rng, B, chroma)
         rows = torch.from_numpy(rows_np).to(DEVICE)
         og0 = rg._zero_grid(oy)
         refs = ref_gather([oy], og0, rows, 8, 1, BD)
@@ -2687,7 +2938,7 @@ SEQ_TIME_W = SEQ_TIME_H = 16          # the timed block
 # Scalar integer operations per output, counted from the kernels' inner
 # loops: a K10b upsampled sample (two linear passes) and reduced sample (an
 # 8-term product); K10c's quantiser and dequantiser per coefficient (abs,
-# product, add, shift, sign, clip); two per multiply-add of a transform;
+# product, add, shift, sign, clip); one per multiply-add of a transform;
 # K10e's difference, |.| or square, and sum per sample.
 OPS_SEQ_QUANT, OPS_DIST = 8, 3
 
@@ -2730,7 +2981,7 @@ def seq_bounds(name: str, w: int, h: int, k: int) -> tuple[float, str, int, int]
         ops = k * (hw * OPS_UPSAMPLE + rp * rp * OPS_REDUCED)
     elif name == "seq_tq":
         nbytes = 4 * hw + 4 * 4 * hw
-        ops = 2 * 2 * hw * (w + h) + 2 * OPS_SEQ_QUANT * hw
+        ops = 2 * hw * (w + h) + 2 * OPS_SEQ_QUANT * hw
     elif name == "seq_satd":
         nbytes, ops = 4 * hw + 4 * k * hw + 4 * k, k * hw * OPS_SATD
     else:
@@ -3773,9 +4024,87 @@ def k3_call(P: int, scale: int, rows_np: np.ndarray, width: int, height: int):
     return (lambda: mip_select(*args)), list(mip_select_reference(*args))
 
 
+def k5_call(P: int, tools: tuple, rows_np: np.ndarray, width: int, height: int):
+    """(K5's call on these luma rows with ``tools`` (mts, lfnst, ts_max,
+    sdh) after the port's K1, K2 and K3, as ``phase_encode_kernel_times``
+    builds it, its plain version's outputs)."""
+    refs, org0, mg, rows = rmd_inputs(P, 1, rows_np, width, height)
+    modes, pred = intra_rmd(refs, org0, mg, rows, P, True, BD)
+    best, pred, codes = mip_select(refs, org0, rows, pred, modes, P, BD)
+    lam = 0.57 * 2 ** ((ENC_QP - 12) / 3)
+    args = ([org0], pred, rows, P, ENC_QP + 12, BD, True, lam, best, codes, *tools)
+    return (lambda: tq_mts(*args)), list(tq_mts_reference(*args))
+
+
+def k5_rdo_call():
+    """(K5 as the device RDO calls it on one 16,384-rect chunk of the 8-pad
+    class (``phase_rdo_kernels``: the luma tree's 4x4 to 8x8 rects of a
+    1080p frame, K9a's winners, QP 22's point, DCT-2 and MTS), its plain
+    version's outputs)."""
+    rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[8], False)
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    oy, ou, ov = (torch.from_numpy(p[None].astype(np.int32)).to(DEVICE) for p in frame)
+    rows = torch.from_numpy(rows_np).to(DEVICE)
+    og0 = rg._zero_grid(oy)
+    refs = ref_gather([oy], og0, rows, 8, 1, BD)
+    crefs = ref_gather([ou, ov], og0, rows, 4, 2, BD)
+    modes, pred, _ = rg.rdo_luma_select(refs, crefs, oy, rows, 8, BD)
+    qp_y, _, lam, _ = rdo_qp_points(ENC_W, ENC_H, (ENC_QP,))[0]
+    args = ([oy], pred, rows, 8, qp_y, BD, True, lam, modes)
+    return (lambda: tq_mts(*args, mts=True)), list(tq_mts_reference(*args, mts=True))
+
+
+def probe_rows(width: int, height: int, side: int) -> np.ndarray:
+    """16 32-pad CUs of side x side, each at its cell's top-left: with the
+    timed classes, what splits a call's time into what every call costs and
+    what grows with the CUs."""
+    rows_np = kernel_rows(32, 1, seed=1, width=width, height=height)[:16]
+    rows_np[:, 1:3] -= rows_np[:, 1:3] % 32
+    rows_np[:, 3:5] = side
+    return rows_np
+
+
+def class_cases(make_call, classes):
+    """``phase_variant_times``' cases of K2 / K3: the timed classes at
+    their batches, then the two probes (16 CUs of 4x4, of 32x32)."""
+    def cases(width: int, height: int) -> list:
+        out = [(f"{P}-pad {'luma' if scale == 1 else 'chroma'}, {B} CUs",
+                functools.partial(make_call, P, scale,
+                                  kernel_rows(P, scale, seed=1, width=width,
+                                              height=height)[:B], width, height))
+               for P, scale, B in classes]
+        return out + [(f"32-pad luma, 16 CUs of {side}x{side}",
+                       functools.partial(make_call, 32, 1, probe_rows(width, height, side),
+                                         width, height)) for side in (4, 32)]
+    return cases
+
+
+def k5_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K5: the luma classes with the main
+    path's tools, the 32-pad class with the tools off (SDH on), the RDO's
+    8-pad chunk with MTS, and the two probes with every tool."""
+    tools = {32: (True, True, 32, True), 64: (False, True, 0, True)}
+    out = [(f"{P}-pad luma, {B} CUs",
+            functools.partial(k5_call, P, tools[P],
+                              kernel_rows(P, 1, seed=1, width=width, height=height)[:B],
+                              width, height))
+           for P, scale, B in TIMED_CLASSES if scale == 1]
+    out.append(("32-pad luma, 16 CUs, tools off",
+                functools.partial(k5_call, 32, (False, False, 0, True),
+                                  kernel_rows(32, 1, seed=1, width=width, height=height)[:16],
+                                  width, height)))
+    out.append((f"8-pad luma, {trd._BATCH_CUDA[8]:,} RDO rects, MTS", k5_rdo_call))
+    return out + [(f"32-pad luma, 16 CUs of {side}x{side}",
+                   functools.partial(k5_call, 32, tools[32], probe_rows(width, height, side),
+                                     width, height)) for side in (4, 32)]
+
+
 # this tree's kernels built with their other shapes, timed beside the
 # shipped one (a cluster of 8 blocks per CU for K2, 4 for K3, of 16 warps,
-# two blocks an SM): {label: nvcc defines}
+# two blocks an SM; for K5 a cluster of one block a slot of 8 warps at the
+# 32-pad class, one block an SM, 2 x 4 outputs a stage thread, the 8-pad
+# class's slots one warp each of one block):
+# {label: nvcc defines}
 K2_VARIANTS = {"one block per CU": ("-DK2_CLUSTER=1",),
                "4 blocks per CU": ("-DK2_CLUSTER=4",),
                "32 warps a block, one block an SM": ("-DK2_WARPS=32", "-DK2_BLOCKS_PER_SM=1")}
@@ -3783,46 +4112,47 @@ K3_VARIANTS = {"one block per CU": ("-DK3_CLUSTER=1",),
                "2 blocks per CU": ("-DK3_CLUSTER=2",),
                "8 blocks per CU": ("-DK3_CLUSTER=8",),
                "32 warps a block, one block an SM": ("-DK3_WARPS=32", "-DK3_BLOCKS_PER_SM=1")}
-# ``--k2-times`` / ``--k3-times``: (library, wrapper module, variants, the
-# function that makes the call and its plain outputs, the tile classes timed)
-TIMED_KERNELS = {"k2": ("intra_rmd", ig, K2_VARIANTS, k2_call, TIMED_CLASSES),
-                 "k3": ("mip_rmd", mip_g, K3_VARIANTS, k3_call,
-                        tuple(c for c in TIMED_CLASSES if c[1] == 1))}
+K5_VARIANTS = {"every slot in turn on one block": ("-DK5_SERIAL",),
+               "1 x 4 outputs a stage thread": ("-DK5_STAGE_ROWS=1",),
+               "two blocks an SM (64 registers)": ("-DK5_BLOCKS_PER_SM=2",),
+               "8-pad: 4 blocks an SM (64 registers)": ("-DK5_TEAM_BLOCKS_PER_SM=4",),
+               "8-pad: 2 blocks an SM (128 registers)": ("-DK5_TEAM_BLOCKS_PER_SM=2",),
+               "4 warps a slot": ("-DK5_WARPS=4",),
+               "16 warps a slot": ("-DK5_WARPS=16",),
+               "8-pad slots on clusters too": ("-DK5_TEAM_PAD=0",)}
+# ``--k2-times`` / ``--k3-times`` / ``--k5-times``: (library, wrapper
+# module, variants, the function that gives the timed cases: (label, the
+# function that makes the call and its plain outputs))
+TIMED_KERNELS = {"k2": ("intra_rmd", ig, K2_VARIANTS, class_cases(k2_call, TIMED_CLASSES)),
+                 "k3": ("mip_rmd", mip_g, K3_VARIANTS,
+                        class_cases(k3_call, tuple(c for c in TIMED_CLASSES if c[1] == 1))),
+                 "k5": ("tq_mts", ttq, K5_VARIANTS, k5_cases)}
 
 
 def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
                         height: int = 192) -> dict:
     """``kernel``'s (``TIMED_KERNELS``) device time per call (CUDA graph)
-    at its timed classes' shapes, as ``phase_encode_kernel_times`` builds
-    them, for the parent commit's source (``parent``: a checkout of it; its
-    ``csrc/<library>.cu`` built into its own ``build/``), this tree's, and
-    this tree's built with each of its variants' defines, in turns: parent,
-    new, the variants, the variants again in reverse, new, parent; then, to
-    split the time into what every call costs and what grows with the CUs,
-    16 32-pad CUs all of 4x4 and all of 32x32. Each equals the plain
-    version on those inputs."""
-    name, _, variants, make_call, classes = TIMED_KERNELS[kernel]
+    on its timed cases, for the parent commit's source (``parent``: a
+    checkout of it; its ``csrc/<library>.cu`` built into its own
+    ``build/``), this tree's, and this tree's built with each of its
+    variants' defines (the builds in parallel), in turns: parent, new, the
+    variants, the variants again in reverse, new, parent. Each equals the
+    plain version on those inputs."""
+    name, _, variants, make_cases = TIMED_KERNELS[kernel]
     tag = f"[{kernel}-times]"
-    libs = {"parent": variant_library(kernel,
-                                      parent / "pmp_vvc_tpu_torch" / "csrc" / f"{name}.cu",
-                                      parent / "build" / "kernels" / f"lib{name}-parent.so"),
-            "new": None}
+    jobs = {"parent": (parent / "pmp_vvc_tpu_torch" / "csrc" / f"{name}.cu",
+                       parent / "build" / "kernels" / f"lib{name}-parent.so", ())}
     for i, (label, defines) in enumerate(variants.items()):
-        libs[label] = variant_library(kernel, _build.CSRC / f"{name}.cu",
-                                      _build.BUILD_DIR / f"lib{name}-variant{i}.so", defines)
+        jobs[label] = (_build.CSRC / f"{name}.cu", _build.BUILD_DIR / f"lib{name}-variant{i}.so",
+                       defines)
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(lambda j: variant_library(kernel, *j), jobs.values())))
+    libs = {"parent": built["parent"], "new": None, **{k: built[k] for k in variants}}
     order = ("parent", "new", *variants, *reversed(variants), "new", "parent")
     errs: dict = {}
     res = {}
-    cases = [(f"{P}-pad {'luma' if scale == 1 else 'chroma'}, {B} CUs", P, scale,
-              kernel_rows(P, scale, seed=1, width=width, height=height)[:B])
-             for P, scale, B in classes]
-    for side in (4, 32):
-        rows_np = kernel_rows(32, 1, seed=1, width=width, height=height)[:16]
-        rows_np[:, 1:3] -= rows_np[:, 1:3] % 32          # each at its cell's top-left
-        rows_np[:, 3:5] = side
-        cases.append((f"32-pad luma, 16 CUs of {side}x{side}", 32, 1, rows_np))
-    for cls, P, scale, rows_np in cases:
-        call, want = make_call(P, scale, rows_np, width, height)
+    for cls, make in make_cases(width, height):
+        call, want = make()
         times = collections.defaultdict(list)
         for label in order:
             with launching(kernel, libs[label]):
@@ -3838,11 +4168,11 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
 
 
 def times_only(kernel: str, parent: pathlib.Path) -> int:
-    """``--k2-times PARENT`` / ``--k3-times PARENT``: the build, the encode
-    kernels' checks and times (the K2 and K3 tie cases among them), K10a-e's
-    checks and times (K10b shares K3's ``csrc/mip.cuh``), and
-    ``phase_variant_times`` against the parent checkout; prints no result
-    line."""
+    """``--k2-times PARENT`` / ``--k3-times PARENT`` / ``--k5-times
+    PARENT``: the build, the encode kernels' checks and times (the K2, K3
+    and K5 tie cases among them), K10a-e's checks and times (K10b shares
+    K3's ``csrc/mip.cuh``), and ``phase_variant_times`` against the parent
+    checkout; prints no result line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
     phase_encode_kernels()
@@ -3913,7 +4243,7 @@ def main() -> int:
         return dp_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
-    if sys.argv[1:2] in (["--k2-times"], ["--k3-times"]):
+    if sys.argv[1:2] in (["--k2-times"], ["--k3-times"], ["--k5-times"]):
         return times_only(sys.argv[1][2:4], pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()
