@@ -49,8 +49,14 @@ Phases, each of which fails the run on error (nothing is caught):
    and must win, a zero residual ties the zero TU, the MIP gate keeps
    LFNST out, an impulse goes to transform skip, every size of the luma
    classes; with lam 2 transform skip's nonzero levels tie the zero TU,
-   which must win; the padding row); timed at the main path's batch
-   shapes.
+   which must win; the padding row); K6a on its tie and edge cases in the
+   16- and 32-pad chroma classes and the RDO's 4-pad one (``CCLM_TIES``:
+   every CU size of the class, sides of 2 and non-square CUs whose short
+   side is 4, DM equal to LM (a SATD tie DM must keep), LM better with the
+   gate off, LM winning, LM clipped at 0 and at pel_max, flat,
+   two-sample and neighbourless templates, the CTU top row, the frame's
+   right and bottom edges, the padding row); timed at the main path's
+   batch shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
@@ -217,7 +223,10 @@ a directory holding that commit's ``pmp_vvc_tpu_torch/csrc``, e.g. from
 ``K2_VARIANTS``, in turns in one process (``phase_variant_times``);
 ``--k3-times PARENT`` the same for K3 (``K3_VARIANTS``, the luma classes);
 ``--k5-times PARENT`` the same for K5 (``K5_VARIANTS``, ``k5_cases``: the
-luma classes, the tools off, the RDO's 8-pad chunk); none prints a result
+luma classes, the tools off, the RDO's 8-pad chunk); ``--k6a-times
+PARENT`` the same for K6a (``K6A_VARIANTS``, ``k6a_cases``: the chroma
+classes, the RDO's 4-pad chunk of 16,384 rects, 16 CUs of 2x2 and of 32x32
+chroma samples), with phase 12's checks and times; none prints a result
 line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
@@ -269,6 +278,7 @@ from pmp_vvc_tpu_torch.ops.intra_generic import (
     ref_gather_reference)
 from pmp_vvc_tpu_torch.ops.lmcs_generic import (
     UNIT_SCALE, crs_forward, crs_lut, crs_neighbours, crs_scale_reference)
+from pmp_vvc_tpu_torch.ops import cclm_generic as cclm_g
 from pmp_vvc_tpu_torch.ops import mip_generic as mip_g
 from pmp_vvc_tpu_torch.ops.mip_generic import (
     mip_select, mip_select_reference, predict_mip_generic)
@@ -1118,6 +1128,189 @@ def k5_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
     return seen
 
 
+# K6a's tie and edge cases: per chroma class (pad: 16 and 32 of the wave
+# path, 4 of the RDO's chroma tree), (kind, w, h) in luma units, besides a
+# "random" CU of every size the class admits (sides of 2 and non-square CUs
+# whose short side is 4 among them). Each CU has its own 2P x 2P luma cell
+# of two 256x256 frames, at the cell's top-left; every kind but "random"
+# and "none" has both neighbours coded before it (order 400). "tie": DM's
+# prediction is LM's, so the SATDs tie and DM must keep the CU; "gate off":
+# the original is LM's prediction (SATD 0) and the CCLM gate is off, so DM
+# must keep it; "LM wins": the same with the gate on, so LM must win;
+# "clip": luma 400 above and 440 left of the CU against chroma 200 above and
+# 800 left (U; V is 1023 - U), so the slope is clamped to +-15, and luma 300
+# in the CU's top half and 600 in its bottom half, so LM clips at 0 and at
+# pel_max; "flat": one luma value over the template; "two": only the side of
+# 2 has a neighbour, so the template holds two samples; "none": no
+# neighbour; "CTU top": on luma row 128; "edge": flush with the frame's
+# right and bottom edges. Each call ends with a padding row.
+CCLM_TIE_CASES = ("DM kept a SATD tie", "LM better, gate off", "LM chosen", "LM clipped at 0",
+                  "LM clipped at pel_max", "flat template", "two-sample template",
+                  "no neighbours", "CTU top row", "right and bottom frame edges",
+                  "chroma side of 2", "non-square, short side 4", "padding row")
+CCLM_TIES = {
+    16: (("tie", 16, 16), ("tie", 4, 8), ("gate off", 32, 32), ("gate off", 8, 32),
+         ("LM wins", 32, 8), ("LM wins", 4, 4), ("clip", 16, 16), ("clip", 32, 8),
+         ("flat", 16, 8), ("flat", 4, 16), ("two", 4, 16), ("two", 32, 4), ("none", 8, 8),
+         ("none", 4, 4), ("CTU top", 32, 16), ("CTU top", 4, 8), ("edge", 32, 32),
+         ("edge", 8, 4)),
+    32: (("tie", 64, 64), ("tie", 64, 4), ("gate off", 64, 32), ("LM wins", 16, 64),
+         ("clip", 64, 64), ("clip", 8, 64), ("flat", 64, 16), ("two", 4, 64), ("two", 64, 4),
+         ("none", 64, 8), ("CTU top", 64, 64), ("edge", 64, 32)),
+    4: (("tie", 8, 8), ("tie", 4, 4), ("gate off", 8, 4), ("LM wins", 4, 8), ("clip", 8, 8),
+        ("flat", 8, 8), ("two", 4, 8), ("two", 8, 4), ("none", 4, 4), ("CTU top", 8, 8),
+        ("edge", 8, 4)),
+}
+CCLM_TIE_W, CCLM_TIE_H = 256, 256
+
+
+def _cclm_tie_places(P: int, rng) -> list:
+    """(fi, x, y, w, h, order) of each CU of ``CCLM_TIES[P]`` and then a
+    "random" CU of every size of the class, in distinct 2P x 2P cells; and
+    the kinds."""
+    C, W, H = 2 * P, CCLM_TIE_W, CCLM_TIE_H
+    sides = [s for s in (4, 8, 16, 32, 64) if s <= C]
+    # the most constrained first: the CTU top row, the edge cell, the
+    # other kinds (off the frame's top row and left column), "random"
+    ties = sorted(CCLM_TIES[P], key=lambda t: (t[0] != "CTU top", t[0] != "edge")) + \
+        [("random", w, h) for w, h in itertools.product(sides, sides)
+         if P != 32 or max(w, h) == C]
+    free = {(f, cx, cy) for f in range(2) for cx in range(W // C) for cy in range(H // C)}
+    places = []
+    for kind, w, h in ties:
+        if kind == "edge":
+            cell = (rng.randint(2), W // C - 1, H // C - 1)
+        else:
+            ok = [c for c in sorted(free) if kind == "random" or
+                  (c[1] >= 1 and c[2] >= 1 and (kind != "CTU top" or c[2] * C == 128))]
+            cell = ok[rng.randint(len(ok))]
+        free.discard(cell)
+        fi, cx, cy = cell
+        x, y = (W - w, H - h) if kind == "edge" else (cx * C, cy * C)
+        order = rng.randint(0, 400) if kind == "random" else 400
+        places.append((fi, x, y, w, h, order))
+    return places, [k for k, _, _ in ties]
+
+
+def cclm_tie_inputs(P: int, seed: int):
+    """K6a's cases in the P-pad chroma class (``CCLM_TIES``) as numpy: (rows,
+    luma recon, chroma recon (2, F, H/2, W/2), originals (2, F, H/2, W/2),
+    order grid, DM predictions (2, B, P, P), kinds, facts), the last row a
+    padding row. ``facts`` holds what each live row is, from the plain
+    version on these inputs: "tie" (equal SATDs), "lm better", "clip0" and
+    "clip max" (LM clipped at 0, at pel_max), "flat", "two", "none". Each
+    kind is asserted to be what it claims."""
+    rng = np.random.RandomState(seed)
+    W, H = CCLM_TIE_W, CCLM_TIE_H
+    rec, org, og = kernel_planes(seed, W, H, 2)
+    ry = cclm_luma(rec, seed)
+    places, kinds = _cclm_tie_places(P, rng)
+    for (fi, x, y, w, h, _), kind in zip(places, kinds):
+        cx, cy, cw, ch = x // 2, y // 2, w // 2, h // 2
+        above, left = (fi, (y - 1) // 4, slice(x // 4, (x + 2 * w) // 4)), \
+            (fi, slice(y // 4, (y + 2 * h) // 4), (x - 1) // 4)
+        if kind == "random":
+            continue
+        og[above], og[left] = 0, 0
+        if kind == "none" or kind == "two" and w != 4:
+            og[fi, (y - 1) // 4, x // 4] = -1       # the above neighbour's cell
+        if kind == "none" or kind == "two" and w == 4:
+            og[fi, y // 4, (x - 1) // 4] = -1       # the left neighbour's cell
+        if kind == "flat":
+            ry[fi, y - 2:y, x - 1:x + w] = 600
+            ry[fi, y:y + h, x - 3:x] = 600
+        elif kind == "clip":
+            ry[fi, y - 2:y, x - 1:x + w] = 400
+            ry[fi, y:y + h, x - 3:x] = 440
+            ry[fi, y:y + h // 2, x:x + w] = 300
+            ry[fi, y + h // 2:y + h, x:x + w] = 600
+            rec[fi, cy - 1, cx - 1:cx + 2 * cw] = 200
+            rec[fi, cy:cy + 2 * ch, cx - 1] = 800
+    rows = np.array([(*p, 1, rng.randint(2) if k == "random" else int(k != "gate off"))
+                     for p, k in zip(places, kinds)] + [(0,) * 8], np.int32)
+    recs = np.stack([rec, 1023 - rec]).astype(np.int32)
+    orgs = np.stack([org, 1023 - org]).astype(np.int32)
+    t = torch.from_numpy
+    rows_t, og_t, ry_t = t(rows), t(og), t(ry)
+    refs = ref_gather_reference([t(recs[0]), t(recs[1])], og_t, rows_t, P, 2, BD)
+    # DM: the original with noise of +-2 or +-200 per CU, zero outside it
+    fi, cxs, cys, cws, chs, _, ok = (a.numpy() for a in unpack_rows(rows_t, 2))
+    d = np.arange(P)
+    inside = (d[None, :, None] < chs[:, None, None]) & (d[None, None, :] < cws[:, None, None])
+    ys = np.clip(cys[:, None, None] + d[None, :, None], 0, H // 2 - 1)
+    xs = np.clip(cxs[:, None, None] + d[None, None, :], 0, W // 2 - 1)
+    amp = rng.choice([2, 200], len(rows))[:, None, None]
+    dm = np.stack([np.clip(o[fi[:, None, None], ys, xs] +
+                           rng.randint(-1, 2, (len(rows), P, P)) * amp, 0, 1023) * inside
+                   for o in orgs]).astype(np.int32)
+    args = lambda: (refs, ry_t, [t(orgs[0]), t(orgs[1])], og_t, rows_t, t(dm), P, BD)  # noqa
+    lm = cclm_costs(*args())[0].numpy()
+    for b, kind in enumerate(kinds):
+        if kind == "tie":
+            dm[:, b] = lm[:, b]
+        elif kind in ("gate off", "LM wins"):
+            orgs[:, fi[b], cys[b]:cys[b] + chs[b], cxs[b]:cxs[b] + cws[b]] = \
+                lm[:, b, :chs[b], :cws[b]]
+    _, cost_dm, cost_lm = (c.numpy() for c in cclm_costs(*args()))
+    la, aa = cclm_neighbours(og_t, rows_t)
+    interior, models, case = cclm_models(
+        ry_t, *unpack_rows(rows_t, 2)[:5], pad_c=P, top_u=refs[0, 0], left_u=refs[0, 1],
+        top_v=refs[1, 0], left_v=refs[1, 1], bit_depth=BD, left_avail=la, above_avail=aa)
+    raw = torch.stack([(a[:, None, None] * interior >> s[:, None, None]) + b_[:, None, None]
+                       for a, b_, s in models]).numpy()
+    facts = {"tie": cost_dm == cost_lm, "lm better": cost_lm < cost_dm,
+             "clip0": ((raw < 0) & inside).any((0, 2, 3)),
+             "clip max": ((raw > (1 << BD) - 1) & inside).any((0, 2, 3)),
+             "flat": case["flat"].numpy(), "two": case["two"].numpy(),
+             "none": case["none"].numpy(), "both": (la & aa).numpy()}
+    claims = {"tie": "tie", "gate off": "lm better", "LM wins": "lm better", "flat": "flat",
+              "two": "two", "none": "none", "CTU top": "both", "edge": "both"}
+    check(max(cost_dm.max(), cost_lm.max()) < 2 ** 24, "a K6a tie case's SATD reaches 2^24")
+    for b, kind in enumerate(kinds):
+        check(kind not in claims or facts[claims[kind]][b],
+              f"K6a tie case {kind} {rows[b, 3]}x{rows[b, 4]} is not what it claims")
+        check(kind != "clip" or facts["clip0"][b] and facts["clip max"][b] and facts["both"][b],
+              f"K6a tie case clip {rows[b, 3]}x{rows[b, 4]} does not clip both ways")
+    check(not ok[-1], "the last row is the padding row")
+    return rows, ry, recs, orgs, og, dm, kinds, facts
+
+
+def cclm_tie_seen(rows: np.ndarray, kinds: list, facts: dict, pred: np.ndarray,
+                  use: np.ndarray) -> np.ndarray:
+    """(13,) counts of ``CCLM_TIE_CASES`` among K6a's results (``pred`` (2,
+    B, P, P), ``use`` (B,)): a "tie" and a "gate off" CU must keep DM, an
+    "LM wins" CU must take LM, the padding row must give zeros and 0."""
+    seen = np.zeros(len(CCLM_TIE_CASES), np.int64)
+    for b, (fi, x, y, w, h, _, live, _) in enumerate(rows):
+        kind = kinds[b] if live > 0 else "padding row"
+        want = {"tie": 0, "gate off": 0, "LM wins": 1, "padding row": 0}.get(kind)
+        check(want is None or use[b] == want, f"K6a on a {kind} {w}x{h} CU: use_lm {use[b]}")
+        check(live > 0 or not pred[:, b].any(), "K6a wrote a padding row")
+        cw, ch = w // 2, h // 2
+        f = {k: bool(v[b]) and live > 0 for k, v in facts.items()} if live > 0 else \
+            dict.fromkeys(facts, False)
+        seen += [kind == "tie" and f["tie"] and use[b] == 0,
+                 kind == "gate off" and f["lm better"] and use[b] == 0,
+                 live > 0 and use[b] == 1, f["clip0"], f["clip max"], f["flat"], f["two"],
+                 f["none"], live > 0 and f["both"] and y % 128 == 0,
+                 live > 0 and x + w == CCLM_TIE_W and y + h == CCLM_TIE_H,
+                 live > 0 and min(cw, ch) == 2, live > 0 and min(cw, ch) == 4 and cw != ch,
+                 live <= 0]
+    return seen
+
+
+def cclm_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
+    """K6a against its plain version on ``cclm_tie_inputs``; the cases seen."""
+    rows_np, ry, recs, orgs, og, dm, kinds, facts = cclm_tie_inputs(P, seed)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    rows, og_t = dev(rows_np), dev(og)
+    refs = ref_gather([dev(recs[0]), dev(recs[1])], og_t, rows, P, 2, BD)
+    args = (refs, dev(ry), [dev(orgs[0]), dev(orgs[1])], og_t, rows, dev(dm), P, BD)
+    got = cclm_select(*args)
+    _cmp("cclm", list(got), list(cclm_select_reference(*args)), errs)
+    return cclm_tie_seen(rows_np, kinds, facts, *(g.cpu().numpy() for g in got))
+
+
 def _cmp(name: str, got, want, errs: dict) -> None:
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
@@ -1541,6 +1734,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     ties_seen = np.zeros(len(RMD_TIE_CASES), np.int64)
     mip_ties_seen = np.zeros(len(MIP_TIE_CASES), np.int64)
     k5_ties_seen = np.zeros(len(K5_TIE_CASES), np.int64)
+    cclm_ties_seen = np.zeros(len(CCLM_TIE_CASES), np.int64)
     lut = device_crs_lut()
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
@@ -1630,6 +1824,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
             got = cclm_select(*args)
             _cmp("cclm", list(got), list(cclm_select_reference(*args)), errs)
             cclm_seen += cclm_cases(*args[:7], got[1])
+            cclm_ties_seen += cclm_tie_checks(P, seed=P + qp, errs=errs)
             qp_j = qp + 13              # a joint QP of its own
             for (o, p), sdh, act in itertools.product(
                     ((orgs_c, pred6), (orgs, pred)), (False, True), (None, active)):
@@ -1667,6 +1862,8 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         state = [(torch.zeros_like(r), torch.zeros(r.shape, dtype=torch.int16, device=DEVICE))
                  for r in recs]
         scatter_both(rows, P, scale, state, rc, lev, grids, errs)
+    # K6a's tie cases in the RDO's 4-pad chroma class too
+    cclm_ties_seen += cclm_tie_checks(4, seed=4, errs=errs)
     check(sdh_changed > 0, "sign-data hiding changed no level of the seeded inputs")
     check(0 < mip_wins < mip_rows, f"MIP won {mip_wins} of {mip_rows} CUs")
     check(region_cut > 0, "the LFNST region removed no chroma level")
@@ -1677,6 +1874,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     check((ties_seen > 0).all(), f"some K2 tie case never occurred: {ties_seen}")
     check((mip_ties_seen > 0).all(), f"some K3 tie case never occurred: {mip_ties_seen}")
     check((k5_ties_seen > 0).all(), f"some K5 tie case never occurred: {k5_ties_seen}")
+    check((cclm_ties_seen > 0).all(), f"some K6a tie case never occurred: {cclm_ties_seen}")
     log(f"[encode-kernels] K1/K2/K3/K4 (with K6b, K6c)/K5/K6a/K7 equal to their plain "
         f"versions on every "
         f"CU size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
@@ -1693,7 +1891,9 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         + "; K3 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(MIP_TIE_CASES,
                                                                          mip_ties_seen))
         + "; K5 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(K5_TIE_CASES,
-                                                                         k5_ties_seen)))
+                                                                         k5_ties_seen))
+        + "; K6a tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CCLM_TIE_CASES,
+                                                                          cclm_ties_seen)))
     return errs, phase_encode_kernel_times(width, height)
 
 
@@ -3958,7 +4158,7 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A redesigned kernel (K2, K3) beside the parent commit's and its other shapes
+# A redesigned kernel (K2, K3, K5, K6a) beside the parent commit's and its other shapes
 # ---------------------------------------------------------------------------
 
 def variant_library(kernel: str, src: pathlib.Path, out: pathlib.Path,
@@ -4099,11 +4299,70 @@ def k5_cases(width: int, height: int) -> list:
                                      width, height)) for side in (4, 32)]
 
 
+def k6a_call(P: int, rows_np: np.ndarray, width: int, height: int):
+    """(K6a's call on these chroma rows, the CCLM gate set, after the port's
+    K1 and K2's DM prediction, as ``phase_encode_kernel_times`` builds it,
+    its plain version's outputs)."""
+    rows_np = rows_np.copy()
+    rows_np[:, 7] = 1
+    refs, _, mg, rows = rmd_inputs(P, 2, rows_np, width, height)
+    _, pred = intra_rmd(refs, None, mg, rows, P, False, BD)
+    rec, org, og = kernel_planes(1, width, height, 2)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    args = (refs, dev(cclm_luma(rec, 1)), [dev(org), dev(1023 - org)], dev(og), rows, pred, P,
+            BD)
+    return (lambda: cclm_select(*args)), list(cclm_select_reference(*args))
+
+
+def k6a_rdo_call():
+    """(K6a as the device RDO's chroma tree calls it on one 16,384-rect chunk
+    of the 4-pad chroma class (``phase_rdo_kernels``: 8x8 luma rects of a
+    1080p frame, K9b's choice, the luma original for the recon, a zero order
+    grid), its plain version's outputs)."""
+    rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[8], True)
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    oy, ou, ov = (torch.from_numpy(p[None].astype(np.int32)).to(DEVICE) for p in frame)
+    rows = torch.from_numpy(rows_np).to(DEVICE)
+    og0 = rg._zero_grid(oy)
+    crefs = ref_gather([ou, ov], og0, rows, 4, 2, BD)
+    cpred, _ = rg.rdo_chroma_select(crefs, [ou, ov], rows, 4, BD)
+    args = (crefs, oy, [ou, ov], og0, rows, cpred, 4, BD)
+    return (lambda: cclm_select(*args)), list(cclm_select_reference(*args))
+
+
+def chroma_probe_rows(width: int, height: int, side: int) -> np.ndarray:
+    """16 CUs of the 32-pad chroma class of side x side luma samples, each at
+    the top-left of its own 64x64 luma cell of two frames."""
+    nx, per = width // 64, (width // 64) * (height // 64)
+    rows = []
+    for c in range(16):
+        fi, cell = divmod(c, per)
+        cy, cx = divmod(cell, nx)
+        rows.append((fi, cx * 64, cy * 64, side, side, 100 + c, 1, 1))
+    return np.array(rows, np.int32)
+
+
+def k6a_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K6a: the two chroma classes at
+    their batches, the RDO's 4-pad chunk, and two probes of the 32-pad
+    class (16 CUs of 2x2, of 32x32 chroma samples)."""
+    out = [(f"{P}-pad chroma, {B} CUs",
+            functools.partial(k6a_call, P, kernel_rows(P, 2, seed=1, width=width,
+                                                       height=height)[:B], width, height))
+           for P, scale, B in TIMED_CLASSES if scale == 2]
+    out.append((f"4-pad chroma, {trd._BATCH_CUDA[8]:,} RDO rects", k6a_rdo_call))
+    return out + [(f"32-pad chroma, 16 CUs of {side // 2}x{side // 2}",
+                   functools.partial(k6a_call, 32, chroma_probe_rows(width, height, side),
+                                     width, height)) for side in (4, 64)]
+
+
 # this tree's kernels built with their other shapes, timed beside the
 # shipped one (a cluster of 8 blocks per CU for K2, 4 for K3, of 16 warps,
 # two blocks an SM; for K5 a cluster of one block a slot of 8 warps at the
 # 32-pad class, one block an SM, 2 x 4 outputs a stage thread, the 8-pad
-# class's slots one warp each of one block):
+# class's slots one warp each of one block; for K6a a block of 4 warps per
+# CU at the 16-pad class, 8 at the 32-pad, one warp per CU at the 4- and
+# 8-pad classes):
 # {label: nvcc defines}
 K2_VARIANTS = {"one block per CU": ("-DK2_CLUSTER=1",),
                "4 blocks per CU": ("-DK2_CLUSTER=4",),
@@ -4120,13 +4379,18 @@ K5_VARIANTS = {"every slot in turn on one block": ("-DK5_SERIAL",),
                "4 warps a slot": ("-DK5_WARPS=4",),
                "16 warps a slot": ("-DK5_WARPS=16",),
                "8-pad slots on clusters too": ("-DK5_TEAM_PAD=0",)}
-# ``--k2-times`` / ``--k3-times`` / ``--k5-times``: (library, wrapper
+K6A_VARIANTS = {"one block per CU at every pad": ("-DK6A_TEAM_PAD=0",),
+                "4 warps a block": ("-DK6A_WARPS=4",),
+                "8 warps a block": ("-DK6A_WARPS=8",),
+                "16 warps a block": ("-DK6A_WARPS=16",)}
+# ``--k2-times`` / ``--k3-times`` / ``--k5-times`` / ``--k6a-times``: (library, wrapper
 # module, variants, the function that gives the timed cases: (label, the
 # function that makes the call and its plain outputs))
 TIMED_KERNELS = {"k2": ("intra_rmd", ig, K2_VARIANTS, class_cases(k2_call, TIMED_CLASSES)),
                  "k3": ("mip_rmd", mip_g, K3_VARIANTS,
                         class_cases(k3_call, tuple(c for c in TIMED_CLASSES if c[1] == 1))),
-                 "k5": ("tq_mts", ttq, K5_VARIANTS, k5_cases)}
+                 "k5": ("tq_mts", ttq, K5_VARIANTS, k5_cases),
+                 "k6a": ("cclm", cclm_g, K6A_VARIANTS, k6a_cases)}
 
 
 def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
@@ -4168,14 +4432,18 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
 
 
 def times_only(kernel: str, parent: pathlib.Path) -> int:
-    """``--k2-times PARENT`` / ``--k3-times PARENT`` / ``--k5-times
-    PARENT``: the build, the encode kernels' checks and times (the K2, K3
-    and K5 tie cases among them), K10a-e's checks and times (K10b shares
-    K3's ``csrc/mip.cuh``), and ``phase_variant_times`` against the parent
-    checkout; prints no result line."""
+    """``--k2-times PARENT`` / ``--k3-times PARENT`` / ``--k5-times PARENT``
+    / ``--k6a-times PARENT``: the build, the encode kernels' checks and
+    times (the K2, K3, K5 and K6a tie cases among them), for K6a the device
+    RDO's kernel checks and times (K6a in the RDO's chroma tree; K9 shares
+    ``csrc/satd.cuh``), K10a-e's checks and times (K10b shares K3's
+    ``csrc/mip.cuh``, K10d ``csrc/satd.cuh``), and ``phase_variant_times``
+    against the parent checkout; prints no result line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
     phase_encode_kernels()
+    if kernel == "k6a":
+        phase_rdo_kernels()
     phase_seq_kernels()
     phase_variant_times(kernel, parent)
     log(card_line())
@@ -4243,8 +4511,8 @@ def main() -> int:
         return dp_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
-    if sys.argv[1:2] in (["--k2-times"], ["--k3-times"], ["--k5-times"]):
-        return times_only(sys.argv[1][2:4], pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] in (["--k2-times"], ["--k3-times"], ["--k5-times"], ["--k6a-times"]):
+        return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()
     enc_errs, enc_times = phase_encode_kernels()

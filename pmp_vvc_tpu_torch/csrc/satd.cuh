@@ -1,8 +1,9 @@
 // SATD device code shared by K2 (csrc/intra_rmd.cu), K3 (csrc/mip_rmd.cu),
 // K6a (csrc/cclm.cu), K9 (csrc/rdo_leaf.cu) and K10d (csrc/seq_satd.cu), so
-// that the angular, MIP, CCLM and RDO costs round the same way. K2 and K3
-// use the warp form ``warp_tile_satd``; the others the block and tile forms
-// (``satd``, ``tile_satd``, ``block_sum``).
+// that the angular, MIP, CCLM and RDO costs round the same way. Who uses
+// what: the warp form ``warp_tile_satd`` K2, K3 and K6a; the one-thread
+// tile form ``tile_satd`` K9; the block reduction ``block_sum`` K9 and K10d
+// (K4 has its own in csrc/tq.cuh).
 //
 // The port of pmp_vvc_tpu/ops/tq_generic.py:satd_generic (160): 8x8
 // Walsh-Hadamard tiles when min(w, h) >= 8, else 4x4, over the CU's (h, w)
@@ -50,29 +51,6 @@ static __device__ int tile_satd(int* d, int ts) {
     const int dc = abs(d[0]);
     const int tv = s - dc + (dc >> 2);
     return ts == 8 ? (tv + 2) >> 2 : (tv + 1) >> 1;
-}
-
-// SATD of (org - pred) over the (h, w) CU; every thread of the block must
-// call it. ``red`` holds blockDim.x / 32 ints of shared memory. The result is
-// valid in thread 0. Sides are 4 or more: a caller with a side of 2 (K6a's
-// chroma CUs of a 4-sample luma side) passes it rounded up to 4, with both
-// tiles zero beyond the CU, which gives the plain version's masked tiles.
-static __device__ int satd(int w, int h, int P, const int32_t* org,
-                           const int32_t* pred, int* red) {
-    const int ts = min(w, h) >= 8 ? 8 : 4;
-    const int nx = w / ts, ntiles = (h / ts) * nx;
-    int total = 0;
-    for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
-        const int r0 = (t / nx) * ts, c0 = (t % nx) * ts;
-        int d[64];
-        for (int i = 0; i < ts; ++i)
-            for (int j = 0; j < ts; ++j) {
-                const int o = (r0 + i) * P + c0 + j;
-                d[i * ts + j] = org[o] - pred[o];
-            }
-        total += tile_satd(d, ts);
-    }
-    return block_sum(total, red);
 }
 
 // The warp form: SATD of up to 32 / TS tiles of TS x TS differences (TS 4
