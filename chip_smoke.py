@@ -55,8 +55,15 @@ Phases, each of which fails the run on error (nothing is caught):
    side is 4, DM equal to LM (a SATD tie DM must keep), LM better with the
    gate off, LM winning, LM clipped at 0 and at pel_max, flat,
    two-sample and neighbourless templates, the CTU top row, the frame's
-   right and bottom edges, the padding row); timed at the main path's
-   batch shapes.
+   right and bottom edges, the padding row); K4 on its tie and edge cases
+   in the 16- and 32-pad chroma classes and the RDO's 4-pad one
+   (``K4_TIES``: the joint cost equal to the separate cost, which must
+   stay; the zero TU's cost equal to the coded TU's at cost 0 and with
+   levels, where the zero TU must win; a joint TU that quantises to zero;
+   odd residual differences of both signs; a group's RD gain sum at its
+   threshold and a gain at 3 lam; SDH moves of equal error; the CRS gate;
+   the LFNST region on the joint TU; sides of 2; every CU size; the
+   padding row); timed at the main path's batch shapes.
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
@@ -226,8 +233,11 @@ a directory holding that commit's ``pmp_vvc_tpu_torch/csrc``, e.g. from
 luma classes, the tools off, the RDO's 8-pad chunk); ``--k6a-times
 PARENT`` the same for K6a (``K6A_VARIANTS``, ``k6a_cases``: the chroma
 classes, the RDO's 4-pad chunk of 16,384 rects, 16 CUs of 2x2 and of 32x32
-chroma samples), with phase 12's checks and times; none prints a result
-line.
+chroma samples), with phase 12's checks and times; ``--k4-times PARENT``
+the same for K4 (``K4_VARIANTS``, ``k4_cases``: the chroma classes with and
+without the chroma residual scale, without the trial, the RDO's 4-pad
+chunk, the two probes), with phase 12's checks and times; none prints a
+result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -283,7 +293,7 @@ from pmp_vvc_tpu_torch.ops import mip_generic as mip_g
 from pmp_vvc_tpu_torch.ops.mip_generic import (
     mip_select, mip_select_reference, predict_mip_generic)
 from pmp_vvc_tpu_torch.ops.rows import unpack_rows
-from pmp_vvc_tpu_torch.ops.sdh_generic import _cg_tables, sdh_moves
+from pmp_vvc_tpu_torch.ops.sdh_generic import _cg_tables, apply_sdh_generic, sdh_moves
 from pmp_vvc_tpu_torch.ops.lfnst_generic import inv_lfnst_generic
 from pmp_vvc_tpu_torch.ops.tq_generic import (
     tq, tq_mts, tq_mts_candidates, tq_mts_reference, tq_reference)
@@ -325,10 +335,10 @@ INT32_PER_CLOCK_PER_SM = 64
 # K1 (reference substitution and filter), K2 and K9a (angular prediction,
 # Hadamard SATD), K3 (MIP), K6a (CCLM fit and SATDs), K9b (SATDs) and K10a-e
 # (prediction, MIP, the integer transform and quantiser, SATD, SAD / SSE).
-# K4 and K9c mix int32 transforms with float32 rate-distortion costs, and
-# K8 and K11 are float32: they keep FP32_OPS_PER_S, which bounds any mix
-# from below. K5 counts its integer and float operations apart, each
-# against its own rate (``kernel_bounds``). A multiply-add counts once
+# K9c mixes int32 sums with float32 rate-distortion costs, and K8 and K11
+# are float32: they keep FP32_OPS_PER_S, which bounds any mix from below.
+# K4 and K5 count their integer and float operations apart, each against
+# its own rate (``kernel_bounds``). A multiply-add counts once
 # against the int32 rate, which counts one result per multiply-add.
 INT32_KERNELS = frozenset({"ref_gather", "intra_rmd", "mip_rmd", "cclm", "rdo_luma_select",
                            "rdo_chroma_select", "seq_intra", "seq_mip", "seq_tq", "seq_satd",
@@ -648,9 +658,8 @@ K6B = ("tq_crs", "pmp_vvc_tpu_torch/csrc/tq.cu", "pmp_vvc_tpu/codec/wavefront.py
 # two reconstructions with their SSE. K6b adds per CU the 128 neighbour
 # samples' sum, and per sample of each round trip the forward scale (shift,
 # add, division, clip, sign) and the inverse (clip, product, add, shift,
-# clip, sign). K4's count is bounded against the float32 rate outside the
-# tensor cores, which the int32 rate does not exceed; K5's integer and float
-# counts each against its own rate. A multiply-add counts one operation at
+# clip, sign). K4's and K5's integer and float counts are each bounded
+# against its own rate (``k4_ops``, ``k5_ops``). A multiply-add counts one operation at
 # the int32 rate (INT32_PER_CLOCK_PER_SM counts one result per multiply-add)
 # and two at the float32 rate (67e12 counts an FMA as two).
 OPS_PRED, OPS_SATD, OPS_QUANT, OPS_SAMPLE = 12, 8, 30, 10
@@ -1311,6 +1320,311 @@ def cclm_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
     return cclm_tie_seen(rows_np, kinds, facts, *(g.cpu().numpy() for g in got))
 
 
+# K4's tie and edge cases: per chroma class (pad 16 and 32 of the wave path,
+# 4 of the device RDO's), calls of one lam each at internal QP K4_TIE_QP
+# (qp_j the same), dw 1, sign-data hiding as the class's calls have it
+# (``K4_TIE_SDH``): {pad: ((lam, cases), ...)},
+# each case (kind, w, h) in luma units, each CU in its own P x P chroma cell
+# of two 256x256 frames, its two predictions random in 400..623 and its
+# originals the predictions plus the case's residuals (zero outside the CU).
+# The first call (lam 0) also holds a "random" CU of every size of the class
+# (+-20, U and V apart: odd differences of both signs, chroma sides of 2);
+# each call ends with a padding row. "joint tie": U's residual rebuilds
+# exactly and so does its negation, V's, so the joint residual is U's and
+# rebuilds exactly too: the joint cost 0 equals the separate cost 0, and the
+# separate TUs must stay; "zero": zero residuals, whose coded TUs cost 0 as
+# the zero TUs do: no level; "joint zero": equal U and V residuals, so the
+# joint TU has no level. Every other kind has equal U and V residuals.
+# "zero tie": a residual whose coded TU costs what its zero TU costs
+# although it has levels (the call's lam, an integer, makes it so): the
+# zero TU must win; "SDH tie": a coefficient group whose parity is wrong
+# and whose least move error two moves reach: the first must be taken.
+# "RD threshold": the call's lam makes one group's gain sum equal lam * (3
+# nz + 1.5) exactly (the group is kept); "lam3": the call's lam makes the
+# gain of a level of 1 equal 3 lam exactly (the level is kept), in a group
+# that survives. The gains are exact dyadic numbers whose sums float32
+# holds in any order. Each call runs with the
+# trial, with the trial and the LFNST region on every CU, without the trial,
+# and with the trial and the chroma residual scale (CUs of 4 or fewer chroma
+# samples keep the unit scale); every case is asserted with the plain
+# pieces, every SSE stays below 2^24.
+K4_TIE_CASES = ("separate kept a joint-cost tie", "zero TU won a tie at cost 0",
+                "zero TU won a tie with coded levels", "joint TU quantised to zero",
+                "odd difference > 0", "odd difference < 0", "group gain sum at its threshold",
+                "gain equal to 3 lam", "SDH moves tied", "CRS gate (<= 4 samples)",
+                "LFNST region cut a joint level", "chroma side of 2", "padding row")
+K4_TIES = {
+    16: ((0.0, (("joint tie", 16, 16), ("joint tie", 32, 8), ("zero", 16, 16), ("zero", 4, 4),
+                ("joint zero", 32, 32), ("joint zero", 4, 16))),
+         ("zero tie", (("zero tie", 8, 8), ("SDH tie", 16, 16), ("SDH tie", 32, 16))),
+         ("RD threshold", (("RD threshold", 16, 16),)),
+         ("lam3", (("lam3", 16, 16),))),
+    32: ((0.0, (("joint tie", 64, 64), ("joint tie", 64, 8), ("zero", 64, 32),
+                ("joint zero", 64, 64))),
+         ("zero tie", (("zero tie", 64, 16), ("SDH tie", 64, 64))),
+         ("RD threshold", (("RD threshold", 64, 64),)),
+         ("lam3", (("lam3", 64, 32),))),
+    4: ((0.0, (("joint tie", 8, 8), ("zero", 4, 4), ("zero", 8, 8), ("joint zero", 8, 4))),
+        ("zero tie", (("zero tie", 8, 8),)),
+        ("RD threshold", (("RD threshold", 8, 8),)),
+        ("lam3", (("lam3", 8, 8),))),
+}
+K4_TIE_QP = 34
+K4_TIE_SDH = {16: True, 32: True, 4: False}   # the RDO's 4-pad calls hide no sign
+K4_TIE_N = 128                        # candidates a search tries at once
+
+
+def k4_trips(res: np.ndarray, w: int, h: int, lam: float, sdh: bool = True):
+    """The plain round trip, before the coded-vs-zero decision, of N residual
+    tiles ``res`` (N, P, P) of one chroma (h, w) size at K4_TIE_QP, dw 1:
+    (levels, SSE, coded cost, zero TU's cost, coefficients, levels before
+    sign-data hiding), the costs float32 as ``tq_reference`` computes them."""
+    n = res.shape[0]
+    ws, hs = (torch.full((n,), s, dtype=torch.int32) for s in (w, h))
+    r = torch.from_numpy(np.ascontiguousarray(res, np.int32))
+    coef = ttq.forward_transform_generic(r, ws, hs, bit_depth=BD)
+    lev0 = ttq.rd_cleanup_generic(ttq.quantize_generic(coef, ws, hs, K4_TIE_QP, bit_depth=BD),
+                                  coef, ws, hs, K4_TIE_QP, lam, bit_depth=BD)
+    lev = apply_sdh_generic(lev0, coef, ws, hs, K4_TIE_QP, bit_depth=BD) if sdh else lev0
+    rr = ttq.inverse_transform_generic(
+        ttq.dequantize_generic(lev, ws, hs, K4_TIE_QP, bit_depth=BD), ws, hs, bit_depth=BD)
+    sse = ((rr - r).long() ** 2).sum((1, 2))
+    cost = sse.float() + torch.tensor(lam, dtype=torch.float32) * ttq.bits_proxy(lev)
+    cost0 = (r.long() ** 2).sum((1, 2)).float() + torch.tensor(np.float32(lam * 2.0))
+    return lev, sse, cost, cost0, coef, lev0
+
+
+def _k4_groups(res: np.ndarray, w: int, h: int):
+    """Each 4x4 group's RD quantities of N residual tiles at K4_TIE_QP, as
+    ``rd_cleanup_generic`` computes them: (float32 gains (N, P, P), the
+    groups' float32 gain sums and nonzero counts (N, P/4, P/4), the levels,
+    whether each group's sums are exact in float32 in any order: its gains'
+    numerators c^2 - e^2 sum to less than 2^24 in magnitude)."""
+    n, P = res.shape[0], res.shape[-1]
+    ws, hs = (torch.full((n,), s, dtype=torch.int32) for s in (w, h))
+    coef = ttq.forward_transform_generic(torch.from_numpy(np.ascontiguousarray(res, np.int32)),
+                                         ws, hs, bit_depth=BD)
+    lev = ttq.quantize_generic(coef, ws, hs, K4_TIE_QP, bit_depth=BD)
+    t_shift, sqrt2 = ttq._geom_v(ws, hs, BD)
+    divisor = torch.exp2(2.0 * t_shift.float() - sqrt2.float())
+    fc = coef.float()
+    e = fc - ttq._dequant_unclipped(lev, ws, hs, K4_TIE_QP, BD).float()
+    gain = (fc * fc - e * e) / divisor[:, None, None]
+    g = gain.double().reshape(-1, P // 4, 4, P // 4, 4).sum((2, 4)).float()
+    nz = (lev != 0).reshape(-1, P // 4, 4, P // 4, 4).sum((2, 4))
+    num = (fc.double() ** 2 - e.double() ** 2).abs().reshape(-1, P // 4, 4, P // 4, 4)
+    return gain.numpy(), g.numpy(), nz.numpy(), lev.numpy(), (num.sum((2, 4)) < 2 ** 24).numpy()
+
+
+def _f32_lam(target: np.float32, factor: np.float32):
+    """A float32 lam with float32(lam * factor) == target, or None."""
+    lam0 = np.float32(np.float64(target) / np.float64(factor))
+    for k in range(-3, 4):
+        lam = np.float32(lam0 + k * np.spacing(lam0))
+        if lam > 0 and np.float32(lam * factor) == target:
+            return lam
+    return None
+
+
+def _k4_case(P: int, kind: str, w: int, h: int, lam, rng):
+    """A ``K4_TIES`` CU's (U, V) residual tiles (P, P) of chroma size (w, h)
+    and the call's lam: ``lam``, or where that is None the float32 lam the
+    case sets; the case asserted with the plain pieces, sign-data hiding as
+    ``K4_TIE_SDH``."""
+    sdh = K4_TIE_SDH[P]
+    inside = np.zeros((P, P), np.int32)
+    inside[:h, :w] = 1
+    rnd = lambda m, n=1: rng.randint(-m, m + 1, (n, P, P)).astype(np.int32) * inside  # noqa
+    if kind == "random":
+        return rnd(20)[0], rnd(20)[0], lam
+    if kind == "zero":
+        z = np.zeros((P, P), np.int32)
+        lev, _, cost, cost0, _, _ = k4_trips(z[None], w, h, lam, sdh)
+        check(float(cost[0]) == float(cost0[0]) == 0, "zero: the costs are not 0")
+        return z, z, lam
+    if kind == "joint zero":
+        r = rnd(40)[0]
+        return r, r, lam
+    if kind == "joint tie":             # one level set that rebuilds exactly, and its negation
+        for _ in range(8):
+            lev = np.zeros((K4_TIE_N, P, P), np.int32)
+            lev[:, 0, 0] = rng.choice([-1, 1], K4_TIE_N) * rng.randint(1, 4, K4_TIE_N)
+            lev[np.arange(K4_TIE_N), rng.randint(min(h, 2), size=K4_TIE_N), 1] = \
+                rng.randint(-2, 3, K4_TIE_N)
+            ws, hs = (torch.full((K4_TIE_N,), s, dtype=torch.int32) for s in (w, h))
+            deq = ttq.dequantize_generic(torch.from_numpy(lev), ws, hs, K4_TIE_QP, bit_depth=BD)
+            a = ttq.inverse_transform_generic(deq, ws, hs, bit_depth=BD).numpy() * inside
+            ok = np.abs(a).max((1, 2)) > 0
+            for sign in (1, -1):
+                lv, sse = k4_trips(sign * a, w, h, lam, sdh)[:2]
+                ok &= (sse.numpy() == 0) & lv.flatten(1).any(1).numpy()
+            if ok.any():
+                a = a[np.argmax(ok)]
+                return a, -a, lam
+    elif kind == "zero tie":            # lam with a coded TU's cost equal to its zero TU's
+        top = 61 * max(1, int(np.sqrt(w * h)) // 4)   # impulses that larger TUs code
+        for _ in range(64):
+            r = np.zeros((K4_TIE_N, P, P), np.int32)
+            for _k in range(rng.randint(1, 4)):
+                r[np.arange(K4_TIE_N), rng.randint(h, size=K4_TIE_N),
+                  rng.randint(w, size=K4_TIE_N)] = \
+                    rng.choice([-1, 1], K4_TIE_N) * rng.randint(3, top, K4_TIE_N)
+            lev, sse = k4_trips(r, w, h, 2.0, sdh)[:2]
+            bits = ttq.bits_proxy(lev).numpy()
+            sse0 = (r.astype(np.int64) ** 2).sum((1, 2))
+            gap, nb = sse0 - sse.numpy(), bits.astype(np.int64) - 2
+            for n in np.nonzero(lev.flatten(1).any(1).numpy() & (gap > 0) &
+                                (gap % np.maximum(nb, 1) == 0))[0]:
+                lam_f = float(gap[n] // nb[n])   # an integer: every product exact
+                lv, _, cost, cost0 = k4_trips(r[n:n + 1], w, h, lam_f, sdh)[:4]
+                if lv.any() and float(cost[0]) == float(cost0[0]):
+                    return r[n], r[n], lam_f
+    elif kind == "SDH tie":             # a wrong parity whose least move error two moves reach
+        for _ in range(16):
+            r = rnd(40, K4_TIE_N)
+            _, _, _, _, coef, lev0 = k4_trips(r, w, h, lam, sdh)
+            ws, hs = (torch.full((K4_TIE_N,), s, dtype=torch.int32) for s in (w, h))
+            mism, err = sdh_moves(lev0, coef, ws, hs, K4_TIE_QP, bit_depth=BD)[:2]
+            low = err.min(-1).values
+            ok = (mism & torch.isfinite(low) & ((err == low[..., None]).sum(-1) >= 2)).any(1)
+            if ok.any():
+                b = int(torch.nonzero(ok)[0])
+                return r[b], r[b], lam
+    elif kind == "RD threshold":        # lam with float32(lam * (3 nz + 1.5)) == the group's sum
+        for _ in range(16):
+            r = rnd(60, K4_TIE_N)
+            _, g, nz, _, exact = _k4_groups(r, w, h)
+            for n, gy, gx in zip(*np.nonzero((nz > 0) & (g > 0) & exact)):
+                lam_f = _f32_lam(g[n, gy, gx],
+                                 np.float32(np.float32(3.0) * np.float32(nz[n, gy, gx]) +
+                                            np.float32(1.5)))
+                if lam_f is not None:
+                    return r[n], r[n], float(lam_f)
+    elif kind == "lam3":                # lam with float32(lam * 3) == a kept level's gain
+        for _ in range(16):
+            r = rnd(60, K4_TIE_N)
+            gain, g, nz, lev, exact = _k4_groups(r, w, h)
+            exact = exact.repeat(4, 1).repeat(4, 2)
+            for n, y, x in zip(*np.nonzero((np.abs(lev) == 1) & (gain > 0) & exact)):
+                lam_f = _f32_lam(gain[n, y, x], np.float32(3.0))
+                thr = np.float32(lam_f * np.float32(np.float32(3.0) *
+                                                    np.float32(nz[n, y // 4, x // 4]) +
+                                                    np.float32(1.5))) if lam_f else None
+                if lam_f is not None and not g[n, y // 4, x // 4] < thr:
+                    return r[n], r[n], float(lam_f)
+    raise RuntimeError(f"no {kind} residual found for a {w}x{h} chroma TU")
+
+
+def k4_tie_inputs(P: int, seed: int) -> list:
+    """K4's cases in the P-pad chroma class (``K4_TIES``): one (lam, rows,
+    originals (2, 2, 128, 128), predictions (2, B, P, P), kinds) call, as
+    numpy, for each entry of ``K4_TIES[P]``. The rows are in luma units
+    (scale 2); each ends with a padding row."""
+    rng = np.random.RandomState(seed)
+    Hc = Wc = 128
+    sides = [s for s in (4, 8, 16, 32, 64) if s <= 2 * P]
+    sizes = [(w, h) for w, h in itertools.product(sides, sides) if P != 32 or max(w, h) > 32]
+    calls = []
+    for c, (lam, cases) in enumerate(K4_TIES[P]):
+        ties = list(cases) + ([("random", w, h) for w, h in sizes] if c == 0 else [])
+        nx = Wc // P
+        cells = rng.permutation(2 * nx * (Hc // P))[:len(ties)]
+        org = rng.randint(400, 624, (2, 2, Hc, Wc)).astype(np.int32)
+        pred = rng.randint(400, 624, (2, len(ties) + 1, P, P)).astype(np.int32)
+        rows, kinds, res = [], [], []
+        lam_call = lam if isinstance(lam, float) else None
+        for b, (kind, w, h) in enumerate(ties):
+            ru, rv, lam_b = _k4_case(P, kind, w // 2, h // 2, lam_call, rng)
+            lam_call = lam_b if lam_call is None else lam_call
+            fi, cell = divmod(int(cells[b]), nx * (Hc // P))
+            cy, cx = divmod(cell, nx)
+            for pl, r in enumerate((ru, rv)):
+                org[pl, fi, cy * P:cy * P + h // 2, cx * P:cx * P + w // 2] = \
+                    (pred[pl, b] + r)[:h // 2, :w // 2]
+            rows.append((fi, 2 * cx * P, 2 * cy * P, w, h, rng.randint(0, 400), 1, 0))
+            kinds.append(kind)
+            res.append((ru, rv))
+        rows.append((0,) * 8)
+        rows = np.array(rows, np.int32)
+        check(org.min() >= 0 and org.max() <= 1023, "a K4 tie original leaves the sample range")
+        sse0 = max(int((r.astype(np.int64) ** 2).sum()) for pair in res for r in pair)
+        check(sse0 < 2 ** 24, "a K4 tie case's SSE reaches 2^24")
+        calls.append((lam_call, rows, org, pred, kinds))
+    return calls
+
+
+def k4_tie_seen(rows: np.ndarray, kinds: list, org: np.ndarray, pred: np.ndarray,
+                lev: np.ndarray, joint: np.ndarray) -> np.ndarray:
+    """(13,) counts of ``K4_TIE_CASES`` among K4's results with the trial
+    (``lev`` (2, B, P, P), ``joint`` (B,)), the CRS gate and the region not
+    counted: a "joint tie" CU must keep both separate TUs coded, a "zero"
+    CU and the padding row have no level, a "zero tie" CU no level in U, a
+    "joint zero" CU no joint TU."""
+    seen = np.zeros(len(K4_TIE_CASES), np.int64)
+    P = lev.shape[-1]
+    for b, (fi, x, y, w, h, _, live, _) in enumerate(rows):
+        kind = kinds[b] if live > 0 else "padding row"
+        coded = [bool(lev[pl, b].any()) for pl in (0, 1)]
+        want = {"joint tie": joint[b] == 0 and all(coded),
+                "zero": joint[b] == 0 and not any(coded), "zero tie": not coded[0],
+                "joint zero": joint[b] == 0,
+                "padding row": joint[b] == 0 and not any(coded)}.get(kind, True)
+        check(want, f"K4 on a {kind} {w}x{h} CU: coded {coded}, joint {joint[b]}")
+        d = np.zeros((P, P), np.int64)
+        if live > 0:
+            cx, cy, cw, ch = x // 2, y // 2, w // 2, h // 2
+            d[:ch, :cw] = (org[0, fi, cy:cy + ch, cx:cx + cw] - pred[0, b, :ch, :cw]) - \
+                (org[1, fi, cy:cy + ch, cx:cx + cw] - pred[1, b, :ch, :cw])
+        odd = d % 2 != 0
+        seen += [kind == "joint tie", kind == "zero", kind == "zero tie", kind == "joint zero",
+                 int((odd & (d > 0)).sum()), int((odd & (d < 0)).sum()),
+                 kind == "RD threshold", kind == "lam3", kind == "SDH tie", 0, 0,
+                 live > 0 and min(w, h) == 4, live <= 0]
+    return seen
+
+
+def k4_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
+    """K4 against its plain version on ``k4_tie_inputs``, with the trial,
+    with the trial and the LFNST region on every CU, without the trial, and
+    with the trial and the chroma residual scale; the cases seen."""
+    seen = np.zeros(len(K4_TIE_CASES), np.int64)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    lut = device_crs_lut()
+    for lam, rows_np, org, pred, kinds in k4_tie_inputs(P, seed):
+        rng = np.random.RandomState(seed + len(rows_np))
+        rows, orgs, p = dev(rows_np), [dev(org[0]), dev(org[1])], dev(pred)
+        ry = dev(rng.randint(0, 1024, (2, 256, 256)).astype(np.int32))
+        og = dev(rng.randint(-1, 400, (2, 64, 64)).astype(np.int32))
+        active = torch.ones_like(rows[:, 0])
+        args = (orgs, p, rows, P, 2, K4_TIE_QP, BD, True, lam, 1.0, K4_TIE_SDH[P])
+        for act, jccr, crs in ((None, True, False), (active, True, False), (None, False, False),
+                               (None, True, True)):
+            a = args + (act, jccr, K4_TIE_QP)
+            if crs:
+                scale = torch.empty_like(rows[:, 0])
+                got = tq(*a, crs_src=(ry, og, lut), crs_out=scale)
+                want = crs_scale_reference(ry, og, rows, lut, BD)
+                _cmp(K6B[0], list(got) + [scale], list(tq_reference(*a, crs=want)) + [want], errs)
+                seen[K4_TIE_CASES.index("CRS gate (<= 4 samples)")] += int(
+                    ((rows[:, 6] > 0) & (rows[:, 3] // 2 * (rows[:, 4] // 2) <= 4) &
+                     (scale == UNIT_SCALE)).sum())
+                continue
+            got = tq(*a)
+            _cmp("tq", list(got), list(tq_reference(*a)), errs)
+            if act is None and jccr:
+                seen += k4_tie_seen(rows_np, kinds, org, pred, got[0].cpu().numpy(),
+                                    got[2].cpu().numpy())
+        # where the region removes a level of the joint TU (plain pieces)
+        tiles = [ttq._orgs_inside(o, rows, P, 2) for o in orgs]
+        (ou, inside, ws, hs, ok), (ov, *_) = tiles
+        joint = torch.round(((ou - p[0]) * inside - (ov - p[1]) * inside).double() / 2).int()
+        lev_j = [ttq._tq_tile(p[0] + joint, p[0], inside, ws, hs, ok, K4_TIE_QP, BD, True, lam,
+                              1.0, K4_TIE_SDH[P], a)[0] for a in (None, active.bool())]
+        seen[K4_TIE_CASES.index("LFNST region cut a joint level")] += int(
+            ((lev_j[0] != 0) & (lev_j[1] == 0)).sum())
+    return seen
+
+
 def _cmp(name: str, got, want, errs: dict) -> None:
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
@@ -1455,6 +1769,35 @@ def k5_ops(rows: np.ndarray, P: int, k5) -> tuple[int, int, int]:
     return int_ops, float_ops, groups
 
 
+def k4_ops(w: np.ndarray, h: np.ndarray, n_tq: int, sdh, jccr, crs: bool) -> tuple[int, int]:
+    """(integer operations, float operations) of one K4 call on live CUs of
+    chroma sizes ``w``, ``h``, counted as ``k5_ops`` counts K5's: each of the
+    ``n_tq`` round trips a CU its four products (a multiply-add one integer
+    operation), its quantiser and RD zeroing (OPS_QUANT a kept coefficient,
+    OPS_RD_FLOAT of it float: the gain), its sample work (OPS_SAMPLE a
+    sample) and its cost (OPS_COST, float); ``sdh``, ``jccr``: (groups
+    scanned, groups corrected) of the planes' and the joint TU's sign-data
+    hiding (``kernel_bounds``), each group's slots integer and each move's
+    error float; the trial's joint residual and two reconstructions with
+    their SSEs (two samples' work) and two costs; with ``crs``, the 128
+    neighbours' sum and each round trip's forward and inverse scale."""
+    kw, kh = np.minimum(w, 32), np.minimum(h, 32)
+    macs = h * kw * w + kh * kw * h + h * kw * kh + h * w * kw
+    samples = int((w * h).sum())
+    int_ops = n_tq * (int((macs + (OPS_QUANT - OPS_RD_FLOAT) * kw * kh).sum()) +
+                      OPS_SAMPLE * samples)
+    float_ops = n_tq * (OPS_RD_FLOAT * int((kw * kh).sum()) + OPS_COST * len(w))
+    for groups in (g for g in (sdh, jccr) if g is not None):
+        int_ops += groups[0] * 16 * OPS_SDH_SLOT
+        float_ops += groups[1] * 32 * OPS_SDH_MOVE
+    if jccr is not None:
+        int_ops += 2 * OPS_SAMPLE * samples
+        float_ops += 2 * OPS_COST * len(w)
+    if crs:
+        int_ops += len(w) * 128 * OPS_CRS_NEIGHBOUR + n_tq * OPS_CRS_SAMPLE * samples
+    return int_ops, float_ops
+
+
 def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
                   modes=None, codes=None, sdh=None, k5=None, jccr=None,
                   ngrids: int = 0) -> tuple[float, str, int, int]:
@@ -1497,21 +1840,16 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
         nbytes = int((w + h).sum()) * 4 + int((w * h).sum()) * 8 + table + \
             B * P * P * 4 + B * (32 + 4 * 3)
     elif name in ("tq", K6B[0]):
-        kw, kh = np.minimum(w, 32), np.minimum(h, 32)
-        macs = h * kw * w + kh * kw * h + h * kw * kh + h * w * kw
         n_tq = n + (jccr is not None)   # the joint TU is a third round trip
-        ops = n_tq * int((2 * macs + OPS_QUANT * kw * kh + OPS_SAMPLE * w * h).sum())
+        int_ops, float_ops = k4_ops(w, h, n_tq, sdh, jccr, name == K6B[0])
+        ops = int_ops + float_ops
+        t_ops = max(int_ops / int32_ops_per_s(), float_ops / FP32_OPS_PER_S)
         nbytes = n * (int((w * h).sum()) * 4 + B * P * P * 4 * 3) + B * 32
-        if sdh is not None:             # the groups' slot tables and moves
-            ops += sdh[0] * 16 * OPS_SDH_SLOT + sdh[1] * 32 * OPS_SDH_MOVE
+        if sdh is not None:             # the groups' slot tables
             nbytes += sdh[0] // n * 16 * 4
-        if jccr is not None:            # joint residual, two reconstructions, flag
-            ops += jccr[0] * 16 * OPS_SDH_SLOT + jccr[1] * 32 * OPS_SDH_MOVE + \
-                2 * OPS_SAMPLE * int((w * h).sum())
+        if jccr is not None:            # the joint flag
             nbytes += B * 4
         if name == K6B[0]:
-            ops += len(live) * 128 * OPS_CRS_NEIGHBOUR + \
-                n_tq * OPS_CRS_SAMPLE * int((w * h).sum())
             nbytes += len(live) * (128 + 3) * 4
     elif name == "cclm":
         # the luma window (rows ly-2 .. ly+2h-1, columns lx-3 .. lx+2w-1), two
@@ -1530,7 +1868,7 @@ def kernel_bounds(name: str, rows: np.ndarray, P: int, scale: int, n: int,
         ops = 0
         nbytes = n * int((w * h).sum()) * (8 + 6) + B * 32 + \
             ngrids * (int((w // 4 * h // 4).sum()) + len(live) * 4)
-    if name != "tq_mts":
+    if name not in ("tq_mts", "tq", K6B[0]):
         t_ops = ops / ops_rate(name)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
@@ -1735,6 +2073,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     mip_ties_seen = np.zeros(len(MIP_TIE_CASES), np.int64)
     k5_ties_seen = np.zeros(len(K5_TIE_CASES), np.int64)
     cclm_ties_seen = np.zeros(len(CCLM_TIE_CASES), np.int64)
+    k4_ties_seen = np.zeros(len(K4_TIE_CASES), np.int64)
     lut = device_crs_lut()
     width, height = 256, 192
     for (P, scale), qp in itertools.product(((32, 1), (64, 1), (16, 2), (32, 2)), (0, 22, 37)):
@@ -1825,6 +2164,8 @@ def phase_encode_kernels() -> tuple[dict, dict]:
             _cmp("cclm", list(got), list(cclm_select_reference(*args)), errs)
             cclm_seen += cclm_cases(*args[:7], got[1])
             cclm_ties_seen += cclm_tie_checks(P, seed=P + qp, errs=errs)
+            if qp == 22:                # K4's tie cases, once a class
+                k4_ties_seen += k4_tie_checks(P, seed=P, errs=errs)
             qp_j = qp + 13              # a joint QP of its own
             for (o, p), sdh, act in itertools.product(
                     ((orgs_c, pred6), (orgs, pred)), (False, True), (None, active)):
@@ -1862,8 +2203,9 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         state = [(torch.zeros_like(r), torch.zeros(r.shape, dtype=torch.int16, device=DEVICE))
                  for r in recs]
         scatter_both(rows, P, scale, state, rc, lev, grids, errs)
-    # K6a's tie cases in the RDO's 4-pad chroma class too
+    # K6a's and K4's tie cases in the RDO's 4-pad chroma class too
     cclm_ties_seen += cclm_tie_checks(4, seed=4, errs=errs)
+    k4_ties_seen += k4_tie_checks(4, seed=4, errs=errs)
     check(sdh_changed > 0, "sign-data hiding changed no level of the seeded inputs")
     check(0 < mip_wins < mip_rows, f"MIP won {mip_wins} of {mip_rows} CUs")
     check(region_cut > 0, "the LFNST region removed no chroma level")
@@ -1875,6 +2217,7 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     check((mip_ties_seen > 0).all(), f"some K3 tie case never occurred: {mip_ties_seen}")
     check((k5_ties_seen > 0).all(), f"some K5 tie case never occurred: {k5_ties_seen}")
     check((cclm_ties_seen > 0).all(), f"some K6a tie case never occurred: {cclm_ties_seen}")
+    check((k4_ties_seen > 0).all(), f"some K4 tie case never occurred: {k4_ties_seen}")
     log(f"[encode-kernels] K1/K2/K3/K4 (with K6b, K6c)/K5/K6a/K7 equal to their plain "
         f"versions on every "
         f"CU size of both classes, luma and chroma, QP 0/22/37 (max_abs_err {errs}); "
@@ -1893,7 +2236,9 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         + "; K5 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(K5_TIE_CASES,
                                                                          k5_ties_seen))
         + "; K6a tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CCLM_TIE_CASES,
-                                                                          cclm_ties_seen)))
+                                                                          cclm_ties_seen))
+        + "; K4 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(K4_TIE_CASES,
+                                                                         k4_ties_seen)))
     return errs, phase_encode_kernel_times(width, height)
 
 
@@ -4356,13 +4701,77 @@ def k6a_cases(width: int, height: int) -> list:
                                      width, height)) for side in (4, 64)]
 
 
+def k4_call(P: int, rows_np: np.ndarray, width: int, height: int, crs: bool = True,
+            jccr: bool = True):
+    """(K4's call on these chroma rows, the CCLM gate set, after the port's
+    K1, K2's DM prediction and K6a, as ``phase_encode_kernel_times`` builds
+    it: sign-data hiding, with ``jccr`` the joint trial at the chroma QP, with
+    ``crs`` the chroma residual scale; its plain version's outputs)."""
+    rows_np = rows_np.copy()
+    rows_np[:, 7] = 1
+    refs, _, mg, rows = rmd_inputs(P, 2, rows_np, width, height)
+    _, pred = intra_rmd(refs, None, mg, rows, P, False, BD)
+    rec, org, og = kernel_planes(1, width, height, 2)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    ry, og_t, orgs = dev(cclm_luma(rec, 1)), dev(og), [dev(org), dev(1023 - org)]
+    pred, _ = cclm_select(refs, ry, orgs, og_t, rows, pred, P, BD)
+    qp_c, lam = ENC_QP + 12, 0.57 * 2 ** ((ENC_QP - 12) / 3)
+    args = (orgs, pred, rows, P, 2, qp_c, BD, True, lam, 1.2599, True, None, jccr, qp_c)
+    if not crs:
+        return (lambda: tq(*args)), list(tq_reference(*args))
+    src = (ry, og_t, device_crs_lut())
+    want = tq_reference(*args, crs=crs_scale_reference(*src[:2], rows, src[2], BD))
+    return (lambda: tq(*args, crs_src=src)), list(want)
+
+
+def k4_rdo_call():
+    """(K4 as the device RDO's luma tree calls it on one 16,384-rect chunk of
+    the 4-pad chroma class (``phase_rdo_kernels``: 4x4 to 8x8 luma rects of a
+    1080p frame, K9a's chroma predictions, QP 22's point; U and V, no trial,
+    no sign-data hiding, no scale), its plain version's outputs)."""
+    rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[8], False)
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    oy, ou, ov = (torch.from_numpy(p[None].astype(np.int32)).to(DEVICE) for p in frame)
+    rows = torch.from_numpy(rows_np).to(DEVICE)
+    og0 = rg._zero_grid(oy)
+    refs = ref_gather([oy], og0, rows, 8, 1, BD)
+    crefs = ref_gather([ou, ov], og0, rows, 4, 2, BD)
+    _, _, cpred = rg.rdo_luma_select(refs, crefs, oy, rows, 8, BD)
+    _, qp_c, lam, dw = rdo_qp_points(ENC_W, ENC_H, (ENC_QP,))[0]
+    args = ([ou, ov], cpred, rows, 4, 2, qp_c, BD, True, lam, dw)
+    return (lambda: tq(*args)), list(tq_reference(*args))
+
+
+def k4_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K4: the two chroma classes at their
+    batches with the main path's tools (the trial, SDH, the chroma residual
+    scale) and without the scale, the 16-pad class without the trial, the
+    RDO's 4-pad chunk, and two probes of the 32-pad class (16 CUs of 2x2 and
+    of 32x32 chroma samples) with the main path's tools."""
+    classes = [(P, B, kernel_rows(P, 2, seed=1, width=width, height=height)[:B])
+               for P, scale, B in TIMED_CLASSES if scale == 2]
+    out = [(f"{P}-pad chroma, {B} CUs" + ("" if crs else ", CRS off"),
+            functools.partial(k4_call, P, rows, width, height, crs))
+           for crs in (True, False) for P, B, rows in classes]
+    P, B, rows = classes[0]
+    out.append((f"{P}-pad chroma, {B} CUs, no trial, no CRS",
+                functools.partial(k4_call, P, rows, width, height, False, False)))
+    out.append((f"4-pad chroma, {trd._BATCH_CUDA[8]:,} RDO rects", k4_rdo_call))
+    return out + [(f"32-pad chroma, 16 CUs of {side // 2}x{side // 2}",
+                   functools.partial(k4_call, 32, chroma_probe_rows(width, height, side),
+                                     width, height)) for side in (4, 64)]
+
+
 # this tree's kernels built with their other shapes, timed beside the
 # shipped one (a cluster of 8 blocks per CU for K2, 4 for K3, of 16 warps,
 # two blocks an SM; for K5 a cluster of one block a slot of 8 warps at the
 # 32-pad class, one block an SM, 2 x 4 outputs a stage thread, the 8-pad
 # class's slots one warp each of one block; for K6a a block of 4 warps per
 # CU at the 16-pad class, 8 at the 32-pad, one warp per CU at the 4- and
-# 8-pad classes):
+# 8-pad classes; for K4 a block of 4 warps a round trip at the 16-pad class,
+# 8 at the 32-pad, the trial's three on a cluster, 1 x 4 outputs a stage
+# thread, one warp a round trip at the 4- and 8-pad classes, two blocks an
+# SM there):
 # {label: nvcc defines}
 K2_VARIANTS = {"one block per CU": ("-DK2_CLUSTER=1",),
                "4 blocks per CU": ("-DK2_CLUSTER=4",),
@@ -4379,16 +4788,24 @@ K5_VARIANTS = {"every slot in turn on one block": ("-DK5_SERIAL",),
                "4 warps a slot": ("-DK5_WARPS=4",),
                "16 warps a slot": ("-DK5_WARPS=16",),
                "8-pad slots on clusters too": ("-DK5_TEAM_PAD=0",)}
+K4_VARIANTS = {"every round trip in turn on one block": ("-DK4_SERIAL",),
+               "the trial's teams in one block, named barriers": ("-DK4_ONE_BLOCK",),
+               "4 warps a team": ("-DK4_WARPS=4",),
+               "16 warps a team": ("-DK4_WARPS=16",),
+               "2 x 4 outputs a stage thread": ("-DK4_STAGE_ROWS=2",),
+               "small pads: 3 blocks an SM (85 registers)": ("-DK4_TEAM_BLOCKS_PER_SM=3",),
+               "small pads on blocks too": ("-DK4_TEAM_PAD=0",)}
 K6A_VARIANTS = {"one block per CU at every pad": ("-DK6A_TEAM_PAD=0",),
                 "4 warps a block": ("-DK6A_WARPS=4",),
                 "8 warps a block": ("-DK6A_WARPS=8",),
                 "16 warps a block": ("-DK6A_WARPS=16",)}
-# ``--k2-times`` / ``--k3-times`` / ``--k5-times`` / ``--k6a-times``: (library, wrapper
-# module, variants, the function that gives the timed cases: (label, the
-# function that makes the call and its plain outputs))
+# ``--k2-times`` / ``--k3-times`` / ``--k4-times`` / ``--k5-times`` / ``--k6a-times``:
+# (library, wrapper module, variants, the function that gives the timed
+# cases: (label, the function that makes the call and its plain outputs))
 TIMED_KERNELS = {"k2": ("intra_rmd", ig, K2_VARIANTS, class_cases(k2_call, TIMED_CLASSES)),
                  "k3": ("mip_rmd", mip_g, K3_VARIANTS,
                         class_cases(k3_call, tuple(c for c in TIMED_CLASSES if c[1] == 1))),
+                 "k4": ("tq", ttq, K4_VARIANTS, k4_cases),
                  "k5": ("tq_mts", ttq, K5_VARIANTS, k5_cases),
                  "k6a": ("cclm", cclm_g, K6A_VARIANTS, k6a_cases)}
 
@@ -4432,17 +4849,19 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
 
 
 def times_only(kernel: str, parent: pathlib.Path) -> int:
-    """``--k2-times PARENT`` / ``--k3-times PARENT`` / ``--k5-times PARENT``
-    / ``--k6a-times PARENT``: the build, the encode kernels' checks and
-    times (the K2, K3, K5 and K6a tie cases among them), for K6a the device
-    RDO's kernel checks and times (K6a in the RDO's chroma tree; K9 shares
-    ``csrc/satd.cuh``), K10a-e's checks and times (K10b shares K3's
-    ``csrc/mip.cuh``, K10d ``csrc/satd.cuh``), and ``phase_variant_times``
-    against the parent checkout; prints no result line."""
+    """``--k2-times PARENT`` / ``--k3-times PARENT`` / ``--k4-times PARENT``
+    / ``--k5-times PARENT`` / ``--k6a-times PARENT``: the build, the encode
+    kernels' checks and times (the K2, K3, K4, K5 and K6a tie cases among
+    them; K5's time shows what K4's shared ``csrc/tq_team.cuh`` left of it),
+    for K4 and K6a the device RDO's kernel checks and times (both on the
+    RDO's path; K9 shares ``csrc/satd.cuh``), K10a-e's checks and times (K10b
+    shares K3's ``csrc/mip.cuh``, K10c ``csrc/tq.cuh``, K10d
+    ``csrc/satd.cuh``), and ``phase_variant_times`` against the parent
+    checkout; prints no result line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
     phase_encode_kernels()
-    if kernel == "k6a":
+    if kernel in ("k4", "k6a"):
         phase_rdo_kernels()
     phase_seq_kernels()
     phase_variant_times(kernel, parent)
@@ -4511,7 +4930,8 @@ def main() -> int:
         return dp_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
-    if sys.argv[1:2] in (["--k2-times"], ["--k3-times"], ["--k5-times"], ["--k6a-times"]):
+    if sys.argv[1:2] in (["--k2-times"], ["--k3-times"], ["--k4-times"], ["--k5-times"],
+                         ["--k6a-times"]):
         return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()

@@ -2,8 +2,7 @@
 // K6a (csrc/cclm.cu), K9 (csrc/rdo_leaf.cu) and K10d (csrc/seq_satd.cu), so
 // that the angular, MIP, CCLM and RDO costs round the same way. Who uses
 // what: the warp form ``warp_tile_satd`` K2, K3 and K6a; the one-thread
-// tile form ``tile_satd`` K9; the block reduction ``block_sum`` K9 and K10d
-// (K4 has its own in csrc/tq.cuh).
+// tile form ``tile_satd`` K9; the block reduction ``block_sum`` K9 and K10d.
 //
 // The port of pmp_vvc_tpu/ops/tq_generic.py:satd_generic (160): 8x8
 // Walsh-Hadamard tiles when min(w, h) >= 8, else 4x4, over the CU's (h, w)
