@@ -63,7 +63,19 @@ Phases, each of which fails the run on error (nothing is caught):
    odd residual differences of both signs; a group's RD gain sum at its
    threshold and a gain at 3 lam; SDH moves of equal error; the CRS gate;
    the LFNST region on the joint TU; sides of 2; every CU size; the
-   padding row); timed at the main path's batch shapes.
+   padding row); K1 on its edge cases in the wave path's four classes and
+   the RDO's 8-pad luma and 4-pad chroma ones (``K1_EDGE_CASES``: no left,
+   top or corner neighbour, none available, only the last top or the
+   first bottom-left cell available, runs of order ids equal to the CU's
+   and of -1, a reach past the right or bottom edge, w != h, sides of 2,
+   frame 1, samples 0 and 1023, the padding row) and K7 on its own in the
+   four wave classes with 0 to 4 grids (``K7_EDGE_CASES``: CUs past the
+   plane's right and bottom edges, 2- and 4-wide chroma CUs at 2-sample
+   offsets, 4x4 and 64x64 luma CUs, grid cells past the grid, levels at
+   the int16 limits, frame 1, the padding row, a sentinel in every sample
+   outside the CUs that must survive); timed at the main path's batch
+   shapes, beside an empty kernel at K1's and K7's launch shapes (the
+   launch floor).
 7. The encode main path: 1920x1080 x 2 frames of natural content, maps
    predicted on the card by the Luma and Chroma QP22 predictors, encoded
    with the dual-tree MIP + sign-data hiding + MTS + LFNST + transform skip
@@ -236,8 +248,13 @@ classes, the RDO's 4-pad chunk of 16,384 rects, 16 CUs of 2x2 and of 32x32
 chroma samples), with phase 12's checks and times; ``--k4-times PARENT``
 the same for K4 (``K4_VARIANTS``, ``k4_cases``: the chroma classes with and
 without the chroma residual scale, without the trial, the RDO's 4-pad
-chunk, the two probes), with phase 12's checks and times; none prints a
-result line.
+chunk, the two probes), with phase 12's checks and times; ``--k1-times
+PARENT`` the same for K1 (``K1_VARIANTS``, ``k1_cases``: the four classes,
+the two probes, the RDO's 8-pad luma and 4-pad chroma chunks of 16,384
+rects), with phase 12's checks and times; ``--k7-times PARENT`` the same
+for K7 (``K7_VARIANTS``, the four classes with the main path's grids, the
+two probes); each of them ends with the launch floor; none prints a result
+line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -1625,6 +1642,239 @@ def k4_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
     return seen
 
 
+# ---------------------------------------------------------------------------
+# K1's and K7's edge cases, held exactly to their plain versions
+# ---------------------------------------------------------------------------
+
+K1_EDGE_CASES = ("CU at x = 0", "CU at y = 0", "CU at (0, 0)", "no neighbour available",
+                 "only the last top cell available", "only the first bottom-left cell available",
+                 "runs of ids equal to oi and of -1", "reach past the right edge",
+                 "reach past the bottom edge", "w != h", "side of 2", "frame index 1",
+                 "samples 0 and 1023", "padding row")
+# (pad, scale): the wave path's four tile classes, the device RDO's 8-pad
+# luma and 4-pad chroma classes
+K1_EDGE_CLASSES = ((32, 1), (64, 1), (16, 2), (32, 2), (8, 1), (4, 2))
+K7_EDGE_CASES = ("past the plane's right edge", "past the plane's bottom edge",
+                 "2-wide chroma CU at an odd 2-sample offset",
+                 "4-wide chroma CU at a 2-sample offset", "4x4 luma CU", "64x64 luma CU",
+                 "grid cells past the grid", "0 to 4 grids", "levels at the int16 limits",
+                 "frame index 1", "padding row", "sentinel kept outside the CUs")
+K7_EDGE_CLASSES = ((32, 1), (64, 1), (16, 2), (32, 2))
+EDGE_W, EDGE_H = 256, 192              # luma samples; one frame per CU
+K7_SENTINEL = (-7, -12345, 165)        # recon, level and grid samples nothing writes
+
+
+def edge_case_applies(case: str, P: int, scale: int) -> bool:
+    """Whether ``case`` of K1_EDGE_CASES / K7_EDGE_CASES can occur in the
+    (P, scale) class."""
+    if case in ("side of 2", "2-wide chroma CU at an odd 2-sample offset",
+                "4-wide chroma CU at a 2-sample offset"):
+        return scale == 2
+    if case == "4x4 luma CU":
+        return scale == 1
+    if case == "64x64 luma CU":
+        return (P, scale) == (64, 1)
+    return True
+
+
+def k1_edge_inputs(P: int, scale: int, seed: int):
+    """K1's edge cases in the (P, scale) class: (rows (B, 8), the planes (one
+    for luma, U and V = 1023 - U for chroma, (F, H, W) int32), the order grid
+    (F, H_luma/4, W_luma/4) int32), one frame per CU so that each case has a
+    grid of its own; the last row is a padding row."""
+    rng = np.random.RandomState(seed)
+    L = P * scale                      # the class's largest side, luma units
+    half = max(L // 2, 4)
+    W, H, GW, GH = EDGE_W, EDGE_H, EDGE_W // 4, EDGE_H // 4
+    # (x, y, w, h, grid) in luma units
+    cus = [(0, 0, L, half, "random"), (0, 64, half, half, "random"),
+           (64, 0, half, L, "random"), (64, 64, half, half, "none"),
+           (32, 32, L, half, "last top"), (32, 16, half, L, "first bottom-left"),
+           (64, 64, L, L, "runs"), (W - half, 96, half, half, "random"),
+           (96, H - half, half, half, "random"), (W - half, H - half, half, half, "random"),
+           (64, 64, half, half, "0 and 1023")]
+    if scale == 2:
+        cus += [(40, 40, 4, min(8, L), "random"), (44, 48, min(16, L), 4, "random")]
+    F = len(cus)
+    Hp, Wp = H // scale, W // scale
+    plane = rng.randint(0, 1024, (F, Hp, Wp))
+    og = rng.randint(-1, 400, (F, GH, GW))
+    rows = []
+    for f, (x, y, w, h, grid) in enumerate(cus):
+        oi = int(rng.randint(100, 400))
+        xs, ys = x // scale, y // scale
+        if grid == "none":
+            og[f] = rng.choice([-1, oi, oi + 7], (GH, GW))
+        elif grid == "last top":
+            og[f] = -1
+            og[f, (ys - 1) * scale // 4, (xs + 2 * P - 1) * scale // 4] = oi - 1
+        elif grid == "first bottom-left":
+            og[f] = -1
+            og[f, (ys + 2 * P - 1) * scale // 4, (xs - 1) * scale // 4] = 0
+        elif grid == "runs":
+            runs = np.concatenate([np.full(rng.randint(1, 3), (oi, -1, oi - 1)[k % 3])
+                                   for k in range(GH + GW)])
+            og[f] = runs[np.add.outer(np.arange(GH), np.arange(GW))]
+        elif grid == "0 and 1023":
+            yy, xx = np.mgrid[0:Hp, 0:Wp]
+            plane[f] = 1023 * ((yy // 3 + xx // 5) % 2)
+            og[f] = 0
+        rows.append((f, x, y, w, h, oi, 1, 0))
+    rows.append((0, 0, 0, L, L, 5, 0, 0))
+    plane = plane.astype(np.int32)
+    planes = [plane] if scale == 1 else [plane, (1023 - plane).astype(np.int32)]
+    return np.array(rows, np.int32), planes, og.astype(np.int32)
+
+
+def k1_edge_seen(rows: np.ndarray, og: np.ndarray, P: int, scale: int,
+                 refs: np.ndarray) -> np.ndarray:
+    """How often each K1_EDGE_CASES case occurs on these rows; ``refs`` is
+    the plain version's output (n, 4, B, 2P+3). The availability of each
+    substitution entry is restated here from the rows and the grid."""
+    fi, x, y, w, h, oi, live = (rows[:, k] for k in range(7))
+    xs, ys, ws, hs = x // scale, y // scale, w // scale, h // scale
+    Hp, Wp = EDGE_H // scale, EDGE_W // scale
+    n2 = 2 * P
+    s = np.arange(2 * n2 + 1)[None, :]
+    j = np.where(s < n2, n2 - 1 - s, s - n2 - 1)
+    left, corner = s < n2, s == n2
+    row = np.where(left, ys[:, None] + j, ys[:, None] - 1)
+    col = np.where(left, xs[:, None] - 1, np.where(corner, xs[:, None] - 1, xs[:, None] + j))
+    ok = np.where(left, (row < Hp) & (xs[:, None] > 0) & (j < 2 * hs[:, None]),
+                  np.where(corner, (xs[:, None] > 0) & (ys[:, None] > 0),
+                           (col < Wp) & (ys[:, None] > 0) & (j < 2 * ws[:, None])))
+    gy = np.clip(np.maximum(row, 0) * scale // 4, 0, og.shape[1] - 1)
+    gx = np.clip(np.maximum(col, 0) * scale // 4, 0, og.shape[2] - 1)
+    ids = og[fi[:, None], gy, gx]
+    avail = ok & (ids >= 0) & (ids < oi[:, None])
+    cell = 4 // scale
+    on = live > 0
+    unf = np.concatenate([refs[0, 0], refs[0, 1]], 1)
+    seen = [on & (xs == 0), on & (ys == 0), on & (xs == 0) & (ys == 0),
+            on & ~avail.any(1), on & avail[:, -1] & ~avail[:, :-cell].any(1),
+            on & avail[:, 0] & ~avail[:, cell:].any(1),
+            on & (ok & (ids == oi[:, None])).any(1) & (ok & (ids == -1)).any(1)
+            & (np.abs(np.diff(avail.astype(int), axis=1)).sum(1) >= 2),
+            on & (xs + 2 * ws > Wp), on & (ys + 2 * hs > Hp), on & (ws != hs),
+            on & (scale == 2) & ((ws == 2) | (hs == 2)), on & (fi == 1),
+            on & (unf == 0).any(1) & (unf == 1023).any(1), ~on]
+    return np.array([int(c.sum()) for c in seen], np.int64)
+
+
+def k7_edge_inputs(P: int, scale: int, seed: int):
+    """K7's edge cases in the (P, scale) class: (rows (B, 8), rec and lev
+    (n, B, P, P) int32 with levels at the int16 limits, codes (4, B) int32),
+    one frame per CU so that no two CUs overlap; the last row is a padding
+    row over frame 0's top-left corner."""
+    rng = np.random.RandomState(seed)
+    L = P * scale
+    half = max(L // 2, 4)
+    W, H = EDGE_W, EDGE_H
+    cus = [(W - half, 96, L, half), (96, H - half, half, L), (W - 8, H - 8, L, L),
+           (64, 64, L, L), (64, 64, half, half)]
+    if scale == 1:
+        cus += [(20, 36, 4, 4), (W - 4, 100, 4, 8)]
+    else:                              # chroma x of 2, 6 and 6: 2-aligned only
+        cus += [(4, 40, 4, min(16, L)), (12, 8, 4, 8), (12, 24, 8, 8), (W - 4, H - 8, 4, 16)]
+    rows = np.array([(f, x, y, w, h, rng.randint(0, 400), 1, 0)
+                     for f, (x, y, w, h) in enumerate(cus)] + [(0, 0, 0, L, L, 1, 0, 0)],
+                    np.int32)
+    n, B = 1 if scale == 1 else 2, len(rows)
+    rec = rng.randint(0, 1024, (n, B, P, P)).astype(np.int32)
+    lev = rng.randint(-32768, 32768, (n, B, P, P)).astype(np.int32)
+    lev[:, :, 0, 0], lev[:, :, 0, 1] = -32768, 32767
+    codes = rng.randint(0, 256, (4, B)).astype(np.int32)
+    return rows, rec, lev, codes
+
+
+def k7_edge_planes(n: int, scale: int, F: int, device) -> tuple:
+    """(plane pairs, four code grids) of ``F`` frames filled with
+    ``K7_SENTINEL``."""
+    Hp, Wp = EDGE_H // scale, EDGE_W // scale
+    planes = [(torch.full((F, Hp, Wp), K7_SENTINEL[0], dtype=torch.int32, device=device),
+               torch.full((F, Hp, Wp), K7_SENTINEL[1], dtype=torch.int16, device=device))
+              for _ in range(n)]
+    grids = [torch.full((F, EDGE_H // 4, EDGE_W // 4), K7_SENTINEL[2], dtype=torch.uint8,
+                        device=device) for _ in range(4)]
+    return planes, grids
+
+
+def k7_edge_seen(rows: np.ndarray, P: int, scale: int, lev: np.ndarray, ngrids: int,
+                 kept: int) -> np.ndarray:
+    """How often each K7_EDGE_CASES case occurs in one call with ``ngrids``
+    grids; ``kept`` counts the sentinel samples left after it."""
+    fi, x, y, w, h, _, live = (rows[:, k] for k in range(7))
+    xs, ys, ws, hs = x // scale, y // scale, w // scale, h // scale
+    Hp, Wp = EDGE_H // scale, EDGE_W // scale
+    on = live > 0
+    d = np.arange(P)
+    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None]) & \
+        (ys[:, None, None] + d[None, :, None] < Hp) & (xs[:, None, None] + d[None, None, :] < Wp)
+    lim = lambda v: ((lev == v) & inside[None]).any((0, 2, 3))  # noqa: E731
+    seen = [on & (xs + ws > Wp), on & (ys + hs > Hp),
+            on & (scale == 2) & (ws == 2) & ((xs // 2) % 2 == 1),
+            on & (scale == 2) & (ws == 4) & (xs % 4 == 2),
+            on & (scale == 1) & (ws == 4) & (hs == 4),
+            on & (scale == 1) & (ws == 64) & (hs == 64),
+            on & (ngrids > 0) & ((x // 4 + w // 4 > EDGE_W // 4) | (y // 4 + h // 4 > EDGE_H // 4)),
+            np.array([ngrids == 0 or ngrids == 4]), on & lim(-32768) & lim(32767),
+            on & (fi == 1), ~on, np.array([kept > 0])]
+    return np.array([int(c.sum()) for c in seen], np.int64)
+
+
+def k1_edge_checks(errs: dict) -> dict:
+    """K1 against its plain version on ``k1_edge_inputs`` of every class;
+    {class: K1_EDGE_CASES counts}."""
+    out = {}
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    for P, scale in K1_EDGE_CLASSES:
+        rows_np, planes, og = k1_edge_inputs(P, scale, seed=P + scale)
+        rows, og_t, ps = dev(rows_np), dev(og), [dev(p) for p in planes]
+        want = ref_gather_reference(ps, og_t, rows, P, scale, BD)
+        _cmp("ref_gather", ref_gather(ps, og_t, rows, P, scale, BD), want, errs)
+        out[(P, scale)] = k1_edge_seen(rows_np, og, P, scale, want.cpu().numpy())
+    return out
+
+
+def k7_edge_checks(errs: dict) -> dict:
+    """K7 against its plain version on ``k7_edge_inputs`` of every class,
+    with 0 to 4 grids, planes and grids full of ``K7_SENTINEL``, and its
+    wrapper refusing misaligned rows; {class: K7_EDGE_CASES counts}."""
+    out = {}
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    for P, scale in K7_EDGE_CLASSES:
+        rows_np, rec, lev, codes = k7_edge_inputs(P, scale, seed=P + scale)
+        rows, rec_t, lev_t = dev(rows_np), dev(rec), dev(lev)
+        seen = np.zeros(len(K7_EDGE_CASES), np.int64)
+        for ngrids in range(5):
+            planes, grids = k7_edge_planes(len(rec), scale, len(rows_np) - 1, DEVICE)
+            scatter_both(rows, P, scale, planes, rec_t, lev_t,
+                         [(g, dev(c)) for g, c in zip(grids[:ngrids], codes)], errs)
+            kept = sum(int((t == s).sum()) for p in planes for t, s in zip(p, K7_SENTINEL)) + \
+                sum(int((g == K7_SENTINEL[2]).sum()) for g in grids[:ngrids])
+            seen += k7_edge_seen(rows_np, P, scale, lev, ngrids, kept)
+        out[(P, scale)] = seen
+    # K7 reads a row as two int4: rows off the 16-byte grain are refused
+    # before any launch
+    odd = torch.zeros(8 * len(rows_np) + 1, dtype=torch.int32, device=DEVICE)[1:].view(-1, 8)
+    try:
+        wf.wave_scatter(odd, P, scale, planes, rec_t, lev_t)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("16-byte aligned" in refused,
+          f"wave_scatter did not refuse schedule rows off the 16-byte grain ({refused!r})")
+    return out
+
+
+def edge_cases_reached(kernel: str, cases, seen: dict) -> None:
+    """Every case of ``cases`` occurred in every class where it can."""
+    for (P, scale), counts in seen.items():
+        missing = [c for c, k in zip(cases, counts) if k == 0 and edge_case_applies(c, P, scale)]
+        check(not missing, f"{kernel}'s edge cases not reached at pad {P}, scale {scale}: "
+                           f"{missing}")
+
+
 def _cmp(name: str, got, want, errs: dict) -> None:
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
@@ -2206,6 +2456,9 @@ def phase_encode_kernels() -> tuple[dict, dict]:
     # K6a's and K4's tie cases in the RDO's 4-pad chroma class too
     cclm_ties_seen += cclm_tie_checks(4, seed=4, errs=errs)
     k4_ties_seen += k4_tie_checks(4, seed=4, errs=errs)
+    k1_edges, k7_edges = k1_edge_checks(errs), k7_edge_checks(errs)
+    edge_cases_reached("K1", K1_EDGE_CASES, k1_edges)
+    edge_cases_reached("K7", K7_EDGE_CASES, k7_edges)
     check(sdh_changed > 0, "sign-data hiding changed no level of the seeded inputs")
     check(0 < mip_wins < mip_rows, f"MIP won {mip_wins} of {mip_rows} CUs")
     check(region_cut > 0, "the LFNST region removed no chroma level")
@@ -2238,7 +2491,11 @@ def phase_encode_kernels() -> tuple[dict, dict]:
         + "; K6a tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(CCLM_TIE_CASES,
                                                                           cclm_ties_seen))
         + "; K4 tie cases: " + ", ".join(f"{k} {int(c)}" for k, c in zip(K4_TIE_CASES,
-                                                                         k4_ties_seen)))
+                                                                         k4_ties_seen))
+        + "; K1 edge cases (every class): "
+        + ", ".join(f"{k} {int(c)}" for k, c in zip(K1_EDGE_CASES, sum(k1_edges.values())))
+        + "; K7 edge cases (every class, 0 to 4 grids): "
+        + ", ".join(f"{k} {int(c)}" for k, c in zip(K7_EDGE_CASES, sum(k7_edges.values()))))
     return errs, phase_encode_kernel_times(width, height)
 
 
@@ -2258,6 +2515,7 @@ def phase_encode_kernel_times(width: int, height: int) -> dict:
     follows U (``cclm_luma``), so that LM and the joint trial win on some
     CUs; every chroma row has the CCLM gate set."""
     times = {}
+    launch_floor_times("[encode-kernels]")
     for P, scale, B in TIMED_CLASSES:
         luma = scale == 1
         rows_np = kernel_rows(P, scale, seed=1, width=width, height=height)[:B]
@@ -2663,7 +2921,7 @@ def phase_encode_profile(frames, maps_l, maps_c) -> None:
     busy = sum(r[0] for r in rows)
     log(f"[encode-profile] one 1920x1080 frame's wave scan ({enc.steps} steps): wall "
         f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
-    for ms, count, name in rows[:10]:
+    for ms, count, name in rows[:16]:
         log(f"[encode-profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<6d} "
             f"{name[:100]}")
 
@@ -4503,7 +4761,7 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A redesigned kernel (K2, K3, K5, K6a) beside the parent commit's and its other shapes
+# A redesigned kernel (K1, K2, K3, K4, K5, K6a, K7) beside the parent commit's and its other shapes
 # ---------------------------------------------------------------------------
 
 def variant_library(kernel: str, src: pathlib.Path, out: pathlib.Path,
@@ -4762,8 +5020,116 @@ def k4_cases(width: int, height: int) -> list:
                                      width, height)) for side in (4, 64)]
 
 
+def k1_call(P: int, scale: int, rows_np: np.ndarray, width: int, height: int):
+    """(K1's call on these rows and ``kernel_planes``' recon and order grid,
+    as ``phase_encode_kernel_times`` builds it, its plain version's outputs)."""
+    rec, _, og = kernel_planes(1, width, height, scale)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    args = ([dev(r) for r in (rec, 1023 - rec)[:1 if scale == 1 else 2]], dev(og),
+            dev(rows_np), P, scale, BD)
+    return (lambda: ref_gather(*args)), list(ref_gather_reference(*args))
+
+
+def k1_rdo_call(chroma: bool):
+    """(K1 as the device RDO's luma tree calls it on one 16,384-rect chunk of
+    1080p rects (``ops/rdo_generic.py:294-295``): the 8-pad luma class, or
+    the 4-pad chroma class on U and V; the open loop's zero order grid), its
+    plain version's outputs."""
+    rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[8], False)
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    oy, ou, ov = (torch.from_numpy(p[None].astype(np.int32)).to(DEVICE) for p in frame)
+    rows = torch.from_numpy(rows_np).to(DEVICE)
+    og0 = rg._zero_grid(oy)
+    args = ([ou, ov], og0, rows, 4, 2, BD) if chroma else ([oy], og0, rows, 8, 1, BD)
+    return (lambda: ref_gather(*args)), list(ref_gather_reference(*args))
+
+
+def k1_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K1: the timed classes, the two
+    probes, and the RDO's 8-pad luma and 4-pad chroma chunks."""
+    B = trd._BATCH_CUDA[8]
+    return class_cases(k1_call, TIMED_CLASSES)(width, height) + [
+        (f"8-pad luma, {B:,} RDO rects", functools.partial(k1_rdo_call, False)),
+        (f"4-pad chroma, {B:,} RDO rects, two planes", functools.partial(k1_rdo_call, True))]
+
+
+def k7_call(P: int, scale: int, rows_np: np.ndarray, width: int, height: int):
+    """(K7's call on these rows with random recon and level tiles and the
+    main path's grids (four for luma, the CCLM / joint grid for chroma),
+    returning the planes and grids it writes; their state after the plain
+    version; a function that zeroes them, so that each checked call writes
+    them anew)."""
+    luma = scale == 1
+    n, B = 1 if luma else 2, len(rows_np)
+    rng = np.random.RandomState(P + scale)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    rows = dev(rows_np)
+    rec = dev(rng.randint(0, 1024, (n, B, P, P)).astype(np.int32))
+    lev = dev(rng.randint(-600, 601, (n, B, P, P)).astype(np.int32))
+    shape = (2, height // scale, width // scale)
+    planes = [(torch.zeros(shape, dtype=torch.int32, device=DEVICE),
+               torch.zeros(shape, dtype=torch.int16, device=DEVICE)) for _ in range(n)]
+    grids = [(torch.zeros((2, height // 4, width // 4), dtype=torch.uint8, device=DEVICE),
+              dev(rng.randint(0, 67, B).astype(np.int32))) for _ in range(4 if luma else 1)]
+    ref_planes = [(a.clone(), b.clone()) for a, b in planes]
+    ref_grids = [(g.clone(), c) for g, c in grids]
+    wf.wave_scatter_reference(rows, P, scale, ref_planes, rec, lev, ref_grids)
+    state = lambda ps, gs: [t for p in ps for t in p] + [g for g, _ in gs]  # noqa: E731
+
+    def call():
+        wf.wave_scatter(rows, P, scale, planes, rec, lev, grids)
+        return state(planes, grids)
+
+    def reset():
+        for t in state(planes, grids):
+            t.zero_()
+    return call, state(ref_planes, ref_grids), reset
+
+
+LAUNCH_FLOOR_SRC = _build.CSRC / "probes" / "launch_floor.cu"
+LAUNCH_FLOOR_ARGS = (_build.INT, _build.INT, _build.PTR)   # blocks, threads, stream
+
+
+@functools.cache
+def launch_floor_library() -> ctypes.CDLL:
+    """``csrc/probes/launch_floor.cu``, an empty kernel on no path of the
+    port, built with the port's nvcc flags and bound."""
+    out = _build.BUILD_DIR / "liblaunch_floor.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(LAUNCH_FLOOR_SRC)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed on {LAUNCH_FLOOR_SRC}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.pmp_launch_floor.argtypes = list(LAUNCH_FLOOR_ARGS)
+    lib.pmp_launch_floor.restype = ctypes.c_int
+    return lib
+
+
+def launch_floor(blocks: int, threads: int) -> None:
+    """One launch of the empty kernel, ``blocks`` x ``threads``."""
+    err = launch_floor_library().pmp_launch_floor(
+        blocks, threads, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"launch_floor kernel launch failed: CUDA error {err}")
+
+
+def launch_floor_times(tag: str) -> dict:
+    """The empty kernel's device time per call (CUDA graph of 50) at K1's
+    and K7's launch shapes, {(blocks, threads): ms}: what any launch of that
+    shape costs. K1 runs 4 warps a block (a 256-thread block per (CU, plane)
+    before), K7 a team of P*P / 4 threads per (CU, plane)."""
+    B = trd._BATCH_CUDA[8]
+    shapes = ((1, 32), (1, 256), (4, 128), (16, 32), (16, 128), (16, 256), (32, 32),
+              (32, 64), (32, 256), (B // 4, 128), (B // 2, 128), (B, 32), (B, 256),
+              (2 * B, 256))
+    out = {shape: graph_ms(functools.partial(launch_floor, *shape)) for shape in shapes}
+    log(f"{tag} launch floor, an empty kernel per call (CUDA graph of 50): "
+        + "; ".join(f"{b:,} x {t} threads {ms * 1e3:.3f} us" for (b, t), ms in out.items()))
+    return out
+
+
 # this tree's kernels built with their other shapes, timed beside the
-# shipped one (a cluster of 8 blocks per CU for K2, 4 for K3, of 16 warps,
+# shipped one (4 warps a block, rounds of 32 entries for K1; a team of P*P /
+# 4 threads per (CU, plane), int4 stores for K7; a cluster of 8 blocks per CU for K2, 4 for K3, of 16 warps,
 # two blocks an SM; for K5 a cluster of one block a slot of 8 warps at the
 # 32-pad class, one block an SM, 2 x 4 outputs a stage thread, the 8-pad
 # class's slots one warp each of one block; for K6a a block of 4 warps per
@@ -4799,15 +5165,24 @@ K6A_VARIANTS = {"one block per CU at every pad": ("-DK6A_TEAM_PAD=0",),
                 "4 warps a block": ("-DK6A_WARPS=4",),
                 "8 warps a block": ("-DK6A_WARPS=8",),
                 "16 warps a block": ("-DK6A_WARPS=16",)}
-# ``--k2-times`` / ``--k3-times`` / ``--k4-times`` / ``--k5-times`` / ``--k6a-times``:
-# (library, wrapper module, variants, the function that gives the timed
-# cases: (label, the function that makes the call and its plain outputs))
-TIMED_KERNELS = {"k2": ("intra_rmd", ig, K2_VARIANTS, class_cases(k2_call, TIMED_CLASSES)),
+K1_VARIANTS = {"2 warps a block": ("-DK1_WARPS=2",),
+               "8 warps a block": ("-DK1_WARPS=8",),
+               "16 warps a block": ("-DK1_WARPS=16",)}
+K7_VARIANTS = {"8 samples a thread": ("-DK7_BATCH=8",),
+               "16 samples a thread": ("-DK7_BATCH=16",)}
+# ``--k1-times`` / ``--k2-times`` / ``--k3-times`` / ``--k4-times`` /
+# ``--k5-times`` / ``--k6a-times`` / ``--k7-times``: (library, wrapper module,
+# variants, the function that gives the timed cases: (label, the function
+# that makes the call, its plain outputs and, for a kernel that writes in
+# place, the function that clears what it writes))
+TIMED_KERNELS = {"k1": ("ref_gather", ig, K1_VARIANTS, k1_cases),
+                 "k2": ("intra_rmd", ig, K2_VARIANTS, class_cases(k2_call, TIMED_CLASSES)),
                  "k3": ("mip_rmd", mip_g, K3_VARIANTS,
                         class_cases(k3_call, tuple(c for c in TIMED_CLASSES if c[1] == 1))),
                  "k4": ("tq", ttq, K4_VARIANTS, k4_cases),
                  "k5": ("tq_mts", ttq, K5_VARIANTS, k5_cases),
-                 "k6a": ("cclm", cclm_g, K6A_VARIANTS, k6a_cases)}
+                 "k6a": ("cclm", cclm_g, K6A_VARIANTS, k6a_cases),
+                 "k7": ("wave_scatter", wf, K7_VARIANTS, class_cases(k7_call, TIMED_CLASSES))}
 
 
 def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
@@ -4833,10 +5208,12 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
     errs: dict = {}
     res = {}
     for cls, make in make_cases(width, height):
-        call, want = make()
+        call, want, *reset = make()
         times = collections.defaultdict(list)
         for label in order:
             with launching(kernel, libs[label]):
+                for clear in reset:
+                    clear()
                 _cmp(f"{name} ({label})", list(call()), want, errs)
                 times[label].append(graph_ms(call))
         res[cls] = {label: t for label, t in times.items()}
@@ -4845,23 +5222,26 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
                         for label, ts in times.items())
             + f"; parent / new {min(times['parent']) / min(times['new']):.1f}x")
     log(f"{tag} every variant equal to the plain version (max_abs_err {errs})")
+    launch_floor_times(tag)
     return res
 
 
 def times_only(kernel: str, parent: pathlib.Path) -> int:
-    """``--k2-times PARENT`` / ``--k3-times PARENT`` / ``--k4-times PARENT``
-    / ``--k5-times PARENT`` / ``--k6a-times PARENT``: the build, the encode
-    kernels' checks and times (the K2, K3, K4, K5 and K6a tie cases among
-    them; K5's time shows what K4's shared ``csrc/tq_team.cuh`` left of it),
-    for K4 and K6a the device RDO's kernel checks and times (both on the
-    RDO's path; K9 shares ``csrc/satd.cuh``), K10a-e's checks and times (K10b
-    shares K3's ``csrc/mip.cuh``, K10c ``csrc/tq.cuh``, K10d
-    ``csrc/satd.cuh``), and ``phase_variant_times`` against the parent
-    checkout; prints no result line."""
+    """``--k1-times PARENT`` / ``--k2-times PARENT`` / ``--k3-times PARENT``
+    / ``--k4-times PARENT`` / ``--k5-times PARENT`` / ``--k6a-times PARENT``
+    / ``--k7-times PARENT``: the build, the encode kernels' checks and times
+    (the K2, K3, K4, K5 and K6a tie cases and K1's and K7's edge cases among
+    them, and the launch floor; K5's time shows what K4's shared
+    ``csrc/tq_team.cuh`` left of it), for K1, K4 and K6a the device RDO's
+    kernel checks and times (all on the RDO's path; K9 shares
+    ``csrc/satd.cuh``), K10a-e's checks and times (K10b shares K3's
+    ``csrc/mip.cuh``, K10c ``csrc/tq.cuh``, K10d ``csrc/satd.cuh``), and
+    ``phase_variant_times`` against the parent checkout; prints no result
+    line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
     phase_encode_kernels()
-    if kernel in ("k4", "k6a"):
+    if kernel in ("k1", "k4", "k6a"):
         phase_rdo_kernels()
     phase_seq_kernels()
     phase_variant_times(kernel, parent)
@@ -4930,8 +5310,8 @@ def main() -> int:
         return dp_child(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
-    if sys.argv[1:2] in (["--k2-times"], ["--k3-times"], ["--k4-times"], ["--k5-times"],
-                         ["--k6a-times"]):
+    if sys.argv[1:2] in (["--k1-times"], ["--k2-times"], ["--k3-times"], ["--k4-times"],
+                         ["--k5-times"], ["--k6a-times"], ["--k7-times"]):
         return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()

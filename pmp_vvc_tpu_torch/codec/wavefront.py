@@ -11,7 +11,8 @@ The wave scan (``_wave_scan``) is a host loop over the steps. Schedules,
 originals, order grids and the state planes are uploaded once; each step
 launches, for each tile class with live rows, the wave-step kernels:
 
-  K1 ``ref_gather``   reference rows with coding-order availability;
+  K1 ``ref_gather``   reference rows with coding-order availability (one
+                      warp per (CU, plane), the substitution a warp scan);
   K2 ``intra_rmd``    luma RMD + prediction, or chroma DM prediction;
   K3 ``mip_select``   (with ``mip``) the MIP candidates against K2's winner;
   K6a ``cclm_select`` (with ``cclm``) the chroma LM predictions against K2's
@@ -29,7 +30,9 @@ launches, for each tile class with live rows, the wave-step kernels:
                       applied in every round trip;
   K7 ``wave_scatter`` masked writes into the recon and level planes and
                       the mode, MIP, mts_idx and lfnst_idx code grids (luma)
-                      or the CCLM / joint Cb-Cr grid (chroma).
+                      or the CCLM / joint Cb-Cr grid (chroma), a team of
+                      threads per (CU, plane) loading its samples before
+                      it stores them.
 
 The state planes are updated in place (the JAX version's scan carries new
 arrays); nothing is read back inside the loop, and the results come back in
@@ -147,6 +150,9 @@ def wave_scatter(rows, pad, scale, planes, rec, lev, grids=()):
         return wave_scatter_reference(rows, pad, scale, planes, rec, lev, grids)
     _build.check_cuda("wave_scatter", rows, rec, lev,
                       *(t for p in planes for t in p), *(t for g in grids for t in g))
+    if rows.data_ptr() % 16:
+        raise ValueError("wave_scatter reads each schedule row as two int4: "
+                         "rows must be 16-byte aligned")
     for rp, lp in planes:
         if rp.dtype != torch.int32 or lp.dtype != torch.int16:
             raise TypeError("wave_scatter writes int32 recon and int16 level planes")

@@ -12,7 +12,9 @@ card:
 
 - **K1** ``ref_gather`` (``csrc/ref_gather.cu``): for a schedule row of B
   CUs, the top/left reference rows with coding-order availability,
-  substitution and the MDIS [1 2 1] filter (``wavefront.py:_refs_generic``).
+  substitution and the MDIS [1 2 1] filter (``wavefront.py:_refs_generic``);
+  one warp per (CU, plane), every load issued before any is used, the
+  substitution JAX's ``cummax`` form as a ballot a round of 32 entries.
 - **K2** ``intra_rmd`` (``csrc/intra_rmd.cu``): luma RMD — SATD over planar,
   DC and the 33 even angulars, then the +-1 refinement — and the chosen
   mode's prediction (``wavefront.py:_make_class_apply`` 373-401); for
