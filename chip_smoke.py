@@ -114,14 +114,22 @@ ones above:
     (``RDO_CASES``: at the frame's top-left and bottom-right corners, chroma
     sides of 2, the 64 class, LM winning and losing, two QP points in one
     call, SSEs above 2^24, 2x2 chroma TUs), and the whole
-    ``luma_leaf_costs`` / ``chroma_leaf_costs`` against the CPU's; each new
-    kernel timed on one 16,384-rect chunk of the 8-pad class.
+    ``luma_leaf_costs`` / ``chroma_leaf_costs`` against the CPU's; K9a on
+    its tie and edge cases at every pad class (``K9A_TIES``: flat rects on
+    flat references, where planar must win a 35-way tie; originals that are
+    mode 2's, mode 66's or another even angular's prediction, which must
+    win at cost 0; modes 2 and 66 tied at the least cost, where 2 must win;
+    4x4, 4x8, 8x4 and 8x8 rects; rects at x = 0, y = 0 and on the frame's
+    right and bottom edges; the padding row); each new kernel timed on one
+    16,384-rect chunk of the 8-pad class, K9a also on one full chunk of
+    each other class (8,192, 2,048 and 512 rects).
 13. The RDO's main path: the 1080p x 2 encode of phase 7's configuration at
     accel level 0 with ``rdo_fallback`` (every MTT node deferred to the
     search, QT splits below the map's banned), cold (the node DAGs built)
-    then warm with every kernel's launches counted; stage times with the
-    RDO's (geometry, leaf costs with their device span, DP), deferred
-    nodes, CUs per size against phase 7's L3 run, hash SEI.
+    then warm with every kernel's launches counted (K9a's per pad class
+    too); stage times with the RDO's (geometry, leaf costs with their
+    device span, DP), deferred nodes, CUs per size against phase 7's L3
+    run, hash SEI.
 14. The bench's configuration (``bench.py:186-197`` as it is, with
     ``rdo_fallback``) at 416x240 x 2: its maps cover 384x192 only, and at L3
     K9 decides the nodes outside them and no others; on the frames cut to
@@ -253,8 +261,13 @@ PARENT`` the same for K1 (``K1_VARIANTS``, ``k1_cases``: the four classes,
 the two probes, the RDO's 8-pad luma and 4-pad chroma chunks of 16,384
 rects), with phase 12's checks and times; ``--k7-times PARENT`` the same
 for K7 (``K7_VARIANTS``, the four classes with the main path's grids, the
-two probes); each of them ends with the launch floor; none prints a result
-line.
+two probes); ``--k9a-times PARENT`` the same for K9a (``K9A_VARIANTS``,
+``k9a_cases``: one full RDO chunk of each pad class, 16 rects of 4x4 and of
+32x32; every build also held to the plain version on ``K9A_TIES``), with
+phase 12's checks and times, then phase 13's L0 encode warm with the
+parent's K9a and this one in turns (``rdo_leaf_device`` of each, equal
+streams); each of them ends with the launch floor (K9a's before its L0
+pair); none prints a result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -3097,16 +3110,163 @@ def rdo_bounds(name: str, rows: np.ndarray, P: int, nqp: int) -> tuple[float, st
             nbytes, ops)
 
 
-def rdo_chunk_rows(rng, B: int, chroma: bool) -> np.ndarray:
-    """(B, 8) int32 rows of one 8-pad chunk of 1080p rects at random
-    4-aligned places: the luma tree's 4x4 to 8x8, or the chroma tree's 8x8."""
-    sizes = [(8, 8)] if chroma else [(4, 4), (4, 8), (8, 4), (8, 8)]
+def rdo_chunk_rows(rng, B: int, chroma: bool, P: int = 8) -> np.ndarray:
+    """(B, 8) int32 rows of one P-pad chunk of 1080p rects at random
+    4-aligned places: the luma tree's sizes of the class (4x4 to 8x8 at the
+    8-pad class, every size whose longer side is P above it), or the chroma
+    tree's 8x8."""
+    sides = [s for s in (4, 8, 16, 32, 64) if s <= P]
+    sizes = [(8, 8)] if chroma else [(w, h) for w in sides for h in sides
+                                     if max(w, h) == P or P == 8]
     rows = np.zeros((B, 8), np.int32)
     rows[:, 3:5] = np.array(sizes)[rng.randint(len(sizes), size=B)]
-    rows[:, 1] = rng.randint(0, (ENC_W - 8) // 4, B) * 4
-    rows[:, 2] = rng.randint(0, (ENC_H - 8) // 4, B) * 4
+    rows[:, 1] = rng.randint(0, (ENC_W - P) // 4, B) * 4
+    rows[:, 2] = rng.randint(0, (ENC_H - P) // 4, B) * 4
     rows[:, 5:] = 1
     return rows
+
+
+# K9a's tie and edge cases per pad class, (kind, w, h, place). Each rect
+# lies in its own cell of K9A_GRID x K9A_GRID cells of 2P + 8 luma samples,
+# so that no rect's references reach another rect's samples; the planes
+# are noise (0-1023). "flat": references flat at FLAT_REC and the original
+# at FLAT_ORG: the 35 costs tie and planar must win; "mode M": the original
+# is mode M's prediction from its own references (cost 0): M must win, and
+# its odd neighbours, which the RDO never scores, cannot take it; "tie
+# 2/66": a square rect whose top reference row equals its left column and
+# whose original is the symmetric part of mode 66's prediction, so that
+# every mode costs what its mirror 68 - M costs and modes 2 and 66 tie at
+# the least cost: 2, the earlier, must win; "random": the noise. Places:
+# "inside" (every reference in the frame), "x = 0", "y = 0", "x = 0, y =
+# 0", "right" and "bottom" (flush with the frame's edge). A padding row
+# follows. 4x4, 4x8, 8x4 and 8x8 rects (4x4 SATD tiles, chroma sides of 2)
+# occur in the 8-pad class; the 32x32, 64x64, 64x4 and 4x64 rects make a
+# candidate span passes.
+K9A_TIE_CASES = ("flat: planar wins a 35-way tie", "mode 2 wins", "mode 66 wins",
+                 "another even angular wins", "2 and 66 tie: 2 wins", "4x4", "4x8", "8x4",
+                 "8x8", "rect at x = 0", "rect at y = 0", "rect on the right edge",
+                 "rect on the bottom edge", "padding row")
+K9A_TIES = {
+    8: (("flat", 8, 8, "inside"), ("flat", 4, 4, "inside"), ("mode 2", 4, 8, "inside"),
+        ("mode 66", 8, 4, "inside"), ("mode 18", 8, 8, "inside"), ("mode 50", 4, 4, "inside"),
+        ("tie 2/66", 8, 8, "inside"), ("tie 2/66", 4, 4, "inside"),
+        ("random", 4, 4, "x = 0"), ("random", 8, 4, "y = 0"), ("random", 4, 8, "right"),
+        ("random", 8, 8, "bottom"), ("random", 8, 8, "x = 0, y = 0")),
+    16: (("flat", 16, 16, "inside"), ("mode 2", 16, 8, "inside"), ("mode 66", 8, 16, "inside"),
+         ("mode 34", 16, 4, "inside"), ("mode 40", 4, 16, "inside"),
+         ("tie 2/66", 16, 16, "inside"), ("random", 16, 16, "x = 0"),
+         ("random", 4, 16, "y = 0"), ("random", 16, 4, "right"), ("random", 8, 16, "bottom")),
+    32: (("flat", 32, 32, "inside"), ("mode 2", 32, 4, "inside"), ("mode 66", 4, 32, "inside"),
+         ("mode 24", 32, 16, "inside"), ("tie 2/66", 32, 32, "inside"),
+         ("random", 32, 8, "x = 0"), ("random", 8, 32, "y = 0"), ("random", 16, 32, "right"),
+         ("random", 32, 32, "bottom")),
+    64: (("flat", 64, 64, "inside"), ("mode 2", 64, 32, "inside"), ("mode 66", 4, 64, "inside"),
+         ("mode 50", 64, 16, "inside"), ("tie 2/66", 64, 64, "inside"),
+         ("random", 64, 4, "x = 0"), ("random", 32, 64, "y = 0"), ("random", 16, 64, "right"),
+         ("random", 64, 64, "bottom")),
+}
+K9A_GRID = 4
+
+
+def k9a_tie_inputs(P: int, seed: int):
+    """(rows, (oy, ou, ov), kinds, places) as numpy for ``K9A_TIES[P]``: 2
+    frames of K9A_GRID x K9A_GRID cells of 2P + 8 luma samples, a case's
+    frame its index mod 2, order id 1 (the RDO's open loop)."""
+    rng = np.random.RandomState(seed)
+    C = 2 * P + 8
+    W = H = K9A_GRID * C
+    oy = rng.randint(0, 1024, (2, H, W)).astype(np.int32)
+    ou, ov = (rng.randint(0, 1024, (2, H // 2, W // 2)).astype(np.int32) for _ in range(2))
+    edge = {"x = 0": (0, 1), "y = 0": (1, 0), "x = 0, y = 0": (0, 0),
+            "right": (K9A_GRID - 1, 1), "bottom": (1, K9A_GRID - 1)}
+    inside = [(cx, cy) for cy in range(K9A_GRID) for cx in range(K9A_GRID)
+              if (cx, cy) not in edge.values()]
+    rows, kinds, places = [], [], []
+    for i, (kind, w, h, place) in enumerate(K9A_TIES[P]):
+        cx, cy = inside.pop(0) if place == "inside" else edge[place]
+        x = 0 if place.startswith("x = 0") else W - w if place == "right" else cx * C + 4
+        y = 0 if place.endswith("y = 0") else H - h if place == "bottom" else cy * C + 4
+        fi = i % 2
+        if kind == "flat":
+            oy[fi, max(y - 1, 0):y + 2 * h, max(x - 1, 0):x + 2 * w] = FLAT_REC
+        elif kind == "tie 2/66":          # the top reference row equals the left column
+            v = rng.randint(0, 1024, 2 * w + 1)
+            oy[fi, y - 1, x - 1:x + 2 * w] = v
+            oy[fi, y - 1:y + 2 * h, x - 1] = v
+        rows.append((fi, x, y, w, h, 1, 1, 1))
+        kinds.append(kind)
+        places.append(place)
+    rows = np.array(rows + [(0,) * 8], np.int32)
+    rows_t = torch.from_numpy(rows)
+    og0 = torch.zeros((2, H // 4, W // 4), dtype=torch.int32)
+    refs = ref_gather_reference([torch.from_numpy(oy)], og0, rows_t, P, 1, BD)
+    target = [66 if k == "tie 2/66" else int(k.split()[1]) if k.startswith("mode") else 0
+              for k in kinds] + [0]
+    _, _, _, ws, hs, _, _ = unpack_rows(rows_t, 1)
+    pred = predict_generic(*refs[0], torch.tensor(target, dtype=torch.int32)[:, None], ws, hs,
+                           pad=P, is_luma=True, bit_depth=BD)[:, 0].numpy()
+    for b, kind in enumerate(kinds):
+        fi, x, y, w, h = rows[b, :5]
+        t = pred[b, :h, :w]
+        if kind == "flat":
+            oy[fi, y:y + h, x:x + w] = FLAT_ORG
+        elif kind.startswith("mode"):
+            oy[fi, y:y + h, x:x + w] = t
+        elif kind == "tie 2/66":          # symmetric: each mode ties its mirror
+            oy[fi, y:y + h, x:x + w] = (t + t.T) // 2
+    return rows, (oy, ou, ov), kinds, places
+
+
+def k9a_tie_seen(rows: np.ndarray, kinds: list, places: list, modes: np.ndarray) -> np.ndarray:
+    """Counts of ``K9A_TIE_CASES`` among K9a's chosen ``modes``; every flat
+    rect must choose planar, every mode M rect M, every tie rect mode 2 and
+    the padding row mode 0."""
+    seen = np.zeros(len(K9A_TIE_CASES), np.int64)
+    for b, kind in enumerate(kinds):
+        want = {"flat": 0, "tie 2/66": 2}.get(kind)
+        if kind.startswith("mode"):
+            want = int(kind.split()[1])
+        check(want is None or modes[b] == want, f"K9a chose mode {modes[b]} for a {kind} rect")
+        w, h = (int(v) for v in rows[b, 3:5])
+        seen += [kind == "flat", kind == "mode 2", kind == "mode 66",
+                 kind.startswith("mode") and kind not in ("mode 2", "mode 66"),
+                 kind == "tie 2/66", (w, h) == (4, 4), (w, h) == (4, 8), (w, h) == (8, 4),
+                 (w, h) == (8, 8), rows[b, 1] == 0, rows[b, 2] == 0, places[b] == "right",
+                 places[b] == "bottom", False]
+    check(rows[-1, 6] == 0 and modes[-1] == 0, "K9a's padding row did not give mode 0")
+    seen[-1] += 1
+    return seen
+
+
+def k9a_call(P: int, rows_np: np.ndarray, planes):
+    """(K9a's call on these rows of the P-pad class with K1's references of
+    the original ``planes`` (oy, ou, ov; (F, ...) numpy) on the card, as
+    ``luma_leaf_costs`` makes it, its plain version's outputs)."""
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    oy, ou, ov = (dev(p) for p in planes)
+    rows = dev(rows_np)
+    og0 = rg._zero_grid(oy)
+    args = (ref_gather([oy], og0, rows, P, 1, BD), ref_gather([ou, ov], og0, rows, P // 2, 2, BD),
+            oy, rows, P, BD)
+    return (lambda: rg.rdo_luma_select(*args)), list(rg.rdo_luma_select_reference(*args))
+
+
+def k9a_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
+    """K9a against its plain version on ``k9a_tie_inputs``; the cases seen."""
+    rows_np, planes, kinds, places = k9a_tie_inputs(P, seed)
+    call, want = k9a_call(P, rows_np, planes)
+    got = call()
+    _cmp("rdo_luma_select", list(got), want, errs)
+    return k9a_tie_seen(rows_np, kinds, places, got[0].cpu().numpy())
+
+
+def k9a_rdo_call(P: int):
+    """(K9a as the device RDO calls it on one chunk of the P-pad class
+    (``_BATCH_CUDA[P]`` rects of a 1080p frame, ``rdo_chunk_rows``), its
+    plain version's outputs)."""
+    rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[P], False, P)
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    return k9a_call(P, rows_np, [p[None].astype(np.int32) for p in frame])
 
 
 def phase_rdo_kernels() -> tuple[dict, dict]:
@@ -3125,6 +3285,10 @@ def phase_rdo_kernels() -> tuple[dict, dict]:
         f"chroma_leaf_costs against the CPU's, equal to their plain versions on every "
         f"tile class (max_abs_err {errs}); cases: "
         + ", ".join(f"{k} {v}" for k, v in seen.items()))
+    ties = sum(k9a_tie_checks(P, P, errs) for P in K9A_TIES)
+    check((ties > 0).all(), f"some K9a tie case never occurred: {dict(zip(K9A_TIE_CASES, ties))}")
+    log(f"[rdo-kernels] K9a equal to its plain version on its tie and edge cases at pads "
+        f"{tuple(K9A_TIES)}: " + ", ".join(f"{k} {v}" for k, v in zip(K9A_TIE_CASES, ties)))
 
     # times at the main path's shapes: one full 8-pad chunk of 1080p rects
     # (luma tree: 4x4 to 8x8; chroma tree: 8x8), one QP point (QP 22)
@@ -3165,6 +3329,17 @@ def phase_rdo_kernels() -> tuple[dict, dict]:
         log(f"[rdo-kernels] {name}: {B} rects of the 8-pad {'chroma' if chroma else 'luma'} "
             f"tree: device time per call (CUDA graph) {ms:.6f} ms; plain version from Python "
             f"{plain_ms:.6f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, {ops} ops)")
+    # K9a at the other classes' chunks, each full (16-pad 8,192 rects, 32-pad
+    # 2,048, 64-pad 512), every size of the class
+    for P in (16, 32, 64):
+        kernel, want = k9a_rdo_call(P)
+        _cmp("rdo_luma_select", kernel(), want, errs)
+        rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[P], False, P)
+        bound, by, nbytes, ops = rdo_bounds("rdo_luma_select", rows_np, P, 1)
+        ms = graph_ms(kernel, reps=10, iters=5)
+        log(f"[rdo-kernels] rdo_luma_select: {trd._BATCH_CUDA[P]} rects of the {P}-pad luma "
+            f"tree: device time per call (CUDA graph) {ms:.6f} ms; bound {bound:.6f} ms by "
+            f"{by} ({nbytes} B, {ops} ops), {bound / ms:.2%} of it")
     return errs, times
 
 
@@ -3207,9 +3382,14 @@ def phase_rdo_encode(frames, maps_l, maps_c, enc_l3) -> dict:
     log(f"[rdo-encode] L0 cold run (node DAGs built) {time.perf_counter() - t0:.3f} s "
         f"({stages} s)")
     reset_counts()
-    outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} at L0 with the device RDO, "
-                        "the RDO path")
+    pads = collections.Counter()
+    with k9a_pads(pads):
+        outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} at L0 with the device RDO, "
+                            "the RDO path")
     launches = all_launches()
+    check(sum(pads.values()) == launches["rdo_luma_select"],
+          f"K9a launches {launches['rdo_luma_select']} against its calls by pad {pads}")
+    log(f"[rdo-encode] K9a launches per pad class at L0: {dict(sorted(pads.items()))}")
     for name in RDO_KERNELS:
         check(launches[name] > 0, f"{name} was not launched on the RDO path")
     check_hashes(outs, frames, "L0")
@@ -3219,6 +3399,31 @@ def phase_rdo_encode(frames, maps_l, maps_c, enc_l3) -> dict:
     log(f"[rdo-encode] luma CUs per size at L0 {cu_sizes(enc.leaves)}; at L3 "
         f"{cu_sizes(enc_l3.leaves)}")
     return launches
+
+
+class _PadCount:
+    """The ``rdo_leaf`` library with K9a's calls counted by pad class."""
+
+    def __init__(self, lib, counts: collections.Counter):
+        self._lib, self._counts = lib, counts
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def pmp_rdo_luma_select(self, *args):
+        self._counts[args[7]] += 1                # refs ... tabs_c, B, then P
+        return self._lib.pmp_rdo_luma_select(*args)
+
+
+@contextlib.contextmanager
+def k9a_pads(counts: collections.Counter):
+    """K9a's launches counted by pad class into ``counts`` meanwhile."""
+    saved = rg._lib
+    rg._lib = lambda n: _PadCount(saved(n), counts) if n == "rdo_leaf" else saved(n)
+    try:
+        yield
+    finally:
+        rg._lib = saved
 
 
 def accel_maps(w: int, h: int):
@@ -4761,7 +4966,7 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A redesigned kernel (K1, K2, K3, K4, K5, K6a, K7) beside the parent commit's and its other shapes
+# A redesigned kernel (K1-K7, K9a) beside the parent commit's and its other shapes
 # ---------------------------------------------------------------------------
 
 def variant_library(kernel: str, src: pathlib.Path, out: pathlib.Path,
@@ -5086,6 +5291,38 @@ def k7_call(P: int, scale: int, rows_np: np.ndarray, width: int, height: int):
     return call, state(ref_planes, ref_grids), reset
 
 
+def k9a_probe_call(side: int):
+    """(K9a on 16 rects of side x side at random 4-aligned places of a 1080p
+    frame, in the 8-pad class up to 8x8, else the side's; its plain
+    version's outputs)."""
+    rng = np.random.RandomState(6)
+    rows_np = np.zeros((16, 8), np.int32)
+    rows_np[:, 1] = rng.randint(0, (ENC_W - side) // 4, 16) * 4
+    rows_np[:, 2] = rng.randint(0, (ENC_H - side) // 4, 16) * 4
+    rows_np[:, 3:5] = side
+    rows_np[:, 5:] = 1
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    return k9a_call(max(side, 8), rows_np, [p[None].astype(np.int32) for p in frame])
+
+
+def k9a_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K9a: one full chunk of each pad
+    class as the device RDO calls it on 1080p rects (``_BATCH_CUDA``), then
+    two probes (16 rects of 4x4, of 32x32); ``width`` and ``height`` unused."""
+    return [(f"{P}-pad luma, {trd._BATCH_CUDA[P]:,} RDO rects", functools.partial(k9a_rdo_call, P))
+            for P in (8, 16, 32, 64)] + [
+        (f"{max(side, 8)}-pad luma, 16 rects of {side}x{side}",
+         functools.partial(k9a_probe_call, side)) for side in (4, 32)]
+
+
+def k9a_tie_cases() -> list:
+    """K9a's tie and edge inputs of every pad class (``K9A_TIES``), on
+    which ``phase_variant_times`` holds each variant to the plain version."""
+    return [(f"{P}-pad tie cases",
+             functools.partial(lambda P: k9a_call(P, *k9a_tie_inputs(P, P)[:2]), P))
+            for P in K9A_TIES]
+
+
 LAUNCH_FLOOR_SRC = _build.CSRC / "probes" / "launch_floor.cu"
 LAUNCH_FLOOR_ARGS = (_build.INT, _build.INT, _build.PTR)   # blocks, threads, stream
 
@@ -5137,7 +5374,8 @@ def launch_floor_times(tag: str) -> dict:
 # 8-pad classes; for K4 a block of 4 warps a round trip at the 16-pad class,
 # 8 at the 32-pad, the trial's three on a cluster, 1 x 4 outputs a stage
 # thread, one warp a round trip at the 4- and 8-pad classes, two blocks an
-# SM there):
+# SM there; for K9a a warp per rect and 4 rects a block at the 8-pad class,
+# a block of 4, 8 and 16 warps per rect at the 16-, 32- and 64-pad classes):
 # {label: nvcc defines}
 K2_VARIANTS = {"one block per CU": ("-DK2_CLUSTER=1",),
                "4 blocks per CU": ("-DK2_CLUSTER=4",),
@@ -5170,8 +5408,15 @@ K1_VARIANTS = {"2 warps a block": ("-DK1_WARPS=2",),
                "16 warps a block": ("-DK1_WARPS=16",)}
 K7_VARIANTS = {"8 samples a thread": ("-DK7_BATCH=8",),
                "16 samples a thread": ("-DK7_BATCH=16",)}
+K9A_VARIANTS = {"16-pad rects on warps too": ("-DK9A_TEAM_PAD=16",),
+                "every rect on a block": ("-DK9A_TEAM_PAD=0",),
+                "2 rects (warps) a block": ("-DK9A_WARPS=2",),
+                "8 rects (warps) a block": ("-DK9A_WARPS=8",),
+                "blocks of 2, 4, 8 warps (16-, 32-, 64-pad)": ("-DK9A_WARPS_LARGE=8",),
+                "blocks of 8, 16, 32 warps (16-, 32-, 64-pad)": ("-DK9A_WARPS_LARGE=32",)}
 # ``--k1-times`` / ``--k2-times`` / ``--k3-times`` / ``--k4-times`` /
-# ``--k5-times`` / ``--k6a-times`` / ``--k7-times``: (library, wrapper module,
+# ``--k5-times`` / ``--k6a-times`` / ``--k7-times`` / ``--k9a-times``:
+# (library, wrapper module,
 # variants, the function that gives the timed cases: (label, the function
 # that makes the call, its plain outputs and, for a kernel that writes in
 # place, the function that clears what it writes))
@@ -5182,7 +5427,12 @@ TIMED_KERNELS = {"k1": ("ref_gather", ig, K1_VARIANTS, k1_cases),
                  "k4": ("tq", ttq, K4_VARIANTS, k4_cases),
                  "k5": ("tq_mts", ttq, K5_VARIANTS, k5_cases),
                  "k6a": ("cclm", cclm_g, K6A_VARIANTS, k6a_cases),
-                 "k7": ("wave_scatter", wf, K7_VARIANTS, class_cases(k7_call, TIMED_CLASSES))}
+                 "k7": ("wave_scatter", wf, K7_VARIANTS, class_cases(k7_call, TIMED_CLASSES)),
+                 "k9a": ("rdo_leaf", rg, K9A_VARIANTS, k9a_cases)}
+# untimed inputs on which every build of ``phase_variant_times`` must equal
+# the plain version too: (label, the function that makes the call and its
+# plain outputs)
+VARIANT_CHECKS = {"k9a": k9a_tie_cases}
 
 
 def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
@@ -5193,7 +5443,7 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
     ``build/``), this tree's, and this tree's built with each of its
     variants' defines (the builds in parallel), in turns: parent, new, the
     variants, the variants again in reverse, new, parent. Each equals the
-    plain version on those inputs."""
+    plain version on those inputs and on ``VARIANT_CHECKS``' ones."""
     name, _, variants, make_cases = TIMED_KERNELS[kernel]
     tag = f"[{kernel}-times]"
     jobs = {"parent": (parent / "pmp_vvc_tpu_torch" / "csrc" / f"{name}.cu",
@@ -5206,6 +5456,12 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
     libs = {"parent": built["parent"], "new": None, **{k: built[k] for k in variants}}
     order = ("parent", "new", *variants, *reversed(variants), "new", "parent")
     errs: dict = {}
+    for cls, make in VARIANT_CHECKS.get(kernel, list)():
+        call, want = make()
+        for label, lib in libs.items():
+            with launching(kernel, lib):
+                _cmp(f"{name} ({label})", list(call()), want, errs)
+        log(f"{tag} {cls}: every build equal to the plain version")
     res = {}
     for cls, make in make_cases(width, height):
         call, want, *reset = make()
@@ -5226,25 +5482,58 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
     return res
 
 
+def phase_k9a_l0(parent: pathlib.Path) -> None:
+    """The RDO's main path (phase 13's 1080p x 2 encode at L0 with
+    ``rdo_fallback``), warm, with the parent commit's K9a (``parent``'s
+    ``rdo_leaf.cu``) and this one in turns (parent, new, new, parent): each
+    run's ``rdo_leaf_device`` span and wall time; the four streams must be
+    equal."""
+    lib = variant_library("k9a", parent / "pmp_vvc_tpu_torch" / "csrc" / "rdo_leaf.cu",
+                          parent / "build" / "kernels" / "librdo_leaf-parent.so")
+    preds = {(comp, ENC_QP): CompPredictor.from_trained(
+                 comp == "Luma", CKPT / f"{comp}_Q_QP{ENC_QP}.msgpack",
+                 CKPT / f"{comp}_BD_QP{ENC_QP}.msgpack", device=DEVICE)
+             for comp in ("Luma", "Chroma")}
+    frames = natural_sequence(ENC_W, ENC_H, ENC_FRAMES, seed0=7, bit_depth=BD)
+    maps_l, maps_c = frame_maps(preds, frames, ENC_W, ENC_H)
+    enc = wf.WavefrontEncoder(enc_cfg(ENC_W, ENC_H), accel_level=0, rdo_fallback=True,
+                              device=DEVICE)
+    enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)   # cold: the node DAGs
+    streams = []
+    for label in ("parent", "new", "new", "parent"):
+        with launching("k9a", lib if label == "parent" else None):
+            outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} at L0, K9a {label}")
+        streams.append(b"".join(o[0] for o in outs))
+        log(f"[k9a-times] L0 path with K9a {label}: rdo_leaf_device "
+            f"{enc.timings['rdo_leaf_device']:.6f} s")
+    check(len(set(streams)) == 1, "the L0 path's stream differs between the parent's K9a "
+                                  "and this one")
+    log("[k9a-times] L0 path: the four streams byte-identical")
+
+
 def times_only(kernel: str, parent: pathlib.Path) -> int:
     """``--k1-times PARENT`` / ``--k2-times PARENT`` / ``--k3-times PARENT``
     / ``--k4-times PARENT`` / ``--k5-times PARENT`` / ``--k6a-times PARENT``
-    / ``--k7-times PARENT``: the build, the encode kernels' checks and times
-    (the K2, K3, K4, K5 and K6a tie cases and K1's and K7's edge cases among
-    them, and the launch floor; K5's time shows what K4's shared
-    ``csrc/tq_team.cuh`` left of it), for K1, K4 and K6a the device RDO's
-    kernel checks and times (all on the RDO's path; K9 shares
+    / ``--k7-times PARENT`` / ``--k9a-times PARENT``: the build, the encode
+    kernels' checks and times (the K2, K3, K4, K5 and K6a tie cases and K1's
+    and K7's edge cases among them, and the launch floor; K5's time shows
+    what K4's shared ``csrc/tq_team.cuh`` left of it), for K1, K4, K6a and
+    K9a the device RDO's kernel checks and times (all on the RDO's path, K9a
+    with its tie cases and at every pad class's chunk; K9 shares
     ``csrc/satd.cuh``), K10a-e's checks and times (K10b shares K3's
-    ``csrc/mip.cuh``, K10c ``csrc/tq.cuh``, K10d ``csrc/satd.cuh``), and
-    ``phase_variant_times`` against the parent checkout; prints no result
-    line."""
+    ``csrc/mip.cuh``, K10c ``csrc/tq.cuh``, K10d ``csrc/satd.cuh``),
+    ``phase_variant_times`` against the parent checkout, and for K9a the L0
+    path with the parent's K9a and this one (``phase_k9a_l0``); prints no
+    result line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
     phase_encode_kernels()
-    if kernel in ("k1", "k4", "k6a"):
+    if kernel in ("k1", "k4", "k6a", "k9a"):
         phase_rdo_kernels()
     phase_seq_kernels()
     phase_variant_times(kernel, parent)
+    if kernel == "k9a":
+        phase_k9a_l0(parent)
     log(card_line())
     log(f"[{kernel}-times] partial run: no result line")
     return 0
@@ -5311,7 +5600,7 @@ def main() -> int:
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
     if sys.argv[1:2] in (["--k1-times"], ["--k2-times"], ["--k3-times"], ["--k4-times"],
-                         ["--k5-times"], ["--k6a-times"], ["--k7-times"]):
+                         ["--k5-times"], ["--k6a-times"], ["--k7-times"], ["--k9a-times"]):
         return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()
