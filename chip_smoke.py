@@ -177,13 +177,26 @@ the encode CLI:
     ISP shapes at QP 0/22/37/51 with every stage mask, K10d on every tile
     shape, K10e at every side 2-64 against one original and one per block,
     on a block whose int32 SSE wraps and on differences at the int32
-    limits; each timed at 16x16 (a CUDA graph of 50 calls) beside its plain
-    version and the wrapper's round trip from numpy to numpy.
+    limits; K10c on its edge cases (``K10C_EDGE_CASES``: full-scale
+    +-(2^bd - 1) residual patterns at every shape of ``SEQ_TQ_SHAPES`` and
+    every kind at 8 and 10 bits, levels at the 16-bit limits through both
+    inverse clips, dequantiser shifts of 0 and -9, coefficients on the dead
+    zone's boundaries, negative sums at a rounding half, the zero-out at 64
+    and at 32) and K10d on its own (``K10D_EDGE_CASES``: differences of
+    +-1023 at every tile shape, DC-only tiles, non-square tile sums that
+    float32 rounds onto or next to an integer, one original for all
+    candidates and one each), each case reached; both wrappers refusing
+    inputs off the 16-byte grain; each timed at 16x16 (a CUDA graph of 50
+    calls) beside its plain version and the wrapper's round trip from numpy
+    to numpy.
 20. The sequential path: ``FrameEncoder(mode_select="satd")`` with all 67
     RMD modes on 416x240 x 2 frames of natural content, the bench's tools
     without sign-data hiding and with MRL, ISP and dependent quantization,
     dual tree, the QP 22 maps; a cold run of one frame, then a warm run of
-    both with every K10 kernel's launches counted; frames/s, stage times,
+    both with every K10 kernel's launches counted, K10c's by (stage mask,
+    w, h, kinds) and K10d's by (w, h, candidates) (``seq_call_mix``), every entry
+    of both mixes timed with its bound and the kernels' lost time over the
+    mix (``seq_mix_times``); frames/s, stage times,
     the MRL and ISP CUs and dependent-quantization TUs (each must occur),
     hash SEI and luma PSNR; one more frame under torch.profiler and
     cProfile (device idle share, the host's costliest functions).
@@ -266,8 +279,20 @@ two probes); ``--k9a-times PARENT`` the same for K9a (``K9A_VARIANTS``,
 32x32; every build also held to the plain version on ``K9A_TIES``), with
 phase 12's checks and times, then phase 13's L0 encode warm with the
 parent's K9a and this one in turns (``rdo_leaf_device`` of each, equal
-streams); each of them ends with the launch floor (K9a's before its L0
-pair); none prints a result line.
+streams); ``--k10c-times PARENT`` the same for K10c (``K10C_VARIANTS``,
+``k10c_cases``: the 16x16 round trip at QP 37, the forward and the inverse
+transform alone at 32x16, 32x32 and 16x16, a 64x64 and a 1x16 round trip,
+16 TUs of 8x8; every build also held to the plain version on
+``K10C_EDGE_CASES``) and ``--k10d-times PARENT`` for K10d
+(``K10D_VARIANTS``, ``k10d_cases``: 67 candidates at 16x16, 32x16, 32x32
+and 64x64, 12 at 32x16, 67 of 4x4, 8 of 2x8, 8 of 16x16 with an original
+each; every build held to ``K10D_EDGE_CASES``), with phase 19's checks and
+times, then phase 20's encode (both frames cold, counting the call mix,
+then the first warm with the parent's kernel and this one in turns:
+``code`` time and wall of each, equal streams) and the mix timed for both
+(``phase_k10_seq``); each of them ends
+with the launch floor (K9a's, K10c's and K10d's before their path pairs);
+none prints a result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -282,6 +307,7 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import inspect
 import itertools
 import json
 import pathlib
@@ -298,6 +324,7 @@ import torch
 from pmp_vvc_tpu_torch import _build
 from pmp_vvc_tpu_torch.cli import encode as cli_encode
 from pmp_vvc_tpu_torch.codec import rdo_device as trd
+from pmp_vvc_tpu_torch.codec import encoder as seq_enc
 from pmp_vvc_tpu_torch.codec import wavefront as wf
 from pmp_vvc_tpu_torch.codec.encoder import FrameEncoder
 from pmp_vvc_tpu_torch.codec.rdo_device import DeviceRDO
@@ -327,6 +354,7 @@ from pmp_vvc_tpu_torch.ops.sdh_generic import _cg_tables, apply_sdh_generic, sdh
 from pmp_vvc_tpu_torch.ops.lfnst_generic import inv_lfnst_generic
 from pmp_vvc_tpu_torch.ops.tq_generic import (
     tq, tq_mts, tq_mts_candidates, tq_mts_reference, tq_reference)
+from pmp_vvc_tpu_torch.ops import transforms as tr_ops
 from pmp_vvc_tpu_torch.ops.transforms import DCT2, DCT8, DST7
 from pmp_vvc_tpu_torch import parallel as md
 from pmp_vvc_tpu_torch.parallel import comm
@@ -3951,6 +3979,308 @@ SEQ_TIME_W = SEQ_TIME_H = 16          # the timed block
 OPS_SEQ_QUANT, OPS_DIST = 8, 3
 
 
+# ---------------------------------------------------------------------------
+# K10c's and K10d's edge cases, held exactly to their plain versions
+# ---------------------------------------------------------------------------
+
+K10C_EDGE_CASES = ("full-scale residuals at 8 bits", "full-scale residuals at 10 bits",
+                   "levels at the 16-bit limits through both inverse clips",
+                   "dequantiser shift <= 0", "coefficients on the dead-zone boundary",
+                   "a negative sum at a rounding half", "zero-out beyond 32 at 64 (DCT-2)",
+                   "zero-out beyond 16 at 32 (DST-7 / DCT-8)")
+K10D_EDGE_CASES = ("differences of +-1023", "DC-only tiles",
+                   "non-square tile on an integer in float32",
+                   "non-square tile next to an integer in float32",
+                   "one original for all candidates", "one original per candidate")
+# blocks of every VTM tile shape (8x16, 16x8, 4x8, 8x4, 8x8, 4x4, 2x2), one
+# candidate and several a warp, a warp per candidate, several warps per
+# candidate, and sides that are not powers of two
+K10D_EDGE_SHAPES = ((16, 8), (8, 16), (8, 4), (4, 8), (8, 8), (4, 4), (2, 2), (32, 16),
+                    (16, 32), (32, 4), (64, 64), (64, 16), (2, 8), (8, 2), (12, 8), (24, 16))
+# the shapes whose candidates also come with an original each: one a warp,
+# several a warp, several warps a candidate, non-square tiles, 2x2 tiles
+K10D_PER_CANDIDATE = ((16, 8), (4, 4), (16, 32), (64, 64), (8, 2), (24, 16))
+# the dequantiser's products stay within int32 (as the JAX package's int32
+# product needs to agree with the plain version's int64 one) where
+# |level * scale << -shift| < 2^31: shifts down to -9
+K10C_MIN_DEQ_SHIFT = -9
+
+
+def _core_or_one(kind: int, n: int) -> np.ndarray:
+    """The n-point core of ``kind`` as int64, [[64]] for a side of 1 (the
+    uncoded side of an ISP TU)."""
+    return np.full((1, 1), 64, np.int64) if n == 1 else tr_ops.core_matrix(kind, n).astype(np.int64)
+
+
+def _q_params(w: int, h: int, qp: int, bd: int) -> tuple[int, int, int, int, int]:
+    """(q_bits, add, qscale, iscale, rshift) of the quantiser at a TU's
+    geometry (ops/quant.py)."""
+    t_shift, sqrt2 = quant_ops._geom(w, h, bd)
+    q_bits = 14 + qp // 6 + t_shift - sqrt2
+    return (q_bits, 171 << (q_bits - 9), int(quant_ops.QUANT_SCALES[sqrt2][qp % 6]),
+            int(quant_ops.INV_QUANT_SCALES[sqrt2][qp % 6]), 6 - (t_shift - sqrt2 + qp // 6))
+
+
+def k10c_kinds(w: int, h: int, bd: int) -> list:
+    """Kind pairs on a w x h TU: DCT-2 both ways, and an MTS kind on every
+    side that takes one (DST-7 across at 8 bits, DCT-8 at 10)."""
+    mw, mh = 4 <= w <= 32, 4 <= h <= 32
+    a, b = (DST7, DCT8) if bd == 8 else (DCT8, DST7)
+    if mw or mh:
+        return [(DCT2, DCT2), (a if mw else DCT2, b if mh else DCT2)]
+    return [(DCT2, DCT2)]
+
+
+def k10c_edge_inputs(seed: int = 20) -> list:
+    """K10c's edge cases: (case, x (n, h, w) int32, stages, kind_h, kind_v,
+    qp, bit depth) calls, each case of K10C_EDGE_CASES in several; few calls,
+    since the CPU test compiles the JAX package's stages for each."""
+    rng = np.random.RandomState(seed)
+    FWD, QUANT, DEQUANT, INV = quant_ops.FWD, quant_ops.QUANT, quant_ops.DEQUANT, quant_ops.INV
+    cmin, cmax = quant_ops.COEFF_MIN, quant_ops.COEFF_MAX
+    calls = []
+    # every shape at both bit depths through the forward transform and the
+    # quantiser, DCT-2 at one and the MTS kinds at the other (in turns over
+    # the shapes), so that every kind meets both
+    for (i, (w, h)), bd in itertools.product(enumerate(SEQ_TQ_SHAPES), (8, 10)):
+        M = (1 << bd) - 1
+        pairs = k10c_kinds(w, h, bd)
+        kh, kv = pairs[(i + bd // 2) % len(pairs)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        # the signs of a high-frequency basis, whose coefficient is largest
+        sv = np.sign(_core_or_one(kv, h)[min(h, 16) - 1])
+        sh = np.sign(_core_or_one(kh, w)[min(w, 16) - 1])
+        basis = np.where(np.outer(sv, sh) < 0, -M, M)
+        pats = [np.full((h, w), M), np.full((h, w), -M), M * (1 - 2 * ((yy + xx) % 2)),
+                M * (1 - 2 * (yy % 2)), M * (1 - 2 * (xx % 2)), basis, -basis,
+                M * rng.choice([-1, 1], (h, w))]
+        calls.append((f"full-scale residuals at {bd} bits", np.stack(pats), FWD | QUANT, kh, kv,
+                      4 + 6 * (bd - 8), bd))
+    # levels at the limits in the signs of each side's basis at the first
+    # sample, so that row 0 of both inverse stages adds up; the second clip
+    # needs w >= 32 at 10 bits (a shift of 20 - bd after the first clip)
+    for w, h, bd in ((4, 4, 10), (32, 32, 10), (64, 64, 10), (8, 16, 10), (1, 16, 10),
+                     (8, 8, 8), (16, 1, 8)):
+        for kh, kv in k10c_kinds(w, h, bd):
+            s_k = np.outer(np.sign(_core_or_one(kv, h)[:, 0]), np.sign(_core_or_one(kh, w)[:, 0]))
+            lev = [np.where(s_k < 0, cmin, cmax), np.where(s_k < 0, cmax, cmin),
+                   rng.choice([cmin, cmax], (h, w))]
+            calls.append(("levels at the 16-bit limits through both inverse clips",
+                          np.stack(lev), DEQUANT | INV, kh, kv, 37, bd))
+    # dequantiser shifts of 0 and K10C_MIN_DEQ_SHIFT where the QP allows
+    for w, h, bd in ((4, 4, 10), (64, 64, 10), (2, 2, 10), (1, 16, 10), (8, 4, 8), (16, 2, 8)):
+        base = 6 - _q_params(w, h, 0, bd)[4]           # t_shift - sqrt2
+        for rs, off in ((0, 0), (K10C_MIN_DEQ_SHIFT, 5)):
+            qp = 6 * (6 - base - rs) + off
+            if 0 <= qp <= 63 + 6 * (bd - 8):
+                lev = rng.randint(-400, 401, (2, h, w))
+                lev[0, 0, 0], lev[1, 0, 0] = cmax, cmin
+                calls.append(("dequantiser shift <= 0", lev, DEQUANT | INV, DCT2, DCT2, qp, bd))
+    # the least |c| of levels 1, 2 and 3 and the value below each, both signs
+    for (w, h), qp in itertools.product(((4, 4), (64, 64), (8, 4), (1, 16)), (22, 51)):
+        q_bits, add, qscale = _q_params(w, h, qp, 10)[:3]
+        cb = [-((add - (m << q_bits)) // qscale) for m in (1, 2, 3)]
+        vals = [v for c in cb for v in (c, c - 1, -c, 1 - c)]
+        coef = np.resize(np.array(vals), h * w).reshape(1, h, w)
+        calls.append(("coefficients on the dead-zone boundary", coef, QUANT, DCT2, DCT2, qp, 10))
+    # negative sums at a half: impulses of -1 .. -8 into the forward
+    # transform's first stage, DC-only coefficients -1, -3, -17, -33 into
+    # the inverse's (shift 7; -17 at the second too), levels of -2^(s-4)
+    # and three times that into a dequantiser shift s >= 4 (scale 40)
+    for w, h, bd in ((4, 4, 8), (16, 16, 10), (8, 4, 10), (1, 16, 8)):
+        imp = np.zeros((8, h, w), np.int64)
+        for r in range(8):
+            imp[r, 0, 0], imp[r, -1, -1] = -(r + 1), -(2 * r + 3)
+        calls.append(("a negative sum at a rounding half", imp, FWD, DCT2, DCT2, 22, bd))
+    for w, h, bd in ((4, 4, 10), (32, 32, 10), (8, 2, 8), (1, 16, 10)):
+        dc = np.zeros((4, h, w), np.int64)
+        dc[:, 0, 0] = (-1, -3, -17, -33)
+        calls.append(("a negative sum at a rounding half", dc, INV, DCT2, DCT2, 22, bd))
+    for w, h in ((8, 8), (64, 64)):
+        qp = 6 * max(0, _q_params(w, h, 0, 10)[4] - 4)
+        rs = _q_params(w, h, qp, 10)[4]
+        lev = np.zeros((2, h, w), np.int64)
+        lev[0, 0, :], lev[1, 0, :] = -(1 << (rs - 4)), -3 * (1 << (rs - 4))
+        calls.append(("a negative sum at a rounding half", lev, DEQUANT, DCT2, DCT2, qp, 10))
+    # the whole round trip over the zeroed-out coefficients
+    for case, w, h, kh, kv in (("zero-out beyond 32 at 64 (DCT-2)", 64, 64, DCT2, DCT2),
+                               ("zero-out beyond 32 at 64 (DCT-2)", 64, 32, DCT2, DST7),
+                               ("zero-out beyond 32 at 64 (DCT-2)", 16, 64, DCT8, DCT2),
+                               ("zero-out beyond 32 at 64 (DCT-2)", 1, 64, DCT2, DCT2),
+                               ("zero-out beyond 16 at 32 (DST-7 / DCT-8)", 32, 32, DST7, DCT8),
+                               ("zero-out beyond 16 at 32 (DST-7 / DCT-8)", 32, 8, DCT8, DST7),
+                               ("zero-out beyond 16 at 32 (DST-7 / DCT-8)", 32, 1, DST7, DCT2)):
+        calls.append((case, rng.randint(-1023, 1024, (2, h, w)), quant_ops.ROUND_TRIP, kh, kv,
+                      22, 10))
+    return [(case, np.ascontiguousarray(x, np.int32), *rest) for case, x, *rest in calls]
+
+
+def _neg_half(acc: np.ndarray, s: int) -> bool:
+    """Whether a negative sum lies exactly at a rounding half of a shift by s."""
+    return s > 0 and bool(((acc < 0) & (acc % (1 << s) == 1 << (s - 1))).any())
+
+
+def k10c_edge_seen(case: str, x: np.ndarray, stages: int, kh: int, kv: int, qp: int,
+                   bd: int, outs: np.ndarray) -> bool:
+    """Whether this call (its plain outputs ``outs``) shows its case; the
+    transform's sums restated in int64 from the cores."""
+    h, w = x.shape[-2:]
+    ins, v = {}, x.astype(np.int64)
+    for st, o in zip([st for st in (1, 2, 4, 8) if stages & st], outs):
+        ins[st], v = v, o.astype(np.int64)
+    one_d = w == 1 or h == 1
+    cmin, cmax = quant_ops.COEFF_MIN, quant_ops.COEFF_MAX
+    Th, Tv = _core_or_one(kh, w), _core_or_one(kv, h)
+    if case.startswith("full-scale"):
+        M = (1 << bd) - 1
+        return bool(stages & 1) and int(x.max()) == M and int(x.min()) == -M
+    if case.startswith("levels at the 16-bit limits"):
+        if 8 not in ins or one_d:
+            return False
+        e = Tv.T @ ins[8]
+        e = (e + 64) >> 7
+        r = np.clip(e, cmin, cmax) @ Th
+        r = (r + (1 << (19 - bd))) >> (20 - bd)
+        return bool(((e < cmin) | (e > cmax)).any() and ((r < cmin) | (r > cmax)).any()
+                    and (x == cmin).any() and (x == cmax).any())
+    if case.startswith("dequantiser shift"):
+        return bool(stages & 4) and _q_params(w, h, qp, bd)[4] <= 0
+    if case.startswith("coefficients on the dead-zone"):
+        q_bits, add, qscale = _q_params(w, h, qp, bd)[:3]
+        c = np.abs(ins.get(2, np.zeros(1, np.int64)))
+        lv = (c * qscale + add) >> q_bits
+        below = (np.maximum(c - 1, 0) * qscale + add) >> q_bits
+        return bool(((lv == 1) & (below == 0) & (c > 0)).any() and ((lv > 1) & (below < lv)).any())
+    if case.startswith("a negative sum"):
+        seen = False
+        if 1 in ins:
+            if one_d:
+                n, kind = (h, kv) if w == 1 else (w, kh)
+                vec = ins[1].reshape(len(x), n)
+                seen |= _neg_half(vec @ _core_or_one(kind, n)[:min(n, 32)].T,
+                                  n.bit_length() - 1 + bd - 9)
+            else:
+                seen |= _neg_half(ins[1] @ Th.T, w.bit_length() - 1 + bd - 9)
+        if 8 in ins:
+            if one_d:
+                n, kind = (h, kv) if w == 1 else (w, kh)
+                seen |= _neg_half(ins[8].reshape(len(x), n) @ _core_or_one(kind, n), 21 - bd)
+            else:
+                seen |= _neg_half(Tv.T @ ins[8], 7)
+        if 4 in ins:
+            iscale, rs = _q_params(w, h, qp, bd)[3:]
+            seen |= _neg_half(np.clip(ins[4], cmin, cmax) * iscale, rs)
+        return seen
+    if case.startswith("zero-out beyond 32"):
+        return bool(stages & 1) and ((w == 64 and kh == DCT2) or (h == 64 and kv == DCT2))
+    if case.startswith("zero-out beyond 16"):
+        return bool(stages & 1) and ((w == 32 and kh != DCT2) or (h == 32 and kv != DCT2))
+    raise ValueError(case)
+
+
+def _hadamard_pairs(th: int, tw: int) -> dict:
+    """K10d's non-square tile sums: (a, c) with 0 < a, a + c <= 1023 whose
+    th x tw tile of a * (a non-DC Hadamard basis) + c has the sum
+    a * n + (c * n >> 2) (n = th * tw), which float32 rounds onto an
+    integer ("on") or leaves within one ulp of one ("next") when scaled:
+    {"on": [(a, c), ...], "next": [...]}."""
+    n, sc = th * tw, np.float32(dist_ops._tile_scale(th, tw))
+    a = np.arange(1024)[:, None]
+    c = np.arange(1024)[None, :]
+    tv = a * n + ((c * n) >> 2)
+    p = tv.astype(np.float32) * sc
+    r = np.round(p)
+    ok = (a + c <= 1023) & (a > 0)
+    on = ok & (p == r)
+    nxt = ok & (p != r) & (np.abs(p - r) <= np.spacing(np.abs(p)))
+    pick = lambda m: [tuple(int(v) for v in ij) for ij in np.argwhere(m)[::97][:6]]  # noqa: E731
+    return {"on": pick(on), "next": pick(nxt)}
+
+
+def k10d_edge_inputs(seed: int = 21) -> list:
+    """K10d's edge cases: (org, cur) int32 pairs, for every block shape of
+    K10D_EDGE_SHAPES one with one original for all candidates and one with
+    an original per candidate; the candidates' differences are +-1023
+    everywhere, in random signs and in the signs of each tile's last
+    Hadamard basis, DC-only tiles, tiles whose non-square sums land on or
+    next to an integer in float32, and random."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for w, h in K10D_EDGE_SHAPES:
+        th, tw = dist_ops._tile_shape(w, h)
+        ty, tx = np.mgrid[0:h, 0:w]
+        tile = (ty // th) * (w // tw) + tx // tw
+        basis = (np.outer(dist_ops.hadamard(th)[-1], dist_ops.hadamard(tw)[-1])
+                 .astype(np.int64)[ty % th, tx % tw])
+        ntiles = int(tile.max()) + 1
+        diffs = [np.full((h, w), 1023), np.full((h, w), -1023),
+                 1023 * rng.choice([-1, 1], (h, w)), 1023 * basis,
+                 rng.randint(-1023, 1024, ntiles)[tile], rng.randint(-1023, 1024, (h, w))]
+        if th != tw:
+            for kind in ("on", "next"):
+                pairs = _hadamard_pairs(th, tw)[kind]
+                ac = np.array([pairs[t % len(pairs)] for t in range(ntiles)])
+                sg = rng.choice([-1, 1], (ntiles, 2))
+                diffs.append(ac[tile, 0] * sg[tile, 0] * basis + ac[tile, 1] * sg[tile, 1])
+        d = np.stack(diffs)
+        org1 = rng.randint(0, 1024, (h, w))
+        orgk = rng.randint(0, 1024, d.shape)
+        out.append((np.ascontiguousarray(org1, np.int32), np.ascontiguousarray(org1 - d, np.int32)))
+        if (w, h) in K10D_PER_CANDIDATE:
+            out.append((np.ascontiguousarray(orgk, np.int32),
+                        np.ascontiguousarray(orgk - d, np.int32)))
+    return out
+
+
+def k10d_edge_seen(org: np.ndarray, cur: np.ndarray) -> np.ndarray:
+    """How often each K10D_EDGE_CASES case occurs in one call (per
+    candidate); the tiles restated with numpy's Hadamard."""
+    h, w = cur.shape[-2:]
+    th, tw = dist_ops._tile_shape(w, h)
+    d = org.astype(np.int64) - cur.astype(np.int64)
+    d = np.broadcast_to(d, cur.shape).reshape(-1, h // th, th, w // tw, tw).transpose(0, 1, 3, 2, 4)
+    hh, hw_ = dist_ops.hadamard(th).astype(np.int64), dist_ops.hadamard(tw).astype(np.int64)
+    coef = np.abs(hh @ d @ hw_.T)
+    dc = coef[..., 0, 0]
+    tv = coef.sum((-2, -1)) - dc + (dc >> 2)
+    k = len(d)
+    seen = [(np.abs(d) == 1023).all((1, 2, 3, 4)), (((coef[..., 1:, :].sum((-2, -1))
+            + coef[..., 0, 1:].sum(-1)) == 0) & (dc > 0)).any((1, 2))]
+    if th != tw:
+        p = tv.astype(np.float32) * np.float32(dist_ops._tile_scale(th, tw))
+        r = np.round(p)
+        seen.append(((p == r) & (tv > 0)).any((1, 2)))
+        seen.append(((p != r) & (np.abs(p - r) <= np.spacing(np.abs(p)))).any((1, 2)))
+    else:
+        seen += [np.zeros(k, bool)] * 2
+    seen += [np.full(k, org.size == h * w), np.full(k, org.size != h * w)]
+    return np.array([int(c.sum()) for c in seen], np.int64)
+
+
+def k10c_edge_checks(errs: dict) -> dict:
+    """K10c against its plain version on ``k10c_edge_inputs``; {case: calls
+    that show it}."""
+    seen = collections.Counter()
+    for case, x, stages, kh, kv, qp, bd in k10c_edge_inputs():
+        xt = torch.from_numpy(x).to(DEVICE)
+        kw = dict(kind_h=kh, kind_v=kv, qp=qp, bit_depth=bd)
+        want = quant_ops.seq_tq_reference(xt, stages, **kw)
+        _cmp("seq_tq", quant_ops.seq_tq(xt, stages, **kw), want, errs)
+        seen[case] += k10c_edge_seen(case, x, stages, kh, kv, qp, bd, want.cpu().numpy())
+    return {case: seen[case] for case in K10C_EDGE_CASES}
+
+
+def k10d_edge_checks(errs: dict) -> dict:
+    """K10d against its plain version on ``k10d_edge_inputs``; {case:
+    candidates that show it}."""
+    seen = np.zeros(len(K10D_EDGE_CASES), np.int64)
+    for org, cur in k10d_edge_inputs():
+        o, c = (torch.from_numpy(a).to(DEVICE) for a in (org, cur))
+        _cmp("seq_satd", dist_ops.satd(o, c), dist_ops.satd_reference(o, c), errs)
+        seen += k10d_edge_seen(org, cur)
+    return dict(zip(K10D_EDGE_CASES, seen.tolist()))
+
+
 def seq_refs(n: int, w: int, h: int, bd: int, luma: bool, rng) -> tuple:
     """(top_u, left_u, top_f, left_f) int32 rows of n blocks on the card:
     random samples, the corner shared, the filtered rows from
@@ -3972,14 +4302,17 @@ def seq_tq_input(stages: int, w: int, h: int, n: int, rng) -> torch.Tensor:
     return torch.from_numpy(rng.randint(-lim, lim + 1, (n, h, w)).astype(np.int32)).to(DEVICE)
 
 
-def seq_bounds(name: str, w: int, h: int, k: int) -> tuple[float, str, int, int]:
+def seq_bounds(name: str, w: int, h: int, k: int, stages: int = quant_ops.ROUND_TRIP,
+               kinds: tuple = (DCT2, DCT2)) -> tuple[float, str, int, int]:
     """(bound ms, bound_by, bytes, ops) of one timed K10 call on a w x h
     block: K10a predicts k modes from four reference rows; K10b all k
-    candidates; K10c the fused round trip (a DCT-2 pair each way, the
-    quantiser and dequantiser), its four outputs written; K10d k SATDs of
-    the block's 8x8 tiles (six butterfly stages, abs and sum a sample);
-    K10e k sums of |difference| or its square. Inputs read once, outputs
-    written once."""
+    candidates; K10c the stages of ``stages`` on k TUs of ``kinds``
+    (horizontal, vertical), every stage's output written: a multiply-add
+    for each kept coefficient's forward sum, for each residual's inverse
+    sum over the whole side, OPS_SEQ_QUANT operations a quantised or
+    dequantised coefficient; K10d k SATDs of the block's tiles (log2 of the
+    tile's samples butterfly stages, abs and sum a sample); K10e k sums of
+    |difference| or its square. Inputs read once, outputs written once."""
     hw = w * h
     if name == "seq_intra":
         nbytes, ops = 4 * (2 * (2 * w + 3) + 2 * (2 * h + 3)) + 4 * k * hw, k * hw * OPS_PRED
@@ -3988,10 +4321,21 @@ def seq_bounds(name: str, w: int, h: int, k: int) -> tuple[float, str, int, int]
         nbytes = 4 * (2 * w + 3 + 2 * h + 3) + 4 * k * hw
         ops = k * (hw * OPS_UPSAMPLE + rp * rp * OPS_REDUCED)
     elif name == "seq_tq":
-        nbytes = 4 * hw + 4 * 4 * hw
-        ops = 2 * hw * (w + h) + 2 * OPS_SEQ_QUANT * hw
+        keep = lambda kind, n: min(n, 32 if kind == DCT2 else 16)  # noqa: E731
+        if w == 1 or h == 1:
+            n = hw
+            fwd, inv = keep(kinds[1] if w == 1 else kinds[0], n) * n, n * n
+        else:
+            kw, kh = keep(kinds[0], w), keep(kinds[1], h)
+            fwd, inv = h * kw * w + kh * kw * h, hw * (h + w)
+        nbytes = 4 * k * hw * (1 + bin(stages).count("1"))
+        ops = k * (fwd * bool(stages & quant_ops.FWD) + inv * bool(stages & quant_ops.INV)
+                   + OPS_SEQ_QUANT * hw * (bool(stages & quant_ops.QUANT)
+                                           + bool(stages & quant_ops.DEQUANT)))
     elif name == "seq_satd":
-        nbytes, ops = 4 * hw + 4 * k * hw + 4 * k, k * hw * OPS_SATD
+        th, tw = dist_ops._tile_shape(w, h)
+        nbytes = 4 * hw + 4 * k * hw + 4 * k
+        ops = k * hw * ((th * tw).bit_length() - 1 + 2)
     else:
         nbytes, ops = 4 * hw + 4 * k * hw + 4 * k, k * hw * OPS_DIST
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate(name)
@@ -4034,8 +4378,9 @@ def phase_seq_kernels() -> tuple[dict, dict]:
     67 modes at every luma size 4..64 and chroma size 2..32 (sides of 2
     included) at 8 and 10 bits; K10b at every size class; K10c on every MTS
     pair, DCT-2 at 64 and the ISP shapes at QP 0/22/37/51 (the fused round
-    trip) and with every stage mask; K10d on every tile shape; K10e on
-    ``k10e_inputs``. Then each
+    trip) and with every stage mask, and on ``K10C_EDGE_CASES``; K10d on
+    every tile shape and on ``K10D_EDGE_CASES``; both wrappers refusing
+    inputs off the 16-byte grain; K10e on ``k10e_inputs``. Then each
     kernel's device time per call at 16x16 (a CUDA graph of 50 calls), its
     plain version's and the wrapper's round trip from numpy to numpy."""
     rng = np.random.RandomState(10)
@@ -4079,6 +4424,23 @@ def phase_seq_kernels() -> tuple[dict, dict]:
         n_checked["seq_satd"] += 1
     check(tiles == {(8, 16), (16, 8), (4, 8), (8, 4), (8, 8), (4, 4), (2, 2)},
           f"K10d tile shapes checked: {sorted(tiles)}")
+    for kernel, cases, seen in (("K10c", K10C_EDGE_CASES, k10c_edge_checks(errs)),
+                                ("K10d", K10D_EDGE_CASES, k10d_edge_checks(errs))):
+        missing = [c for c in cases if not seen[c]]
+        check(not missing, f"{kernel}'s edge cases not reached: {missing}")
+        log(f"[seq-kernels] {kernel} equal to its plain version on its edge cases "
+            f"(calls or candidates that show each: {seen})")
+    # both wrappers read vectors of 4: inputs off the 16-byte grain are
+    # refused before any launch
+    odd = torch.zeros(257, dtype=torch.int32, device=DEVICE)[1:].view(16, 16)
+    for fn, args in ((quant_ops.seq_tq, (odd, quant_ops.FWD)), (dist_ops.satd, (odd, odd[None]))):
+        try:
+            fn(*args)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        check("16-byte aligned" in refused,
+              f"{fn.__name__} did not refuse an input off the 16-byte grain ({refused!r})")
     pairs = k10e_inputs(rng)
     for org, cur in pairs:
         for name, (kernel, _, _) in K10E_KERNELS.items():
@@ -4143,6 +4505,48 @@ def phase_seq_kernels() -> tuple[dict, dict]:
     return errs, times
 
 
+# the stage mask of each name under which codec/encoder.py calls K10c (None:
+# ``seq_tq`` itself, whose second argument is the mask)
+SEQ_TQ_NAMES = {"seq_tq": None, "forward_transform": quant_ops.FWD,
+                "quantize": quant_ops.QUANT, "dequantize": quant_ops.DEQUANT,
+                "inverse_transform": quant_ops.INV}
+
+
+@contextlib.contextmanager
+def seq_call_mix():
+    """The sequential encoder's K10c calls counted by (stage mask, w, h,
+    kind_h, kind_v) and its K10d calls by (w, h, candidates), through the
+    names that ``codec/encoder.py`` imported from the wrappers' modules (the
+    wrappers and their launch counts unchanged); yields the two Counters.
+    The quantiser and dequantiser alone take no kind: DCT-2 stands for it."""
+    tq_mix, satd_mix = collections.Counter(), collections.Counter()
+
+    def tq_counted(fn, mask):
+        sig = inspect.signature(fn)
+
+        def call(x, *args, **kw):
+            a = sig.bind(x, *args, **kw).arguments
+            tq_mix[(a["stages"] if mask is None else mask, x.shape[-1], x.shape[-2],
+                    a.get("kind_h", DCT2), a.get("kind_v", DCT2))] += 1
+            return fn(x, *args, **kw)
+        return call
+
+    def satd_counted(org, cur, **kw):
+        h, w = cur.shape[-2:]
+        satd_mix[(w, h, cur.numel() // (h * w))] += 1
+        return saved["satd"](org, cur, **kw)
+
+    saved = {name: getattr(seq_enc, name) for name in [*SEQ_TQ_NAMES, "satd"]}
+    for name, mask in SEQ_TQ_NAMES.items():
+        setattr(seq_enc, name, tq_counted(saved[name], mask))
+    seq_enc.satd = satd_counted
+    try:
+        yield tq_mix, satd_mix
+    finally:
+        for name, fn in saved.items():
+            setattr(seq_enc, name, fn)
+
+
 def seq_encode(enc, frames, maps_l, maps_c) -> list:
     """``enc.encode_frame`` on each frame with its maps."""
     return [enc.encode_frame(y, u, v, maps=maps_l[f], chroma_maps=maps_c[f], poc=f)
@@ -4177,9 +4581,10 @@ def phase_seq_encode(preds: dict) -> dict:
     counts = collections.Counter()
     t0 = time.perf_counter()
     outs = []
-    for f, (y, u, v) in enumerate(frames):
-        outs.append(enc.encode_frame(y, u, v, maps=maps_l[f], chroma_maps=maps_c[f], poc=f))
-        counts.update(seq_counts(enc))
+    with seq_call_mix() as (tq_mix, satd_mix):
+        for f, (y, u, v) in enumerate(frames):
+            outs.append(enc.encode_frame(y, u, v, maps=maps_l[f], chroma_maps=maps_c[f], poc=f))
+            counts.update(seq_counts(enc))
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, (fn, _, _) in SEQ_KERNELS.items()}
     for name, n in launches.items():
@@ -4200,8 +4605,60 @@ def phase_seq_encode(preds: dict) -> dict:
         check(psnr > 30, f"frame {f}: luma PSNR {psnr:.2f} dB")
         log(f"[seq-encode] frame {f}: {len(bs)} bytes, luma PSNR {psnr:.3f} dB, hash SEI "
             f"equal to the recon's MD5")
+    check(sum(tq_mix.values()) == launches["seq_tq"] and
+          sum(satd_mix.values()) == launches["seq_satd"],
+          f"the call mix ({sum(tq_mix.values())}, {sum(satd_mix.values())}) is not the launches")
+    seq_mix_times(tq_mix, satd_mix, "[seq-encode]", {"new": None})
     phase_seq_profile(enc, frames[0], maps_l[0], maps_c[0])
     return launches
+
+
+def seq_mix_inputs(key: tuple, name: str, rng):
+    """(call, bound ms) of one entry of the sequential path's call mix:
+    K10c's (stage mask, w, h, kind_h, kind_v) on one TU at QP 37, K10d's
+    (w, h, candidates) against one original."""
+    if name == "seq_tq":
+        stages, w, h, kh, kv = key
+        x = seq_tq_input(stages, w, h, 1, rng)[0]
+        kw = dict(kind_h=kh, kind_v=kv, qp=37, bit_depth=BD)
+        return ((lambda: quant_ops.seq_tq(x, stages, **kw)),
+                seq_bounds(name, w, h, 1, stages, (kh, kv))[0])
+    w, h, k = key
+    org = torch.from_numpy(rng.randint(0, 1024, (h, w)).astype(np.int32)).to(DEVICE)
+    cur = torch.from_numpy(rng.randint(0, 1024, (k, h, w)).astype(np.int32)).to(DEVICE)
+    return (lambda: dist_ops.satd(org, cur)), seq_bounds(name, w, h, k)[0]
+
+
+def seq_mix_times(tq_mix, satd_mix, tag: str, libs: dict, kernels=("k10c", "k10d")) -> dict:
+    """Every entry of the sequential path's K10c and K10d call mixes timed
+    (CUDA graph of 50) with each of ``libs`` ({label: library, None for the
+    port's own build} of the ``kernels`` they replace) in turns; the top
+    entries logged with their bounds, and each label's lost time, launches
+    x (time - bound) summed over the mix. {kernel: {label: lost ms}}."""
+    rng = np.random.RandomState(30)
+    out = {}
+    for kernel, mix in (("k10c", tq_mix), ("k10d", satd_mix)):
+        if kernel not in kernels:
+            continue
+        name = TIMED_KERNELS[kernel][0]
+        lost = collections.Counter()
+        rows = []
+        for key, n in mix.most_common():
+            call, bound = seq_mix_inputs(key, name, rng)
+            ts = {}
+            for label, lib in libs.items():
+                with launching(kernel, lib):
+                    ts[label] = graph_ms(call)
+                lost[label] += n * (ts[label] - bound)
+            rows.append((key, n, bound, ts))
+        for key, n, bound, ts in rows[:12]:
+            log(f"{tag} {name} {key}: {n} launches, bound {bound * 1e3:.4f} us, per call "
+                + "; ".join(f"{label} {t * 1e3:.3f} us" for label, t in ts.items()))
+        log(f"{tag} {name}: {sum(mix.values())} launches in {len(mix)} shapes; lost time "
+            f"(launches x (time - bound)) " + "; ".join(f"{label} {ms:.4f} ms"
+                                                       for label, ms in lost.items()))
+        out[kernel] = dict(lost)
+    return out
 
 
 def phase_seq_profile(enc, frame, maps_l, maps_c) -> None:
@@ -4966,7 +5423,8 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A redesigned kernel (K1-K7, K9a) beside the parent commit's and its other shapes
+# A redesigned kernel (K1-K7, K9a, K10c, K10d) beside the parent commit's and
+# its other shapes
 # ---------------------------------------------------------------------------
 
 def variant_library(kernel: str, src: pathlib.Path, out: pathlib.Path,
@@ -5323,6 +5781,75 @@ def k9a_tie_cases() -> list:
             for P in K9A_TIES]
 
 
+def k10c_call(stages: int, w: int, h: int, n: int = 1, qp: int = 37):
+    """(K10c on n random DCT-2 TUs of w x h through ``stages``, its plain
+    version's outputs)."""
+    x = seq_tq_input(stages, w, h, n, np.random.RandomState(w * 131 + h * 7 + stages))
+    kw = dict(kind_h=DCT2, kind_v=DCT2, qp=qp, bit_depth=BD)
+    return (lambda: quant_ops.seq_tq(x, stages, **kw)), list(quant_ops.seq_tq_reference(x, stages,
+                                                                                          **kw))
+
+
+def k10c_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K10c: the 16x16 fused round trip at
+    QP 37, the sequential path's most launched shapes (the forward and the
+    inverse transform alone at 32x16, 32x32 and 16x16: with dependent
+    quantisation on, its TUs take the host trellis between the two), a
+    64x64 round trip, an ISP 1x16 round trip and 16 TUs of 8x8 in one
+    call; ``width`` and ``height`` unused."""
+    FWD, INV, RT = quant_ops.FWD, quant_ops.INV, quant_ops.ROUND_TRIP
+    cases = [("16x16 round trip, QP 37", RT, 16, 16, 1)]
+    cases += [(f"{'forward' if st == FWD else 'inverse'} transform alone, {w}x{h}", st, w, h, 1)
+              for w, h in ((32, 16), (32, 32), (16, 16)) for st in (FWD, INV)]
+    cases += [("64x64 round trip", RT, 64, 64, 1), ("1x16 (ISP) round trip", RT, 1, 16, 1),
+              ("16 TUs of 8x8, round trip", RT, 8, 8, 16)]
+    return [(label, functools.partial(k10c_call, st, w, h, n)) for label, st, w, h, n in cases]
+
+
+def k10d_call(w: int, h: int, k: int, per_candidate: bool = False):
+    """(K10d on k random candidates of w x h against one original or one
+    each, its plain version's outputs)."""
+    rng = np.random.RandomState(w * 131 + h + k)
+    org = torch.from_numpy(rng.randint(0, 1024, (k if per_candidate else 1, h, w))
+                           .astype(np.int32)).to(DEVICE)
+    cur = torch.from_numpy(rng.randint(0, 1024, (k, h, w)).astype(np.int32)).to(DEVICE)
+    return (lambda: [dist_ops.satd(org, cur)]), [dist_ops.satd_reference(org, cur)]
+
+
+def k10d_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K10d: 67 candidates at 16x16 (RMD's
+    count), at 32x16 (8x16 tiles; the sequential path's most launched
+    shape), 32x32 and 64x64, 12 at 32x16 (MIP's), a 4x4 block, a 2x8
+    chroma block (2x2 tiles) and 8 chroma candidates at 16x16 each against
+    its own original; ``width`` and ``height`` unused."""
+    cases = [(16, 16, 67, False), (32, 16, 67, False), (32, 32, 67, False), (64, 64, 67, False),
+             (32, 16, 12, False), (4, 4, 67, False), (2, 8, 8, False), (16, 16, 8, True)]
+    return [(f"{k} candidates of {w}x{h}" + (", an original each" if per else ""),
+             functools.partial(k10d_call, w, h, k, per)) for w, h, k, per in cases]
+
+
+def k10c_edge_variant_checks() -> list:
+    """K10c's edge cases (``k10c_edge_inputs``) as one ``VARIANT_CHECKS``
+    entry."""
+    def make():
+        calls = [(torch.from_numpy(x).to(DEVICE), st, dict(kind_h=kh, kind_v=kv, qp=qp,
+                                                            bit_depth=bd))
+                 for _, x, st, kh, kv, qp, bd in k10c_edge_inputs()]
+        return ((lambda: [quant_ops.seq_tq(x, st, **kw) for x, st, kw in calls]),
+                [quant_ops.seq_tq_reference(x, st, **kw) for x, st, kw in calls])
+    return [("K10C_EDGE_CASES", make)]
+
+
+def k10d_edge_variant_checks() -> list:
+    """K10d's edge cases (``k10d_edge_inputs``) as one ``VARIANT_CHECKS``
+    entry."""
+    def make():
+        pairs = [tuple(torch.from_numpy(a).to(DEVICE) for a in p) for p in k10d_edge_inputs()]
+        return ((lambda: [dist_ops.satd(o, c) for o, c in pairs]),
+                [dist_ops.satd_reference(o, c) for o, c in pairs])
+    return [("K10D_EDGE_CASES", make)]
+
+
 LAUNCH_FLOOR_SRC = _build.CSRC / "probes" / "launch_floor.cu"
 LAUNCH_FLOOR_ARGS = (_build.INT, _build.INT, _build.PTR)   # blocks, threads, stream
 
@@ -5375,7 +5902,10 @@ def launch_floor_times(tag: str) -> dict:
 # 8 at the 32-pad, the trial's three on a cluster, 1 x 4 outputs a stage
 # thread, one warp a round trip at the 4- and 8-pad classes, two blocks an
 # SM there; for K9a a warp per rect and 4 rects a block at the 8-pad class,
-# a block of 4, 8 and 16 warps per rect at the 16-, 32- and 64-pad classes):
+# a block of 4, 8 and 16 warps per rect at the 16-, 32- and 64-pad classes;
+# for K10c a warp per TU up to 128 samples, a block of a thread per 2
+# samples above, 2 outputs a thread; for K10d up to 32 / rows candidates
+# a warp, 2 warps a block, up to 4 warps a candidate of more rows):
 # {label: nvcc defines}
 K2_VARIANTS = {"one block per CU": ("-DK2_CLUSTER=1",),
                "4 blocks per CU": ("-DK2_CLUSTER=4",),
@@ -5414,8 +5944,21 @@ K9A_VARIANTS = {"16-pad rects on warps too": ("-DK9A_TEAM_PAD=16",),
                 "8 rects (warps) a block": ("-DK9A_WARPS=8",),
                 "blocks of 2, 4, 8 warps (16-, 32-, 64-pad)": ("-DK9A_WARPS_LARGE=8",),
                 "blocks of 8, 16, 32 warps (16-, 32-, 64-pad)": ("-DK9A_WARPS_LARGE=32",)}
+K10C_VARIANTS = {"4 outputs a thread, a warp up to 256 samples, 8 samples a thread above":
+                 ("-DK10C_CW=4", "-DK10C_WARP_MAX=256", "-DK10C_EPT=8"),
+                 "4 outputs a thread, 4 samples a thread above a warp": ("-DK10C_CW=4",
+                                                                         "-DK10C_EPT=4"),
+                 "a warp up to 256 samples (16x16 on a warp)": ("-DK10C_WARP_MAX=256",),
+                 "a warp up to 32 samples (8x8 and 16x8 on blocks)": ("-DK10C_WARP_MAX=32",),
+                 "4 samples a thread above a warp": ("-DK10C_EPT=4",)}
+K10D_VARIANTS = {"one candidate a warp": ("-DK10D_CPW_MAX=1",),
+                 "4 warps a block": ("-DK10D_WARPS=4",),
+                 "8 warps a block": ("-DK10D_WARPS=8",),
+                 "2 warps a candidate above a warp": ("-DK10D_WARPS_LARGE=2",),
+                 "8 warps a candidate above a warp": ("-DK10D_WARPS_LARGE=8",)}
 # ``--k1-times`` / ``--k2-times`` / ``--k3-times`` / ``--k4-times`` /
-# ``--k5-times`` / ``--k6a-times`` / ``--k7-times`` / ``--k9a-times``:
+# ``--k5-times`` / ``--k6a-times`` / ``--k7-times`` / ``--k9a-times`` /
+# ``--k10c-times`` / ``--k10d-times``:
 # (library, wrapper module,
 # variants, the function that gives the timed cases: (label, the function
 # that makes the call, its plain outputs and, for a kernel that writes in
@@ -5428,11 +5971,14 @@ TIMED_KERNELS = {"k1": ("ref_gather", ig, K1_VARIANTS, k1_cases),
                  "k5": ("tq_mts", ttq, K5_VARIANTS, k5_cases),
                  "k6a": ("cclm", cclm_g, K6A_VARIANTS, k6a_cases),
                  "k7": ("wave_scatter", wf, K7_VARIANTS, class_cases(k7_call, TIMED_CLASSES)),
-                 "k9a": ("rdo_leaf", rg, K9A_VARIANTS, k9a_cases)}
+                 "k9a": ("rdo_leaf", rg, K9A_VARIANTS, k9a_cases),
+                 "k10c": ("seq_tq", quant_ops, K10C_VARIANTS, k10c_cases),
+                 "k10d": ("seq_satd", dist_ops, K10D_VARIANTS, k10d_cases)}
 # untimed inputs on which every build of ``phase_variant_times`` must equal
 # the plain version too: (label, the function that makes the call and its
 # plain outputs)
-VARIANT_CHECKS = {"k9a": k9a_tie_cases}
+VARIANT_CHECKS = {"k9a": k9a_tie_cases, "k10c": k10c_edge_variant_checks,
+                  "k10d": k10d_edge_variant_checks}
 
 
 def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
@@ -5511,10 +6057,49 @@ def phase_k9a_l0(parent: pathlib.Path) -> None:
     log("[k9a-times] L0 path: the four streams byte-identical")
 
 
+def phase_k10_seq(kernel: str, parent: pathlib.Path) -> None:
+    """Phase 20's sequential encode: both 416x240 frames cold, counting the
+    path's call mix, then the first frame warm with the parent commit's
+    K10c or K10d (``parent``'s source) and this one in turns (parent, new,
+    new, parent): each run's ``code`` time and wall; the four streams
+    byte-identical, each hash SEI its recon's MD5; the mix's every entry
+    timed for both kernels, and each one's lost time (``seq_mix_times``)."""
+    name = TIMED_KERNELS[kernel][0]
+    lib = variant_library(kernel, parent / "pmp_vvc_tpu_torch" / "csrc" / f"{name}.cu",
+                          parent / "build" / "kernels" / f"lib{name}-parent.so")
+    preds = {(comp, ENC_QP): CompPredictor.from_trained(
+                 comp == "Luma", CKPT / f"{comp}_Q_QP{ENC_QP}.msgpack",
+                 CKPT / f"{comp}_BD_QP{ENC_QP}.msgpack", device=DEVICE)
+             for comp in ("Luma", "Chroma")}
+    frames = natural_sequence(SEQ_W, SEQ_H, SEQ_FRAMES, seed0=7, bit_depth=BD)
+    maps_l, maps_c = frame_maps(preds, frames, SEQ_W, SEQ_H)
+    enc = FrameEncoder(enc_cfg(SEQ_W, SEQ_H, SEQ), mode_select="satd", device=DEVICE)
+    with seq_call_mix() as mixes:                               # cold, both frames
+        seq_encode(enc, frames, maps_l, maps_c)
+    streams = []
+    for label in ("parent", "new", "new", "parent"):
+        with launching(kernel, lib if label == "parent" else None):
+            enc.timings = {}
+            t0 = time.perf_counter()
+            bs, recon = seq_encode(enc, frames[:1], maps_l, maps_c)[0]
+            wall = time.perf_counter() - t0
+        want = [hashlib.md5(p.astype("<u2").tobytes()).digest() for p in recon]
+        check(sei_md5s(bs) == [want], f"K10 {label}: hash SEI differs from the recon's MD5")
+        streams.append(bs)
+        log(f"[{kernel}-times] sequential path ({SEQ_W}x{SEQ_H}, 1 frame) with {name} {label}: "
+            f"code {enc.timings['code']:.6f} s, wall {wall:.6f} s")
+    check(len(set(streams)) == 1, f"the sequential stream differs between the parent's {name} "
+                                  f"and this one")
+    log(f"[{kernel}-times] sequential path: the four streams byte-identical "
+        f"({len(streams[0])} bytes), every hash SEI its recon's MD5")
+    seq_mix_times(*mixes, f"[{kernel}-times]", {"parent": lib, "new": None}, (kernel,))
+
+
 def times_only(kernel: str, parent: pathlib.Path) -> int:
     """``--k1-times PARENT`` / ``--k2-times PARENT`` / ``--k3-times PARENT``
     / ``--k4-times PARENT`` / ``--k5-times PARENT`` / ``--k6a-times PARENT``
-    / ``--k7-times PARENT`` / ``--k9a-times PARENT``: the build, the encode
+    / ``--k7-times PARENT`` / ``--k9a-times PARENT`` / ``--k10c-times
+    PARENT`` / ``--k10d-times PARENT``: the build, the encode
     kernels' checks and times (the K2, K3, K4, K5 and K6a tie cases and K1's
     and K7's edge cases among them, and the launch floor; K5's time shows
     what K4's shared ``csrc/tq_team.cuh`` left of it), for K1, K4, K6a and
@@ -5522,9 +6107,10 @@ def times_only(kernel: str, parent: pathlib.Path) -> int:
     with its tie cases and at every pad class's chunk; K9 shares
     ``csrc/satd.cuh``), K10a-e's checks and times (K10b shares K3's
     ``csrc/mip.cuh``, K10c ``csrc/tq.cuh``, K10d ``csrc/satd.cuh``),
-    ``phase_variant_times`` against the parent checkout, and for K9a the L0
-    path with the parent's K9a and this one (``phase_k9a_l0``); prints no
-    result line."""
+    ``phase_variant_times`` against the parent checkout, for K9a the L0
+    path with the parent's K9a and this one (``phase_k9a_l0``), for K10c
+    and K10d the sequential path with the parent's kernel and this one
+    (``phase_k10_seq``); prints no result line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
     phase_encode_kernels()
@@ -5534,6 +6120,8 @@ def times_only(kernel: str, parent: pathlib.Path) -> int:
     phase_variant_times(kernel, parent)
     if kernel == "k9a":
         phase_k9a_l0(parent)
+    if kernel in ("k10c", "k10d"):
+        phase_k10_seq(kernel, parent)
     log(card_line())
     log(f"[{kernel}-times] partial run: no result line")
     return 0
@@ -5600,7 +6188,8 @@ def main() -> int:
     if sys.argv[1:] == ["--md-only"]:
         return md_only()
     if sys.argv[1:2] in (["--k1-times"], ["--k2-times"], ["--k3-times"], ["--k4-times"],
-                         ["--k5-times"], ["--k6a-times"], ["--k7-times"], ["--k9a-times"]):
+                         ["--k5-times"], ["--k6a-times"], ["--k7-times"], ["--k9a-times"],
+                         ["--k10c-times"], ["--k10d-times"]):
         return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()

@@ -2,13 +2,12 @@
 // (csrc/tq_mts.cu) and K10c (csrc/seq_tq.cu), so that every round trip and
 // its costs round alike: the quantiser tables and the CU tile's scalar
 // quantiser (``Tile``), the round shift and dequantisation of one level,
-// the cores by stride, and the block-wide forward transform and quantiser
-// that K10c runs. K4 and K5 run their stages in csrc/tq_team.cuh.
+// and the zero-out rule. K4 and K5 run their stages in csrc/tq_team.cuh,
+// K10c in csrc/seq_tq.cu.
 //
-// Ports of pmp_vvc_tpu/ops/tq_generic.py forward_transform_generic (96),
-// quantize_generic (135) and dequantize_generic (149), for one tile of
-// int32 in shared memory; the block-wide functions are called by all
-// threads of the block and end with a __syncthreads.
+// Ports of the scalars of pmp_vvc_tpu/ops/tq_generic.py
+// forward_transform_generic (96), quantize_generic (135) and
+// dequantize_generic (149).
 //
 // Cores: DCT-2 entries come from the 64-point core by stride (kind 0,
 // zero-out beyond 32); DST-7 (kind 2) and DCT-8 (kind 1) from a (2, 4, 32, 32)
@@ -44,13 +43,6 @@ static __device__ __forceinline__ int dequant(int lvl, int iscale, int rs) {
     return rs > 0 ? (v + (1 << (rs - 1))) >> rs : v * (1 << -rs);
 }
 
-// Entry (i, j) of the n = 2^ln point core of ``kind``.
-static __device__ __forceinline__ int tcore(const int32_t* d64, const int32_t* mts,
-                                            int kind, int ln, int i, int j) {
-    return kind == 0 ? d64[(i << (6 - ln)) * 64 + j]
-                     : mts[(((kind - 1) * 4 + ln - 2) * 32 + i) * 32 + j];
-}
-
 // Coefficients kept along a side of n samples (the zero-out rule).
 static __device__ __forceinline__ int keep(int kind, int n) {
     return min(n, kind == 0 ? 32 : 16);
@@ -75,41 +67,4 @@ static __device__ Tile make_tile(int P, int w, int h, int qp, int bd) {
     t.rs = 6 - ((t_shift - sqrt2) + qp / 6);
     t.divisor = ldexpf(1.0f, 2 * t_shift - sqrt2);
     return t;
-}
-
-// Forward transform of the (h, w) residual ``src``: ``dst`` over the kept
-// (kh, kw) region, ``tmp`` holding the horizontal stage.
-static __device__ void fwd_transform(const Tile& t, const int32_t* src, int32_t* tmp,
-                                     int32_t* dst, int kind_w, int kind_h,
-                                     const int32_t* d64, const int32_t* mts) {
-    const int P = t.P, w = t.w, h = t.h, kw = keep(kind_w, w), kh = keep(kind_h, h);
-    const int s1 = t.lw + t.bd + 6 - 15, s2 = t.lh + 6;
-    // horizontal: tmp[y][i] = rs(sum_j src[y][j] * T_w[i][j], s1)
-    for (int e = threadIdx.x; e < h * kw; e += blockDim.x) {
-        const int y = e / kw, i = e % kw;
-        int acc = 0;
-        for (int j = 0; j < w; ++j) acc += src[y * P + j] * tcore(d64, mts, kind_w, t.lw, i, j);
-        tmp[y * P + i] = rshift(acc, s1);
-    }
-    __syncthreads();
-    // vertical: dst[k][i] = rs(sum_y T_h[k][y] * tmp[y][i], s2)
-    for (int e = threadIdx.x; e < kh * kw; e += blockDim.x) {
-        const int k = e / kw, i = e % kw;
-        int acc = 0;
-        for (int y = 0; y < h; ++y) acc += tcore(d64, mts, kind_h, t.lh, k, y) * tmp[y * P + i];
-        dst[k * P + i] = rshift(acc, s2);
-    }
-    __syncthreads();
-}
-
-// Dead-zone (171) quantisation of the (kh, kw) region of ``coef``.
-static __device__ void quantize(const Tile& t, const int32_t* coef, int32_t* lev,
-                                int kh, int kw) {
-    for (int e = threadIdx.x; e < kh * kw; e += blockDim.x) {
-        const int o = (e / kw) * t.P + e % kw;
-        const int c = coef[o];
-        const int mag = (int)((uint32_t)abs(c) * (uint32_t)t.qscale + (uint32_t)t.add) >> t.q_bits;
-        lev[o] = clampi(c < 0 ? -mag : mag, COEFF_MIN, COEFF_MAX);
-    }
-    __syncthreads();
 }

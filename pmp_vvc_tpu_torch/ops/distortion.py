@@ -127,7 +127,8 @@ def _lib(name: str):
 def satd(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10) -> torch.Tensor:
     """K10d: see ``satd_reference``; CPU tensors take it, CUDA tensors launch
     ``csrc/seq_satd.cu``. ``cur`` is (..., H, W); ``org`` is one (H, W)
-    block (any leading ones) or one per candidate, of ``cur``'s shape."""
+    block (any leading ones) or one per candidate, of ``cur``'s shape; both
+    start on a 16-byte boundary."""
     if cur.device.type == "cpu":
         return satd_reference(org, cur, bit_depth=bit_depth)
     _build.check_cuda("satd", org, cur)
@@ -139,6 +140,8 @@ def satd(org: torch.Tensor, cur: torch.Tensor, *, bit_depth: int = 10) -> torch.
     if org.shape[-2:] != (h, w) or org.numel() not in (h * w, k * h * w):
         raise ValueError(f"satd: original {tuple(org.shape)} against {tuple(cur.shape)}")
     th, tw = _tile_shape(w, h)
+    if org.data_ptr() % 16 or cur.data_ptr() % 16:
+        raise ValueError("satd reads tile rows as int4: both blocks must be 16-byte aligned")
     out = torch.empty(k, dtype=torch.int32, device=cur.device)
     err = _lib("seq_satd").pmp_seq_satd(
         org.data_ptr(), cur.data_ptr(), k, 0 if org.numel() == h * w else h * w, w, h,

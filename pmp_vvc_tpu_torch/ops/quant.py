@@ -140,7 +140,8 @@ def _lib(name: str):
 @functools.cache
 def _device_cores(device: torch.device):
     """The 64-point DCT-2 core and the (2, 4, 32, 32) DCT-8 / DST-7 cores of
-    sizes 4..32 on ``device``, uploaded once (``csrc/tq.cuh:tcore``)."""
+    sizes 4..32 on ``device``, uploaded once (``csrc/seq_tq.cu:core_row``
+    reads them)."""
     from .tq_generic import _mts_table
     d64 = _core(DCT2, 64, device).int().contiguous()
     mts = torch.from_numpy(np.stack([_mts_table(1), _mts_table(2)])).to(device)
@@ -169,7 +170,8 @@ def seq_tq_reference(x, stages, *, kind_h=DCT2, kind_v=DCT2, qp=0, bit_depth=10)
 
 def seq_tq(x, stages, *, kind_h=DCT2, kind_v=DCT2, qp=0, bit_depth=10):
     """K10c: see ``seq_tq_reference``; a CPU tensor takes it, a CUDA tensor
-    launches ``csrc/seq_tq.cu`` (one launch for every stage and TU)."""
+    launches ``csrc/seq_tq.cu`` (one launch for every stage and TU), and
+    must start on a 16-byte boundary."""
     if not 0 < stages < 16:
         raise ValueError(f"seq_tq: stage mask {stages} is not in 1..15")
     if x.device.type == "cpu":
@@ -185,6 +187,8 @@ def seq_tq(x, stages, *, kind_h=DCT2, kind_v=DCT2, qp=0, bit_depth=10):
             raise ValueError(f"seq_tq: no transform of kind {kind} over a side of {n}")
     if qp < 0:
         raise ValueError(f"seq_tq: QP {qp}")
+    if x.data_ptr() % 16:
+        raise ValueError("seq_tq reads the TUs as int4: the input must be 16-byte aligned")
     n = x.numel() // (h * w)
     ns = bin(stages).count("1")
     out = torch.empty((ns,) + tuple(x.shape), dtype=torch.int32, device=x.device)
