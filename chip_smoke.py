@@ -120,16 +120,27 @@ ones above:
     mode 2's, mode 66's or another even angular's prediction, which must
     win at cost 0; modes 2 and 66 tied at the least cost, where 2 must win;
     4x4, 4x8, 8x4 and 8x8 rects; rects at x = 0, y = 0 and on the frame's
-    right and bottom edges; the padding row); each new kernel timed on one
-    16,384-rect chunk of the 8-pad class, K9a also on one full chunk of
-    each other class (8,192, 2,048 and 512 rects).
+    right and bottom edges; the padding row); K9b on its own
+    (``K9B_TIES``: flat references and originals, where planar must win a
+    4-way tie; originals that are DC's (on non-square rects too), HOR's or
+    VER's prediction; a symmetric rect where HOR and VER tie at the least
+    joint cost and HOR must win; a rect whose U alone takes HOR but whose
+    joint sum takes VER; chroma sides of 2, 32x32 chroma rects, the
+    frame's edges, the padding row); K9c on its edge cases
+    (``K9C_EDGE_CASES``: both trees at 1 and 4 QP points in every class,
+    SSEs above 2^24, levels at +-32,767 and -32,768, garbage recon beyond
+    the rects, the frame's edges, chroma sides of 2, padding rows; K4's and
+    K5's levels checked zero beyond each rect, which K9c relies on); each
+    kernel timed on one 16,384-rect chunk of the 8-pad class, K9a also on
+    one full chunk of each other class (8,192, 2,048 and 512 rects), K9b's
+    and K9c's bounds at every class's chunk.
 13. The RDO's main path: the 1080p x 2 encode of phase 7's configuration at
     accel level 0 with ``rdo_fallback`` (every MTT node deferred to the
     search, QT splits below the map's banned), cold (the node DAGs built)
-    then warm with every kernel's launches counted (K9a's per pad class
-    too); stage times with the RDO's (geometry, leaf costs with their
-    device span, DP), deferred nodes, CUs per size against phase 7's L3
-    run, hash SEI.
+    then warm with every kernel's launches counted (K9a's, K9b's and K9c's
+    per pad class too); stage times with the RDO's (geometry, leaf costs
+    with their device span, DP), deferred nodes, CUs per size against
+    phase 7's L3 run, hash SEI.
 14. The bench's configuration (``bench.py:186-197`` as it is, with
     ``rdo_fallback``) at 416x240 x 2: its maps cover 384x192 only, and at L3
     K9 decides the nodes outside them and no others; on the frames cut to
@@ -139,7 +150,7 @@ ones above:
     frame.
 15. The label search: ``search_frames`` / ``search_frames_chroma`` with four
     encoders (QP 22/27/32/37) on 2 frames of 512x512 natural content, equal
-    to four single-QP searches, timed.
+    to four single-QP searches, timed, K9's launches per pad class logged.
 16. CPU against card: 128x128 at L1 with the MTT maps of the JAX package's
     accel-level test (dual tree) and ``encode_frame(rdo=True)`` at 208x120
     (single tree), both with the bench's tools: byte-identical streams.
@@ -180,9 +191,10 @@ the encode CLI:
     limits; K10c on its edge cases (``K10C_EDGE_CASES``: full-scale
     +-(2^bd - 1) residual patterns at every shape of ``SEQ_TQ_SHAPES`` and
     every kind at 8 and 10 bits, levels at the 16-bit limits through both
-    inverse clips, dequantiser shifts of 0 and -9, coefficients on the dead
-    zone's boundaries, negative sums at a rounding half, the zero-out at 64
-    and at 32) and K10d on its own (``K10D_EDGE_CASES``: differences of
+    inverse clips, dequantiser shifts of 0, -9, -10 and -11 (the least at 10
+    bits, a 1x1 TU) with products past 2^31 that wrap in int32, coefficients
+    on the dead zone's boundaries, negative sums at a rounding half, the
+    zero-out at 64 and at 32) and K10d on its own (``K10D_EDGE_CASES``: differences of
     +-1023 at every tile shape, DC-only tiles, non-square tile sums that
     float32 rounds onto or next to an integer, one original for all
     candidates and one each), each case reached; both wrappers refusing
@@ -278,8 +290,14 @@ two probes); ``--k9a-times PARENT`` the same for K9a (``K9A_VARIANTS``,
 ``k9a_cases``: one full RDO chunk of each pad class, 16 rects of 4x4 and of
 32x32; every build also held to the plain version on ``K9A_TIES``), with
 phase 12's checks and times, then phase 13's L0 encode warm with the
-parent's K9a and this one in turns (``rdo_leaf_device`` of each, equal
-streams); ``--k10c-times PARENT`` the same for K10c (``K10C_VARIANTS``,
+parent's K9 library and this one in turns (``rdo_leaf_device`` of each,
+equal streams); ``--k9b-times PARENT`` the same for K9b (``K9B_VARIANTS``,
+``k9b_cases``: one full chunk of each pad class's chroma tree, 16 rects of
+4x4 and of 32x32 chroma samples; every build also held to ``K9B_TIES``)
+and ``--k9c-times PARENT`` for K9c (``K9C_VARIANTS``, ``k9c_cases``: one
+full chunk of each class in both trees at 1 and at 4 QP points; every
+build held to ``K9C_EDGE_CASES``), each with phase 12's checks and times
+and the L0 pair; ``--k10c-times PARENT`` the same for K10c (``K10C_VARIANTS``,
 ``k10c_cases``: the 16x16 round trip at QP 37, the forward and the inverse
 transform alone at 32x16, 32x32 and 16x16, a 64x64 and a 1x16 round trip,
 16 TUs of 8x8; every build also held to the plain version on
@@ -291,7 +309,7 @@ times, then phase 20's encode (both frames cold, counting the call mix,
 then the first warm with the parent's kernel and this one in turns:
 ``code`` time and wall of each, equal streams) and the mix timed for both
 (``phase_k10_seq``); each of them ends
-with the launch floor (K9a's, K10c's and K10d's before their path pairs);
+with the launch floor (K9a-c's, K10c's and K10d's before their path pairs);
 none prints a result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
@@ -3071,6 +3089,8 @@ def rdo_kernel_checks(P: int, planes, qps, errs: dict, seen: dict) -> None:
         args = ([ou, ov], cpred, rows, Pc, 2, qp_c, BD, True, lam, dw)
         lev_c, rec_c = tq(*args)
         _cmp("tq", [lev_c, rec_c], list(tq_reference(*args)), errs)
+        check_levels_inside(lev[0], rows, P, 1, "K5")
+        check_levels_inside(lev_c, rows, Pc, 2, "K4")
         seen["2x2 chroma TU"] += int(((w == 4) & (h == 4)).sum())
         err = ((rec[0] - tiles[0]) * tiles[1]).long()
         seen["SSE above 2^24"] += int(((err * err).sum((1, 2)) > 2 ** 24).sum())
@@ -3096,6 +3116,7 @@ def rdo_kernel_checks(P: int, planes, qps, errs: dict, seen: dict) -> None:
         args = ([ou, ov], cpred, rows, Pc, 2, qp_c, BD, True, lam, dw)
         lev_c, rec_c = tq(*args)
         _cmp("tq", [lev_c, rec_c], list(tq_reference(*args)), errs)
+        check_levels_inside(lev_c, rows, Pc, 2, "K4")
         out[0].append(lev_c)
         out[1].append(rec_c)
     args = (rows, P, [None, ou, ov], None, None, *(torch.stack(t) for t in out),
@@ -3106,14 +3127,18 @@ def rdo_kernel_checks(P: int, planes, qps, errs: dict, seen: dict) -> None:
     _cmp("chroma_leaf_costs", got.cpu(), want, errs)
 
 
-def rdo_bounds(name: str, rows: np.ndarray, P: int, nqp: int) -> tuple[float, str, int, int]:
+def rdo_bounds(name: str, rows: np.ndarray, P: int, nqp: int,
+               luma: bool = True) -> tuple[float, str, int, int]:
     """(bound ms, bound_by, bytes, ops) of one K9 call on these rows: K9a
     predicts 35 modes over each rect and scores their SATDs, then writes the
     winner's luma and chroma predictions; K9b predicts four candidates on U
     and V over the sides rounded up to 4 and scores them, then writes the
-    winner's; K9c reads each QP point's luma and chroma levels and recon and
-    the originals once and sums squared errors and the rate proxy (about six
-    operations a sample). Inputs read once, output tiles written whole."""
+    winner's; chroma reads only the unfiltered top and left rows of each
+    plane's four in K1's output (no chroma mode takes the filtered ones);
+    K9c reads each QP point's levels and recon (luma too in the
+    luma tree) and the originals once and sums squared errors and the rate
+    proxy (about six operations a sample). Inputs read once, output tiles
+    written whole."""
     live = rows[rows[:, 6] > 0]
     w, h = live[:, 3], live[:, 4]
     cw, ch = w // 2, h // 2
@@ -3122,15 +3147,15 @@ def rdo_bounds(name: str, rows: np.ndarray, P: int, nqp: int) -> tuple[float, st
     if name == "rdo_luma_select":
         ops = int((w * h).sum()) * (35 * (OPS_PRED + OPS_SATD) + OPS_PRED) + \
             2 * int((cw * ch).sum()) * OPS_PRED
-        nbytes = len(live) * (4 * L + 8 * Lc) * 4 + int((w * h).sum()) * 4 + \
+        nbytes = len(live) * (4 * L + 4 * Lc) * 4 + int((w * h).sum()) * 4 + \
             B * (P * P + 2 * Pc * Pc + 1) * 4 + B * 32
     elif name == "rdo_chroma_select":
         ops = 8 * int((np.maximum(cw, 4) * np.maximum(ch, 4)).sum()) * (OPS_PRED + OPS_SATD) + \
             2 * int((cw * ch).sum()) * OPS_PRED
-        nbytes = len(live) * 8 * Lc * 4 + 2 * int((cw * ch).sum()) * 4 + \
+        nbytes = len(live) * 4 * Lc * 4 + 2 * int((cw * ch).sum()) * 4 + \
             B * (2 * Pc * Pc + 1) * 4 + B * 32
-    else:                               # rdo_leaf_cost, the luma tree
-        samples = int((w * h + 2 * cw * ch).sum())
+    else:                               # rdo_leaf_cost
+        samples = int((w * h * luma + 2 * cw * ch).sum())
         ops = 6 * nqp * samples
         nbytes = (2 * nqp + 1) * samples * 4 + B * (32 + 4 * nqp)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate(name)
@@ -3142,10 +3167,10 @@ def rdo_chunk_rows(rng, B: int, chroma: bool, P: int = 8) -> np.ndarray:
     """(B, 8) int32 rows of one P-pad chunk of 1080p rects at random
     4-aligned places: the luma tree's sizes of the class (4x4 to 8x8 at the
     8-pad class, every size whose longer side is P above it), or the chroma
-    tree's 8x8."""
-    sides = [s for s in (4, 8, 16, 32, 64) if s <= P]
-    sizes = [(8, 8)] if chroma else [(w, h) for w in sides for h in sides
-                                     if max(w, h) == P or P == 8]
+    tree's (8x8 at the 8-pad class, above it every size whose longer side is
+    P and whose sides are 8 or more)."""
+    sides = [s for s in (4, 8, 16, 32, 64) if s <= P and (s >= 8 or not chroma)]
+    sizes = [(w, h) for w in sides for h in sides if max(w, h) == P or P == 8]
     rows = np.zeros((B, 8), np.int32)
     rows[:, 3:5] = np.array(sizes)[rng.randint(len(sizes), size=B)]
     rows[:, 1] = rng.randint(0, (ENC_W - P) // 4, B) * 4
@@ -3196,24 +3221,37 @@ K9A_TIES = {
 K9A_GRID = 4
 
 
+def tie_places(ties, P: int) -> list:
+    """The (x, y) luma places of ``ties``' (kind, w, h, place) rects, each in
+    its own cell of K9A_GRID x K9A_GRID cells of 2P + 8 luma samples, so
+    that no rect's references reach another rect's samples: "inside" (every
+    reference in the frame), "x = 0", "y = 0", "x = 0, y = 0", "right" and
+    "bottom" (flush with the frame's edge)."""
+    C = 2 * P + 8
+    W = H = K9A_GRID * C
+    edge = {"x = 0": (0, 1), "y = 0": (1, 0), "x = 0, y = 0": (0, 0),
+            "right": (K9A_GRID - 1, 1), "bottom": (1, K9A_GRID - 1)}
+    inside = [(cx, cy) for cy in range(K9A_GRID) for cx in range(K9A_GRID)
+              if (cx, cy) not in edge.values()]
+    out = []
+    for _, w, h, place in ties:
+        cx, cy = inside.pop(0) if place == "inside" else edge[place]
+        out.append((0 if place.startswith("x = 0") else W - w if place == "right" else cx * C + 4,
+                    0 if place.endswith("y = 0") else H - h if place == "bottom" else cy * C + 4))
+    return out
+
+
 def k9a_tie_inputs(P: int, seed: int):
     """(rows, (oy, ou, ov), kinds, places) as numpy for ``K9A_TIES[P]``: 2
     frames of K9A_GRID x K9A_GRID cells of 2P + 8 luma samples, a case's
     frame its index mod 2, order id 1 (the RDO's open loop)."""
     rng = np.random.RandomState(seed)
-    C = 2 * P + 8
-    W = H = K9A_GRID * C
+    W = H = K9A_GRID * (2 * P + 8)
     oy = rng.randint(0, 1024, (2, H, W)).astype(np.int32)
     ou, ov = (rng.randint(0, 1024, (2, H // 2, W // 2)).astype(np.int32) for _ in range(2))
-    edge = {"x = 0": (0, 1), "y = 0": (1, 0), "x = 0, y = 0": (0, 0),
-            "right": (K9A_GRID - 1, 1), "bottom": (1, K9A_GRID - 1)}
-    inside = [(cx, cy) for cy in range(K9A_GRID) for cx in range(K9A_GRID)
-              if (cx, cy) not in edge.values()]
     rows, kinds, places = [], [], []
-    for i, (kind, w, h, place) in enumerate(K9A_TIES[P]):
-        cx, cy = inside.pop(0) if place == "inside" else edge[place]
-        x = 0 if place.startswith("x = 0") else W - w if place == "right" else cx * C + 4
-        y = 0 if place.endswith("y = 0") else H - h if place == "bottom" else cy * C + 4
+    for i, ((kind, w, h, place), (x, y)) in enumerate(zip(K9A_TIES[P], tie_places(K9A_TIES[P],
+                                                                                   P))):
         fi = i % 2
         if kind == "flat":
             oy[fi, max(y - 1, 0):y + 2 * h, max(x - 1, 0):x + 2 * w] = FLAT_REC
@@ -3276,7 +3314,15 @@ def k9a_call(P: int, rows_np: np.ndarray, planes):
     og0 = rg._zero_grid(oy)
     args = (ref_gather([oy], og0, rows, P, 1, BD), ref_gather([ou, ov], og0, rows, P // 2, 2, BD),
             oy, rows, P, BD)
-    return (lambda: rg.rdo_luma_select(*args)), list(rg.rdo_luma_select_reference(*args))
+    return with_plain(lambda: rg.rdo_luma_select(*args),
+                      lambda: rg.rdo_luma_select_reference(*args))
+
+
+def with_plain(kernel, plain) -> tuple:
+    """(``kernel``, with ``plain``, its plain version's call, as its
+    ``plain`` attribute, for timing; ``plain()``'s outputs as a list)."""
+    kernel.plain = plain
+    return kernel, list(plain())
 
 
 def k9a_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
@@ -3295,6 +3341,333 @@ def k9a_rdo_call(P: int):
     rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[P], False, P)
     frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
     return k9a_call(P, rows_np, [p[None].astype(np.int32) for p in frame])
+
+
+# K9b's tie and edge cases per pad class (luma units), (kind, w, h, place),
+# each rect in its own cell as K9A_TIES's (K9A_GRID x K9A_GRID cells of 2P +
+# 8 luma samples), the planes noise (0-1023). "flat": both planes'
+# references flat at FLAT_REC and the originals at FLAT_ORG: the four joint
+# costs tie and planar must win; "DC", "HOR", "VER": both originals that
+# candidate's prediction from their own references (joint cost 0): it must
+# win; "tie": on both planes a reference row and column of the same
+# alternating 1023 / 0 samples, the original the mean of the HOR and VER
+# predictions (symmetric): HOR and VER tie at the least joint cost and HOR,
+# the earlier, must win (the 8- to 32-pad classes: planar fits a 32x32
+# one better); "joint": U's references within +-8 of 500 and its original
+# U's HOR prediction, so that U alone would take HOR at cost 0, and V's
+# original V's VER prediction on its noisy references: the joint sum must
+# take VER; "random": the noise. Places as K9A_TIES'. A padding row follows.
+K9B_TIE_CASES = ("flat: planar wins a 4-way tie", "DC wins", "DC wins on a non-square rect",
+                 "HOR wins", "VER wins", "HOR and VER tie: HOR wins",
+                 "the joint sum overrules U's own choice", "chroma side of 2",
+                 "32x32 chroma (16 tiles a plane)", "rect at x = 0", "rect at y = 0",
+                 "rect on the right edge", "rect on the bottom edge", "padding row")
+K9B_TIES = {
+    8: (("flat", 8, 8, "inside"), ("flat", 4, 4, "inside"), ("DC", 8, 4, "inside"),
+        ("HOR", 4, 8, "inside"), ("VER", 8, 8, "inside"), ("tie", 8, 8, "inside"),
+        ("tie", 4, 4, "inside"), ("joint", 8, 8, "inside"), ("random", 4, 4, "x = 0"),
+        ("random", 8, 4, "y = 0"), ("random", 4, 8, "right"), ("random", 8, 8, "bottom"),
+        ("random", 8, 8, "x = 0, y = 0")),
+    16: (("flat", 16, 16, "inside"), ("DC", 16, 8, "inside"), ("HOR", 8, 16, "inside"),
+         ("VER", 16, 4, "inside"), ("tie", 16, 16, "inside"), ("joint", 16, 16, "inside"),
+         ("random", 16, 16, "x = 0"), ("random", 4, 16, "y = 0"), ("random", 16, 4, "right"),
+         ("random", 8, 16, "bottom")),
+    32: (("flat", 32, 32, "inside"), ("DC", 32, 16, "inside"), ("HOR", 32, 8, "inside"),
+         ("VER", 4, 32, "inside"), ("tie", 32, 32, "inside"), ("joint", 16, 32, "inside"),
+         ("random", 32, 8, "x = 0"), ("random", 8, 32, "y = 0"), ("random", 16, 32, "right"),
+         ("random", 32, 32, "bottom")),
+    64: (("flat", 64, 64, "inside"), ("DC", 64, 32, "inside"), ("DC", 4, 64, "inside"),
+         ("HOR", 64, 64, "inside"), ("VER", 16, 64, "inside"), ("joint", 64, 64, "inside"),
+         ("random", 64, 4, "x = 0"), ("random", 32, 64, "y = 0"), ("random", 16, 64, "right"),
+         ("random", 64, 64, "bottom")),
+}
+K9B_WANT = {"flat": 0, "DC": 1, "HOR": 2, "VER": 3, "tie": 2, "joint": 3}
+
+
+def k9b_candidates(rows: np.ndarray, planes, P: int) -> tuple:
+    """(preds (2, B, 4, Pc, Pc), satds (2, B, 4)) as numpy: the four chroma
+    candidates' predictions of U and V on the rows' rects (zero outside
+    them) and each plane's SATDs, as the plain K9b computes them."""
+    rows_t = torch.from_numpy(rows)
+    oy, ou, ov = (torch.from_numpy(np.ascontiguousarray(p)) for p in planes)
+    Pc = P // 2
+    crefs = ref_gather_reference([ou, ov], rg._zero_grid(oy), rows_t, Pc, 2, BD)
+    fi, cxs, cys, cws, chs, _, ok = unpack_rows(rows_t, 2)
+    cand = torch.from_numpy(rg.CHROMA_CANDIDATES)[None].expand(len(rows), -1)
+    inside = rg._cu_mask(cws, chs, ok, Pc)
+    preds, satds = [], []
+    for pl, org in enumerate((ou, ov)):
+        p = predict_generic(*crefs[pl], cand, cws, chs, pad=Pc, is_luma=False, bit_depth=BD)
+        satds.append(ttq.satd_generic(rg._tiles(org, fi, cxs, cys, Pc)[:, None], p, cws, chs))
+        preds.append(torch.where(inside[:, None], p, 0))
+    return torch.stack(preds).numpy(), torch.stack(satds).numpy()
+
+
+def k9b_tie_inputs(P: int, seed: int):
+    """(rows, (oy, ou, ov), kinds, places) as numpy for ``K9B_TIES[P]``: 2
+    frames of K9A_GRID x K9A_GRID cells of 2P + 8 luma samples, a case's
+    frame its index mod 2, order id 1 (the RDO's open loop)."""
+    rng = np.random.RandomState(seed)
+    W = H = K9A_GRID * (2 * P + 8)
+    oy = rng.randint(0, 1024, (2, H, W)).astype(np.int32)
+    ou, ov = (rng.randint(0, 1024, (2, H // 2, W // 2)).astype(np.int32) for _ in range(2))
+    rows, kinds, places = [], [], []
+    for i, ((kind, w, h, place), (x, y)) in enumerate(zip(K9B_TIES[P], tie_places(K9B_TIES[P],
+                                                                                   P))):
+        fi, xc, yc, wc, hc = i % 2, x // 2, y // 2, w // 2, h // 2
+        top = (fi, yc - 1, slice(xc - 1, xc + 2 * wc))
+        left = (fi, slice(yc - 1, yc + 2 * hc), xc - 1)
+        if kind == "flat":
+            for p in (ou, ov):
+                p[fi, yc - 1:yc + 2 * hc, xc - 1:xc + 2 * wc] = FLAT_REC
+        elif kind == "tie":               # the reference row equals the column
+            v = np.where(np.arange(2 * wc + 1) % 2 == 0, 1023, 0)
+            for p in (ou, ov):
+                p[top], p[left] = v, v
+        elif kind == "joint":             # U's references of low contrast
+            ou[top] = 500 + rng.randint(-8, 9, 2 * wc + 1)
+            ou[left] = 500 + rng.randint(-8, 9, 2 * hc + 1)
+        rows.append((fi, x, y, w, h, 1, 1, 1))
+        kinds.append(kind)
+        places.append(place)
+    rows = np.array(rows + [(0,) * 8], np.int32)
+    preds = k9b_candidates(rows, (oy, ou, ov), P)[0]
+    for b, kind in enumerate(kinds):
+        fi, x, y, w, h = rows[b, :5]
+        xc, yc, wc, hc = x // 2, y // 2, w // 2, h // 2
+        for pl, p in enumerate((ou, ov)):
+            t = preds[pl, b, :, :hc, :wc]
+            if kind == "flat":
+                p[fi, yc:yc + hc, xc:xc + wc] = FLAT_ORG
+            elif kind == "tie":            # symmetric: HOR costs what VER costs
+                p[fi, yc:yc + hc, xc:xc + wc] = (t[2].astype(np.int64) + t[3]) // 2
+            elif kind == "joint":          # U's own best HOR, V's VER
+                p[fi, yc:yc + hc, xc:xc + wc] = t[2 if pl == 0 else 3]
+            elif kind in K9B_WANT:
+                p[fi, yc:yc + hc, xc:xc + wc] = t[K9B_WANT[kind]]
+    return rows, (oy, ou, ov), kinds, places
+
+
+def k9b_tie_seen(rows: np.ndarray, kinds: list, places: list, satds: np.ndarray,
+                 pred: np.ndarray, preds: np.ndarray, best: np.ndarray) -> np.ndarray:
+    """Counts of ``K9B_TIE_CASES`` among K9b's outputs (``pred`` (2, B, Pc,
+    Pc), ``best`` (B,) the winning SATD), against the candidates' ``preds``
+    and ``satds`` (``k9b_candidates``): every case's margin holds, its
+    candidate won (the least joint cost, the first of a tie otherwise), and
+    the padding row gave zeros."""
+    seen = np.zeros(len(K9B_TIE_CASES), np.int64)
+    for b, kind in enumerate(kinds):
+        u, v = satds[:, b]
+        joint = u + v
+        want = K9B_WANT.get(kind, int(np.argmin(joint)))
+        if kind == "flat":
+            check((joint == joint[0]).all() and joint[0] > 0, f"K9b flat rect {b}: {joint}")
+        elif kind == "tie":
+            check(u[2] == u[3] and v[2] == v[3] and joint[2] < joint[:2].min(),
+                  f"K9b tie rect {b}: U {u}, V {v}")
+        elif kind == "joint":
+            check(np.argmin(u) == 2 and u[2] == 0 and joint[3] < np.delete(joint, 3).min(),
+                  f"K9b joint rect {b}: U {u}, V {v}")
+        elif kind in K9B_WANT:
+            check(joint[want] == 0 < np.delete(joint, want).min(), f"K9b {kind} rect {b}: {joint}")
+        check(np.array_equal(pred[:, b], preds[:, b, want]) and best[b] == joint[want],
+              f"K9b chose other than candidate {want} for a {kind} rect")
+        w, h = (int(s) for s in rows[b, 3:5])
+        seen += [kind == "flat", kind == "DC", kind == "DC" and w != h, kind == "HOR",
+                 kind == "VER", kind == "tie", kind == "joint", min(w, h) == 4, (w, h) == (64, 64),
+                 rows[b, 1] == 0, rows[b, 2] == 0, places[b] == "right", places[b] == "bottom",
+                 False]
+    check(rows[-1, 6] == 0 and not pred[:, -1].any() and best[-1] == 0,
+          "K9b's padding row did not give zeros")
+    seen[-1] += 1
+    return seen
+
+
+def k9b_call(P: int, rows_np: np.ndarray, planes):
+    """(K9b's call on these rows of the P-pad class with K1's references of
+    the original U and V (``planes`` (oy, ou, ov); (F, ...) numpy) on the
+    card, as ``chroma_leaf_costs`` makes it, its plain version's outputs)."""
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    oy, ou, ov = (dev(p) for p in planes)
+    rows = dev(rows_np)
+    args = (ref_gather([ou, ov], rg._zero_grid(oy), rows, P // 2, 2, BD), [ou, ov], rows,
+            P // 2, BD)
+    return with_plain(lambda: rg.rdo_chroma_select(*args),
+                      lambda: rg.rdo_chroma_select_reference(*args))
+
+
+def k9b_tie_checks(P: int, seed: int, errs: dict) -> np.ndarray:
+    """K9b against its plain version on ``k9b_tie_inputs``; the cases seen."""
+    rows_np, planes, kinds, places = k9b_tie_inputs(P, seed)
+    call, want = k9b_call(P, rows_np, planes)
+    got = call()
+    _cmp("rdo_chroma_select", list(got), want, errs)
+    preds, satds = k9b_candidates(rows_np, planes, P)
+    return k9b_tie_seen(rows_np, kinds, places, satds, got[0].cpu().numpy(), preds,
+                        got[1].cpu().numpy())
+
+
+def k9b_rdo_call(P: int):
+    """(K9b as the device RDO calls it on one chunk of the P-pad class's
+    chroma tree (``_BATCH_CUDA[P]`` rects of a 1080p frame), its plain
+    version's outputs)."""
+    rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[P], True, P)
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    return k9b_call(P, rows_np, [p[None].astype(np.int32) for p in frame])
+
+
+# K9c's edge cases: the rects of every size of a class (``rdo_rows``: the
+# frame's top-left and bottom-right corners among them, chroma sides of 2
+# in the 8-pad class, two padding rows) on the noisy and the natural frame
+# of ``rdo_planes``, four QP points (K9C_QPS; lam and dw not round in
+# float32), levels mostly small with every rect holding +-32,767 and
+# -32,768 (bit lengths 15 and 16) and zero beyond it, as K4's and K5's
+# round trips leave them (K9c counts the rect's levels, the plain version
+# the whole tile's), recon beyond the rect garbage (the SSE counts inside
+# only), within +-4 of the original in half the rects and noise in the
+# others (SSEs above 2^24); both trees, at 1 and 4 QP points.
+K9C_EDGE_CASES = ("luma tree", "chroma tree", "1 QP point", "4 QP points", "SSE above 2^24",
+                  "levels at +-32,767 and -32,768 (bit lengths 15 and 16)",
+                  "rect on the right and bottom edges", "chroma side of 2", "padding row")
+K9C_QPS = ((22, 23, 16.0625, 1.0905077), (27, 27, 32.4, 1.0), (32, 31, 64.75, 0.9170040),
+           (37, 35, 129.3, 0.8408964))
+
+
+def k9c_edge_inputs(P: int, seed: int) -> tuple:
+    """(rows, (oy, ou, ov), lev, rec, lev_c, rec_c) as numpy for K9c's edge
+    cases in the P-pad class, at the four QP points of K9C_QPS: lev, rec
+    (4, B, P, P), lev_c, rec_c (4, 2, B, P/2, P/2) int32."""
+    rng = np.random.RandomState(seed)
+    rows = rdo_rows(P, seed=seed, width=RDO_W, height=RDO_H)
+    planes = rdo_planes(RDO_W, RDO_H)
+    B, Pc, nq = len(rows), P // 2, len(K9C_QPS)
+
+    def tiles(plane, scale, pad):
+        org, _, _, _, _ = ttq._orgs_inside(torch.from_numpy(plane), torch.from_numpy(rows), pad,
+                                           scale)
+        lev = rng.choice([0, 0, 0, 1, -1, 2, -5, 40], (nq, B, pad, pad))
+        for q in range(nq):                 # the 16-bit limits in every rect
+            lev[q, :, q % 2, 0], lev[q, :, 0, (q + 1) % 2] = 32767, -32768
+            lev[q, :, 1, 1] = -32767
+        near = org.numpy()[None] + rng.randint(-4, 5, (nq, B, pad, pad))
+        rec = np.where((np.arange(B) % 2 == 0)[None, :, None, None], near,
+                       rng.randint(0, 1024, (nq, B, pad, pad)))
+        inside = ttq._orgs_inside(torch.from_numpy(plane), torch.from_numpy(rows), pad,
+                                  scale)[1].numpy()[None]
+        rec = np.where(inside, rec, rng.randint(-2000, 2000, rec.shape))
+        return (lev * inside).astype(np.int32), rec.astype(np.int32)
+
+    lev, rec = tiles(planes[0], 1, P)
+    cl = [tiles(p, 2, Pc) for p in planes[1:]]
+    lev_c, rec_c = (np.stack([c[k] for c in cl], 1) for k in range(2))
+    return rows, planes, lev, rec, lev_c, rec_c
+
+
+def k9c_edge_calls(P: int) -> list:
+    """(label, the call's arguments of ``rdo_leaf_cost`` as numpy / tuples:
+    rows, pad, orgs, lev, rec, lev_c, rec_c, QP points) of K9c's edge cases
+    in the P-pad class: both trees at 1 and 4 QP points."""
+    rows, planes, lev, rec, lev_c, rec_c = k9c_edge_inputs(P, seed=40 + P)
+    out = []
+    for luma, nq in itertools.product((True, False), (1, 4)):
+        out.append((f"{P}-pad {'luma' if luma else 'chroma'} tree, {nq} QP point(s)",
+                    (rows, P, list(planes) if luma else [None, *planes[1:]],
+                     lev[:nq] if luma else None, rec[:nq] if luma else None, lev_c[:nq],
+                     rec_c[:nq], K9C_QPS[:nq])))
+    return out
+
+
+def k9c_edge_seen(args: tuple, cost: np.ndarray) -> np.ndarray:
+    """Counts of ``K9C_EDGE_CASES`` in one edge call (``cost`` its plain
+    version's output)."""
+    rows, P, orgs, lev, rec, lev_c, rec_c, qps = args
+    live = rows[:, 6] > 0
+    w, h, x, y = rows[live, 3], rows[live, 4], rows[live, 1], rows[live, 2]
+    levs = [lev_c] if lev is None else [lev, lev_c]
+    rows_t = torch.from_numpy(rows)
+    sses = [((torch.from_numpy(r) - o) * m).long().pow(2).sum((-1, -2)).max()
+            for r, (o, m) in [(rec_c[:, pl], ttq._orgs_inside(torch.from_numpy(orgs[1 + pl]),
+                                                              rows_t, P // 2, 2)[:2])
+                              for pl in range(2)] +
+            ([(rec, ttq._orgs_inside(torch.from_numpy(orgs[0]), rows_t, P, 1)[:2])]
+             if lev is not None else [])]
+    return np.array([lev is not None, lev is None, len(qps) == 1, len(qps) == 4,
+                     max(sses) > 2 ** 24,
+                     all((a == 32767).any() and (a == -32768).any() for a in levs),
+                     ((x + w == RDO_W) & (y + h == RDO_H)).any(), (np.minimum(w, h) == 4).any(),
+                     (~live).any() and not cost[:, ~live].any()], np.int64)
+
+
+def k9c_call(args: tuple):
+    """(K9c's call on these numpy arguments (``k9c_edge_calls``) on the
+    card, its plain version's outputs)."""
+    rows, P, orgs, lev, rec, lev_c, rec_c, qps = args
+    def dev(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    a = (dev(rows), P, [dev(o) for o in orgs], dev(lev), dev(rec), dev(lev_c), dev(rec_c),
+         rg.qp_params(qps).to(DEVICE))
+    return with_plain(lambda: [rg.rdo_leaf_cost(*a)], lambda: [rg.rdo_leaf_cost_reference(*a)])
+
+
+def k9c_edge_checks(errs: dict) -> np.ndarray:
+    """K9c against its plain version on every class's edge calls; the cases
+    seen."""
+    seen = np.zeros(len(K9C_EDGE_CASES), np.int64)
+    for P in (8, 16, 32, 64):
+        for _, args in k9c_edge_calls(P):
+            call, want = k9c_call(args)
+            _cmp("rdo_leaf_cost", call(), want, errs)
+            seen += k9c_edge_seen(args, want[0].cpu().numpy())
+    return seen
+
+
+def check_levels_inside(lev: torch.Tensor, rows: torch.Tensor, pad: int, scale: int,
+                        who: str) -> None:
+    """K9c counts a rect's levels inside the rect, its plain version (as the
+    JAX package) the whole tile: the two agree because K4 and K5 leave the
+    levels zero beyond each rect and on padding rows. Checks that on ``lev``
+    (..., B, pad, pad), ``who``'s output on ``rows`` (chroma: ``scale`` 2)."""
+    _, _, _, ws, hs, _, live = unpack_rows(rows, scale)
+    d = torch.arange(pad, device=rows.device)
+    inside = (d[None, :, None] < hs[:, None, None]) & (d[None, None, :] < ws[:, None, None]) \
+        & live[:, None, None]
+    check(not lev.masked_fill(inside, 0).any(),
+          f"{who}: nonzero levels beyond a rect or on a padding row at pad {pad}")
+
+
+def k9c_rdo_call(P: int, chroma: bool, nqp: int):
+    """(K9c as the device RDO calls it on one chunk of the P-pad class
+    (``_BATCH_CUDA[P]`` rects of a 1080p frame) of the luma or the chroma
+    tree, at the label search's first ``nqp`` QP points, on K4's and K5's
+    round trips of K9a's or K9b's predictions; its plain version's
+    outputs)."""
+    rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[P], chroma, P)
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    oy, ou, ov = (torch.from_numpy(p[None].astype(np.int32)).to(DEVICE) for p in frame)
+    rows = torch.from_numpy(rows_np).to(DEVICE)
+    og0 = rg._zero_grid(oy)
+    crefs = ref_gather([ou, ov], og0, rows, P // 2, 2, BD)
+    qps = rdo_qp_points(ENC_W, ENC_H, LABEL_QPS[:nqp])
+    if chroma:
+        cpred, _ = rg.rdo_chroma_select(crefs, [ou, ov], rows, P // 2, BD)
+    else:
+        refs = ref_gather([oy], og0, rows, P, 1, BD)
+        modes, pred, cpred = rg.rdo_luma_select(refs, crefs, oy, rows, P, BD)
+    out = [[], [], [], []]
+    for qp_y, qp_c, lam, dw in qps:
+        if not chroma:
+            lev, rec, _, _ = tq_mts([oy], pred, rows, P, qp_y, BD, True, lam, modes,
+                                    mts=P <= 32)
+            check_levels_inside(lev[0], rows, P, 1, "K5")
+            out[0].append(lev[0])
+            out[1].append(rec[0])
+        for k, t in enumerate(tq([ou, ov], cpred, rows, P // 2, 2, qp_c, BD, True, lam, dw)):
+            out[2 + k].append(t)
+        check_levels_inside(out[2][-1], rows, P // 2, 2, "K4")
+    st = [torch.stack(t) if t else None for t in out]
+    args = (rows, P, [None if chroma else oy, ou, ov], *st, rg.qp_params(qps).to(DEVICE))
+    return with_plain(lambda: [rg.rdo_leaf_cost(*args)],
+                      lambda: [rg.rdo_leaf_cost_reference(*args)])
 
 
 def phase_rdo_kernels() -> tuple[dict, dict]:
@@ -3317,46 +3690,44 @@ def phase_rdo_kernels() -> tuple[dict, dict]:
     check((ties > 0).all(), f"some K9a tie case never occurred: {dict(zip(K9A_TIE_CASES, ties))}")
     log(f"[rdo-kernels] K9a equal to its plain version on its tie and edge cases at pads "
         f"{tuple(K9A_TIES)}: " + ", ".join(f"{k} {v}" for k, v in zip(K9A_TIE_CASES, ties)))
+    ties = sum(k9b_tie_checks(P, P, errs) for P in K9B_TIES)
+    check((ties > 0).all(), f"some K9b tie case never occurred: {dict(zip(K9B_TIE_CASES, ties))}")
+    log(f"[rdo-kernels] K9b equal to its plain version on its tie and edge cases at pads "
+        f"{tuple(K9B_TIES)}: " + ", ".join(f"{k} {v}" for k, v in zip(K9B_TIE_CASES, ties)))
+    edges = k9c_edge_checks(errs)
+    check((edges > 0).all(), f"some K9c edge case never occurred: "
+                             f"{dict(zip(K9C_EDGE_CASES, edges))}")
+    log("[rdo-kernels] K9c equal to its plain version on its edge cases at every pad class: "
+        + ", ".join(f"{k} {v}" for k, v in zip(K9C_EDGE_CASES, edges)))
 
     # times at the main path's shapes: one full 8-pad chunk of 1080p rects
     # (luma tree: 4x4 to 8x8; chroma tree: 8x8), one QP point (QP 22)
-    rng = np.random.RandomState(5)
     B = trd._BATCH_CUDA[8]
-    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
-    oy, ou, ov = (torch.from_numpy(p[None].astype(np.int32)).to(DEVICE) for p in frame)
-    qps = rdo_qp_points(ENC_W, ENC_H, (ENC_QP,))
     times = {}
-    for name in RDO_KERNELS:
-        chroma = name == "rdo_chroma_select"
-        rows_np = rdo_chunk_rows(rng, B, chroma)
-        rows = torch.from_numpy(rows_np).to(DEVICE)
-        og0 = rg._zero_grid(oy)
-        refs = ref_gather([oy], og0, rows, 8, 1, BD)
-        crefs = ref_gather([ou, ov], og0, rows, 4, 2, BD)
-        if name == "rdo_luma_select":
-            args = (refs, crefs, oy, rows, 8, BD)
-            kernel, plain = (lambda: rg.rdo_luma_select(*args),
-                             lambda: rg.rdo_luma_select_reference(*args))
-        elif chroma:
-            args = (crefs, [ou, ov], rows, 4, BD)
-            kernel, plain = (lambda: rg.rdo_chroma_select(*args),
-                             lambda: rg.rdo_chroma_select_reference(*args))
-        else:
-            modes, pred, cpred = rg.rdo_luma_select(refs, crefs, oy, rows, 8, BD)
-            qp_y, qp_c, lam, dw = qps[0]
-            lev, rec, _, _ = tq_mts([oy], pred, rows, 8, qp_y, BD, True, lam, modes, mts=True)
-            lev_c, rec_c = tq([ou, ov], cpred, rows, 4, 2, qp_c, BD, True, lam, dw)
-            args = (rows, 8, [oy, ou, ov], lev, rec, lev_c[None].contiguous(),
-                    rec_c[None].contiguous(), rg.qp_params(qps).to(DEVICE))
-            kernel, plain = (lambda: rg.rdo_leaf_cost(*args),
-                             lambda: rg.rdo_leaf_cost_reference(*args))
-        _cmp(name, kernel(), plain(), errs)
+    for name, make, chroma in (("rdo_luma_select", k9a_rdo_call, False),
+                               ("rdo_chroma_select", k9b_rdo_call, True),
+                               ("rdo_leaf_cost", lambda P: k9c_rdo_call(P, False, 1), False)):
+        kernel, want = make(8)
+        got = kernel()
+        _cmp(name, list(got), want, errs)
+        rows_np = rdo_chunk_rows(np.random.RandomState(5), B, chroma)
         bound, by, nbytes, ops = rdo_bounds(name, rows_np, 8, 1)
-        ms, plain_ms = graph_ms(kernel, reps=10, iters=5), call_ms(plain, 5)
+        ms, plain_ms = graph_ms(kernel, reps=10, iters=5), call_ms(kernel.plain, 5)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         log(f"[rdo-kernels] {name}: {B} rects of the 8-pad {'chroma' if chroma else 'luma'} "
             f"tree: device time per call (CUDA graph) {ms:.6f} ms; plain version from Python "
             f"{plain_ms:.6f} ms; bound {bound:.6f} ms by {by} ({nbytes} B, {ops} ops)")
+    # K9b's and K9c's bounds at every class's chunk (times: --k9b-times,
+    # --k9c-times)
+    for P in (8, 16, 32, 64):
+        for chroma in (True, False):
+            rows_np = rdo_chunk_rows(np.random.RandomState(5), trd._BATCH_CUDA[P], chroma, P)
+            for name, nqp in ((("rdo_chroma_select", 1),) if chroma else ()) + (
+                    ("rdo_leaf_cost", 1), ("rdo_leaf_cost", 4)):
+                bound, by, nbytes, ops = rdo_bounds(name, rows_np, P, nqp, not chroma)
+                log(f"[rdo-kernels] {name} bound: {trd._BATCH_CUDA[P]} rects of the {P}-pad "
+                    f"{'chroma' if chroma else 'luma'} tree, {nqp} QP point(s): {bound:.6f} ms "
+                    f"by {by} ({nbytes} B, {ops} ops)")
     # K9a at the other classes' chunks, each full (16-pad 8,192 rects, 32-pad
     # 2,048, 64-pad 512), every size of the class
     for P in (16, 32, 64):
@@ -3410,14 +3781,14 @@ def phase_rdo_encode(frames, maps_l, maps_c, enc_l3) -> dict:
     log(f"[rdo-encode] L0 cold run (node DAGs built) {time.perf_counter() - t0:.3f} s "
         f"({stages} s)")
     reset_counts()
-    pads = collections.Counter()
-    with k9a_pads(pads):
+    with k9_pads() as pads:
         outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} at L0 with the device RDO, "
                             "the RDO path")
     launches = all_launches()
-    check(sum(pads.values()) == launches["rdo_luma_select"],
-          f"K9a launches {launches['rdo_luma_select']} against its calls by pad {pads}")
-    log(f"[rdo-encode] K9a launches per pad class at L0: {dict(sorted(pads.items()))}")
+    for name, c in pads.items():
+        check(sum(c.values()) == launches[name],
+              f"{name} launches {launches[name]} against its calls by pad {c}")
+    log_k9_pads("[rdo-encode]", pads, "at L0")
     for name in RDO_KERNELS:
         check(launches[name] > 0, f"{name} was not launched on the RDO path")
     check_hashes(outs, frames, "L0")
@@ -3430,28 +3801,46 @@ def phase_rdo_encode(frames, maps_l, maps_c, enc_l3) -> dict:
 
 
 class _PadCount:
-    """The ``rdo_leaf`` library with K9a's calls counted by pad class."""
+    """The ``rdo_leaf`` library with each K9 kernel's calls counted by pad
+    class (luma units; K9c by class, tree and QP points)."""
 
-    def __init__(self, lib, counts: collections.Counter):
+    def __init__(self, lib, counts: dict):
         self._lib, self._counts = lib, counts
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
 
     def pmp_rdo_luma_select(self, *args):
-        self._counts[args[7]] += 1                # refs ... tabs_c, B, then P
+        self._counts["rdo_luma_select"][args[7]] += 1          # refs ... tabs_c, B, then P
         return self._lib.pmp_rdo_luma_select(*args)
+
+    def pmp_rdo_chroma_select(self, *args):
+        self._counts["rdo_chroma_select"][2 * args[6]] += 1    # crefs ... tabs_c, B, then Pc
+        return self._lib.pmp_rdo_chroma_select(*args)
+
+    def pmp_rdo_leaf_cost(self, *args):                        # nqp, B, P, H, W, luma
+        self._counts["rdo_leaf_cost"][(args[11], "luma" if args[14] else "chroma",
+                                       args[9])] += 1
+        return self._lib.pmp_rdo_leaf_cost(*args)
 
 
 @contextlib.contextmanager
-def k9a_pads(counts: collections.Counter):
-    """K9a's launches counted by pad class into ``counts`` meanwhile."""
+def k9_pads():
+    """K9a's, K9b's and K9c's launches counted by pad class meanwhile:
+    yields {kernel: Counter}."""
+    counts = {name: collections.Counter() for name in RDO_KERNELS}
     saved = rg._lib
     rg._lib = lambda n: _PadCount(saved(n), counts) if n == "rdo_leaf" else saved(n)
     try:
-        yield
+        yield counts
     finally:
         rg._lib = saved
+
+
+def log_k9_pads(tag: str, counts: dict, where: str) -> None:
+    for name, c in counts.items():
+        log(f"{tag} {name} launches per pad class {where}: "
+            + ", ".join(f"{k}: {v}" for k, v in sorted(c.items())))
 
 
 def accel_maps(w: int, h: int):
@@ -3547,8 +3936,11 @@ def phase_rdo_labels() -> None:
         t1 = time.perf_counter()
         run = (lambda r, **kw: r.search_frames_chroma(frames, **kw)) if chroma else \
             (lambda r, **kw: r.search_frames(frames, **kw))
-        multi = run(rdo, encoders=encs)
+        with k9_pads() as pads:
+            multi = run(rdo, encoders=encs)
         t2 = time.perf_counter()
+        log_k9_pads("[rdo-labels]", {k: c for k, c in pads.items() if c},
+                    f"in the {'chroma' if chroma else 'luma'} 4-QP search")
         for q, enc in enumerate(encs):
             alone = run(DeviceRDO(enc))
             for f in range(len(frames)):
@@ -3985,7 +4377,8 @@ OPS_SEQ_QUANT, OPS_DIST = 8, 3
 
 K10C_EDGE_CASES = ("full-scale residuals at 8 bits", "full-scale residuals at 10 bits",
                    "levels at the 16-bit limits through both inverse clips",
-                   "dequantiser shift <= 0", "coefficients on the dead-zone boundary",
+                   "dequantiser shift <= 0", "dequantiser product past 2^31, wrapped in int32",
+                   "coefficients on the dead-zone boundary",
                    "a negative sum at a rounding half", "zero-out beyond 32 at 64 (DCT-2)",
                    "zero-out beyond 16 at 32 (DST-7 / DCT-8)")
 K10D_EDGE_CASES = ("differences of +-1023", "DC-only tiles",
@@ -4000,10 +4393,16 @@ K10D_EDGE_SHAPES = ((16, 8), (8, 16), (8, 4), (4, 8), (8, 8), (4, 4), (2, 2), (3
 # the shapes whose candidates also come with an original each: one a warp,
 # several a warp, several warps a candidate, non-square tiles, 2x2 tiles
 K10D_PER_CANDIDATE = ((16, 8), (4, 4), (16, 32), (64, 64), (8, 2), (24, 16))
-# the dequantiser's products stay within int32 (as the JAX package's int32
-# product needs to agree with the plain version's int64 one) where
-# |level * scale << -shift| < 2^31: shifts down to -9
-K10C_MIN_DEQ_SHIFT = -9
+# the least dequantiser shift at 10 bits, 6 - (t_shift - sqrt2 + qp // 6)
+# at internal QP 72-75: -11 on a 1x1 TU (t_shift 5, sqrt2 0), which K10c and
+# the JAX dequantiser take (the JAX inverse transform has no 1-point core, so
+# its calls stop at the dequantiser), and -10 on TUs of 2 and 4 samples (4 +
+# 12). There the product |level * scale << -shift| of a level at the 16-bit
+# limit passes 2^31 and wraps in int32, in the JAX package and in K10c
+# alike: on the 1x1 TU at QP 72-75, on the 1x2 and 2x1 TUs (scale 102 at QP
+# 75) at QP 74-75 (K10C_WRAP_QPS, by TU shape)
+K10C_MIN_DEQ_SHIFT = -11
+K10C_WRAP_QPS = {(1, 1): (72, 73, 74, 75), (1, 2): (74, 75), (2, 1): (74, 75)}
 
 
 def _core_or_one(kind: int, n: int) -> np.ndarray:
@@ -4067,15 +4466,25 @@ def k10c_edge_inputs(seed: int = 20) -> list:
                    rng.choice([cmin, cmax], (h, w))]
             calls.append(("levels at the 16-bit limits through both inverse clips",
                           np.stack(lev), DEQUANT | INV, kh, kv, 37, bd))
-    # dequantiser shifts of 0 and K10C_MIN_DEQ_SHIFT where the QP allows
-    for w, h, bd in ((4, 4, 10), (64, 64, 10), (2, 2, 10), (1, 16, 10), (8, 4, 8), (16, 2, 8)):
+    # dequantiser shifts of 0, -9 and -10 where the QP allows, down to the
+    # least, K10C_MIN_DEQ_SHIFT, on the 1x1 TU (the dequantiser alone there)
+    for w, h, bd in ((4, 4, 10), (64, 64, 10), (2, 2, 10), (1, 16, 10), (8, 4, 8), (16, 2, 8),
+                     (1, 2, 10), (2, 1, 10), (1, 1, 10)):
         base = 6 - _q_params(w, h, 0, bd)[4]           # t_shift - sqrt2
-        for rs, off in ((0, 0), (K10C_MIN_DEQ_SHIFT, 5)):
+        for rs, off in ((0, 0), (-9, 5), (-10, 0), (K10C_MIN_DEQ_SHIFT, 0)):
             qp = 6 * (6 - base - rs) + off
             if 0 <= qp <= 63 + 6 * (bd - 8):
                 lev = rng.randint(-400, 401, (2, h, w))
                 lev[0, 0, 0], lev[1, 0, 0] = cmax, cmin
-                calls.append(("dequantiser shift <= 0", lev, DEQUANT | INV, DCT2, DCT2, qp, bd))
+                calls.append(("dequantiser shift <= 0", lev,
+                              DEQUANT if w * h == 1 else DEQUANT | INV, DCT2, DCT2, qp, bd))
+    # levels at the 16-bit limits where those shifts' products wrap in int32
+    for (w, h), qps in K10C_WRAP_QPS.items():
+        lev = np.array([[cmax, cmin], [cmin, cmax], [-cmax, cmax], [cmin, -400]])
+        for qp in qps:
+            calls.append(("dequantiser product past 2^31, wrapped in int32",
+                          lev[:, :w * h].reshape(4, h, w),
+                          DEQUANT if w * h == 1 else DEQUANT | INV, DCT2, DCT2, qp, 10))
     # the least |c| of levels 1, 2 and 3 and the value below each, both signs
     for (w, h), qp in itertools.product(((4, 4), (64, 64), (8, 4), (1, 16)), (22, 51)):
         q_bits, add, qscale = _q_params(w, h, qp, 10)[:3]
@@ -4145,6 +4554,10 @@ def k10c_edge_seen(case: str, x: np.ndarray, stages: int, kh: int, kv: int, qp: 
                     and (x == cmin).any() and (x == cmax).any())
     if case.startswith("dequantiser shift"):
         return bool(stages & 4) and _q_params(w, h, qp, bd)[4] <= 0
+    if case.startswith("dequantiser product"):
+        iscale, rs = _q_params(w, h, qp, bd)[3:]
+        exact = np.clip(ins.get(4, np.zeros(1, np.int64)), cmin, cmax) * iscale << max(-rs, 0)
+        return bool(stages & 4) and bool((abs(exact) >= 2 ** 31).any())
     if case.startswith("coefficients on the dead-zone"):
         q_bits, add, qscale = _q_params(w, h, qp, bd)[:3]
         c = np.abs(ins.get(2, np.zeros(1, np.int64)))
@@ -5423,7 +5836,7 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A redesigned kernel (K1-K7, K9a, K10c, K10d) beside the parent commit's and
+# A redesigned kernel (K1-K7, K9a-c, K10c, K10d) beside the parent commit's and
 # its other shapes
 # ---------------------------------------------------------------------------
 
@@ -5749,18 +6162,25 @@ def k7_call(P: int, scale: int, rows_np: np.ndarray, width: int, height: int):
     return call, state(ref_planes, ref_grids), reset
 
 
-def k9a_probe_call(side: int):
-    """(K9a on 16 rects of side x side at random 4-aligned places of a 1080p
-    frame, in the 8-pad class up to 8x8, else the side's; its plain
-    version's outputs)."""
+def rdo_probe_rows(side: int) -> np.ndarray:
+    """(16, 8) int32 rows of side x side rects (luma units) at random
+    4-aligned places of a 1080p frame."""
     rng = np.random.RandomState(6)
     rows_np = np.zeros((16, 8), np.int32)
     rows_np[:, 1] = rng.randint(0, (ENC_W - side) // 4, 16) * 4
     rows_np[:, 2] = rng.randint(0, (ENC_H - side) // 4, 16) * 4
     rows_np[:, 3:5] = side
     rows_np[:, 5:] = 1
+    return rows_np
+
+
+def k9a_probe_call(side: int):
+    """(K9a on 16 rects of side x side at random 4-aligned places of a 1080p
+    frame, in the 8-pad class up to 8x8, else the side's; its plain
+    version's outputs)."""
     frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
-    return k9a_call(max(side, 8), rows_np, [p[None].astype(np.int32) for p in frame])
+    return k9a_call(max(side, 8), rdo_probe_rows(side),
+                    [p[None].astype(np.int32) for p in frame])
 
 
 def k9a_cases(width: int, height: int) -> list:
@@ -5779,6 +6199,50 @@ def k9a_tie_cases() -> list:
     return [(f"{P}-pad tie cases",
              functools.partial(lambda P: k9a_call(P, *k9a_tie_inputs(P, P)[:2]), P))
             for P in K9A_TIES]
+
+
+def k9b_probe_call(side: int):
+    """(K9b on 16 rects of side x side chroma samples at random places of a
+    1080p frame, in the class of their luma side; its plain version's
+    outputs)."""
+    frame = natural_frame(ENC_W, ENC_H, 7, bit_depth=BD)
+    return k9b_call(2 * side, rdo_probe_rows(2 * side), [p[None].astype(np.int32) for p in frame])
+
+
+def k9b_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K9b: one full chunk of each pad
+    class's chroma tree as the device RDO calls it on 1080p rects
+    (``_BATCH_CUDA``), then two probes (16 rects of 4x4 and of 32x32 chroma
+    samples); ``width`` and ``height`` unused."""
+    return [(f"{P}-pad chroma tree, {trd._BATCH_CUDA[P]:,} RDO rects",
+             functools.partial(k9b_rdo_call, P)) for P in (8, 16, 32, 64)] + [
+        (f"{2 * side}-pad, 16 rects of {side}x{side} chroma samples",
+         functools.partial(k9b_probe_call, side)) for side in (4, 32)]
+
+
+def k9b_tie_cases() -> list:
+    """K9b's tie and edge inputs of every pad class (``K9B_TIES``), on
+    which ``phase_variant_times`` holds each variant to the plain version."""
+    return [(f"{P}-pad tie cases",
+             functools.partial(lambda P: k9b_call(P, *k9b_tie_inputs(P, P)[:2]), P))
+            for P in K9B_TIES]
+
+
+def k9c_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K9c: one full chunk of each pad
+    class (``_BATCH_CUDA``) of 1080p rects in the luma and in the chroma
+    tree, at 1 QP point (the L0 path) and at 4 (the label search);
+    ``width`` and ``height`` unused."""
+    return [(f"{P}-pad {'chroma' if chroma else 'luma'} tree, {trd._BATCH_CUDA[P]:,} RDO "
+             f"rects, {nqp} QP point(s)", functools.partial(k9c_rdo_call, P, chroma, nqp))
+            for P in (8, 16, 32, 64) for chroma in (False, True) for nqp in (1, 4)]
+
+
+def k9c_edge_cases() -> list:
+    """K9c's edge calls of every pad class (``k9c_edge_calls``), on which
+    ``phase_variant_times`` holds each variant to the plain version."""
+    return [(label, functools.partial(k9c_call, args))
+            for P in (8, 16, 32, 64) for label, args in k9c_edge_calls(P)]
 
 
 def k10c_call(stages: int, w: int, h: int, n: int = 1, qp: int = 37):
@@ -5903,8 +6367,12 @@ def launch_floor_times(tag: str) -> dict:
 # thread, one warp a round trip at the 4- and 8-pad classes, two blocks an
 # SM there; for K9a a warp per rect and 4 rects a block at the 8-pad class,
 # a block of 4, 8 and 16 warps per rect at the 16-, 32- and 64-pad classes;
-# for K10c a warp per TU up to 128 samples, a block of a thread per 2
-# samples above, 2 outputs a thread; for K10d up to 32 / rows candidates
+# for K9b a warp per rect and 8 rects a block at the 8- and 16-pad classes,
+# a block of 4 and 8 warps per rect at the 32- and 64-pad classes; for K9c
+# a warp per rect and 8 rects a block at the 8- and 16-pad classes, a block
+# of 4 and 8 warps per rect at the 32- and 64-pad classes; for K10c a warp
+# per TU up to 128 samples, a block of a thread per 2 samples above, 2
+# outputs a thread; for K10d up to 32 / rows candidates
 # a warp, 2 warps a block, up to 4 warps a candidate of more rows):
 # {label: nvcc defines}
 K2_VARIANTS = {"one block per CU": ("-DK2_CLUSTER=1",),
@@ -5944,6 +6412,19 @@ K9A_VARIANTS = {"16-pad rects on warps too": ("-DK9A_TEAM_PAD=16",),
                 "8 rects (warps) a block": ("-DK9A_WARPS=8",),
                 "blocks of 2, 4, 8 warps (16-, 32-, 64-pad)": ("-DK9A_WARPS_LARGE=8",),
                 "blocks of 8, 16, 32 warps (16-, 32-, 64-pad)": ("-DK9A_WARPS_LARGE=32",)}
+K9B_VARIANTS = {"16 chroma pad on warps too": ("-DK9B_TEAM_PAD=16",),
+                "every rect on a block": ("-DK9B_TEAM_PAD=0",),
+                "8 rects (warps) a block": ("-DK9B_WARPS=8",),
+                "16 rects (warps) a block": ("-DK9B_WARPS=16",),
+                "blocks of 2, 4 warps (16, 32 chroma pad)": ("-DK9B_WARPS_LARGE=4",),
+                "blocks of 8, 16 warps (16, 32 chroma pad)": ("-DK9B_WARPS_LARGE=16",)}
+K9C_VARIANTS = {"16-pad rects on blocks": ("-DK9C_TEAM_PAD=8",),
+                "every rect on a block": ("-DK9C_TEAM_PAD=0",),
+                "32-pad rects on warps too": ("-DK9C_TEAM_PAD=32",),
+                "4 rects (warps) a block": ("-DK9C_WARPS=4",),
+                "16 rects (warps) a block": ("-DK9C_WARPS=16",),
+                "blocks of 2, 4 warps (32-, 64-pad)": ("-DK9C_WARPS_LARGE=4",),
+                "blocks of 8, 16 warps (32-, 64-pad)": ("-DK9C_WARPS_LARGE=16",)}
 K10C_VARIANTS = {"4 outputs a thread, a warp up to 256 samples, 8 samples a thread above":
                  ("-DK10C_CW=4", "-DK10C_WARP_MAX=256", "-DK10C_EPT=8"),
                  "4 outputs a thread, 4 samples a thread above a warp": ("-DK10C_CW=4",
@@ -5958,7 +6439,7 @@ K10D_VARIANTS = {"one candidate a warp": ("-DK10D_CPW_MAX=1",),
                  "8 warps a candidate above a warp": ("-DK10D_WARPS_LARGE=8",)}
 # ``--k1-times`` / ``--k2-times`` / ``--k3-times`` / ``--k4-times`` /
 # ``--k5-times`` / ``--k6a-times`` / ``--k7-times`` / ``--k9a-times`` /
-# ``--k10c-times`` / ``--k10d-times``:
+# ``--k9b-times`` / ``--k9c-times`` / ``--k10c-times`` / ``--k10d-times``:
 # (library, wrapper module,
 # variants, the function that gives the timed cases: (label, the function
 # that makes the call, its plain outputs and, for a kernel that writes in
@@ -5972,12 +6453,15 @@ TIMED_KERNELS = {"k1": ("ref_gather", ig, K1_VARIANTS, k1_cases),
                  "k6a": ("cclm", cclm_g, K6A_VARIANTS, k6a_cases),
                  "k7": ("wave_scatter", wf, K7_VARIANTS, class_cases(k7_call, TIMED_CLASSES)),
                  "k9a": ("rdo_leaf", rg, K9A_VARIANTS, k9a_cases),
+                 "k9b": ("rdo_leaf", rg, K9B_VARIANTS, k9b_cases),
+                 "k9c": ("rdo_leaf", rg, K9C_VARIANTS, k9c_cases),
                  "k10c": ("seq_tq", quant_ops, K10C_VARIANTS, k10c_cases),
                  "k10d": ("seq_satd", dist_ops, K10D_VARIANTS, k10d_cases)}
 # untimed inputs on which every build of ``phase_variant_times`` must equal
 # the plain version too: (label, the function that makes the call and its
 # plain outputs)
-VARIANT_CHECKS = {"k9a": k9a_tie_cases, "k10c": k10c_edge_variant_checks,
+VARIANT_CHECKS = {"k9a": k9a_tie_cases, "k9b": k9b_tie_cases, "k9c": k9c_edge_cases,
+                  "k10c": k10c_edge_variant_checks,
                   "k10d": k10d_edge_variant_checks}
 
 
@@ -6028,13 +6512,15 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
     return res
 
 
-def phase_k9a_l0(parent: pathlib.Path) -> None:
+def phase_rdo_l0(kernel: str, parent: pathlib.Path) -> None:
     """The RDO's main path (phase 13's 1080p x 2 encode at L0 with
-    ``rdo_fallback``), warm, with the parent commit's K9a (``parent``'s
-    ``rdo_leaf.cu``) and this one in turns (parent, new, new, parent): each
-    run's ``rdo_leaf_device`` span and wall time; the four streams must be
-    equal."""
-    lib = variant_library("k9a", parent / "pmp_vvc_tpu_torch" / "csrc" / "rdo_leaf.cu",
+    ``rdo_fallback``), warm, with the parent commit's K9 library
+    (``parent``'s ``rdo_leaf.cu``: its K9a, K9b and K9c) and this one in
+    turns (parent, new, new, parent), for ``kernel`` (k9a, k9b or k9c):
+    each run's ``rdo_leaf_device`` span and wall time; the four streams must
+    be equal."""
+    tag = f"[{kernel}-times]"
+    lib = variant_library(kernel, parent / "pmp_vvc_tpu_torch" / "csrc" / "rdo_leaf.cu",
                           parent / "build" / "kernels" / "librdo_leaf-parent.so")
     preds = {(comp, ENC_QP): CompPredictor.from_trained(
                  comp == "Luma", CKPT / f"{comp}_Q_QP{ENC_QP}.msgpack",
@@ -6047,14 +6533,14 @@ def phase_k9a_l0(parent: pathlib.Path) -> None:
     enc.encode_frames(frames, maps=maps_l, chroma_maps=maps_c)   # cold: the node DAGs
     streams = []
     for label in ("parent", "new", "new", "parent"):
-        with launching("k9a", lib if label == "parent" else None):
-            outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} at L0, K9a {label}")
+        with launching(kernel, lib if label == "parent" else None):
+            outs = timed_encode(enc, frames, maps_l, maps_c, f"{MAIN} at L0, K9 {label}")
         streams.append(b"".join(o[0] for o in outs))
-        log(f"[k9a-times] L0 path with K9a {label}: rdo_leaf_device "
+        log(f"{tag} L0 path with the {label} K9 library: rdo_leaf_device "
             f"{enc.timings['rdo_leaf_device']:.6f} s")
-    check(len(set(streams)) == 1, "the L0 path's stream differs between the parent's K9a "
+    check(len(set(streams)) == 1, "the L0 path's stream differs between the parent's K9 "
                                   "and this one")
-    log("[k9a-times] L0 path: the four streams byte-identical")
+    log(f"{tag} L0 path: the four streams byte-identical")
 
 
 def phase_k10_seq(kernel: str, parent: pathlib.Path) -> None:
@@ -6098,28 +6584,29 @@ def phase_k10_seq(kernel: str, parent: pathlib.Path) -> None:
 def times_only(kernel: str, parent: pathlib.Path) -> int:
     """``--k1-times PARENT`` / ``--k2-times PARENT`` / ``--k3-times PARENT``
     / ``--k4-times PARENT`` / ``--k5-times PARENT`` / ``--k6a-times PARENT``
-    / ``--k7-times PARENT`` / ``--k9a-times PARENT`` / ``--k10c-times
-    PARENT`` / ``--k10d-times PARENT``: the build, the encode
+    / ``--k7-times PARENT`` / ``--k9a-times PARENT`` / ``--k9b-times
+    PARENT`` / ``--k9c-times PARENT`` / ``--k10c-times PARENT`` /
+    ``--k10d-times PARENT``: the build, the encode
     kernels' checks and times (the K2, K3, K4, K5 and K6a tie cases and K1's
     and K7's edge cases among them, and the launch floor; K5's time shows
     what K4's shared ``csrc/tq_team.cuh`` left of it), for K1, K4, K6a and
-    K9a the device RDO's kernel checks and times (all on the RDO's path, K9a
-    with its tie cases and at every pad class's chunk; K9 shares
+    K9a-c the device RDO's kernel checks and times (all on the RDO's path,
+    K9a and K9b with their tie cases, K9c with its edge cases; K9 shares
     ``csrc/satd.cuh``), K10a-e's checks and times (K10b shares K3's
     ``csrc/mip.cuh``, K10c ``csrc/tq.cuh``, K10d ``csrc/satd.cuh``),
-    ``phase_variant_times`` against the parent checkout, for K9a the L0
-    path with the parent's K9a and this one (``phase_k9a_l0``), for K10c
-    and K10d the sequential path with the parent's kernel and this one
+    ``phase_variant_times`` against the parent checkout, for K9a-c the L0
+    path with the parent's K9 library and this one (``phase_rdo_l0``), for
+    K10c and K10d the sequential path with the parent's kernel and this one
     (``phase_k10_seq``); prints no result line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
     phase_encode_kernels()
-    if kernel in ("k1", "k4", "k6a", "k9a"):
+    if kernel in ("k1", "k4", "k6a", "k9a", "k9b", "k9c"):
         phase_rdo_kernels()
     phase_seq_kernels()
     phase_variant_times(kernel, parent)
-    if kernel == "k9a":
-        phase_k9a_l0(parent)
+    if kernel in ("k9a", "k9b", "k9c"):
+        phase_rdo_l0(kernel, parent)
     if kernel in ("k10c", "k10d"):
         phase_k10_seq(kernel, parent)
     log(card_line())
@@ -6189,7 +6676,7 @@ def main() -> int:
         return md_only()
     if sys.argv[1:2] in (["--k1-times"], ["--k2-times"], ["--k3-times"], ["--k4-times"],
                          ["--k5-times"], ["--k6a-times"], ["--k7-times"], ["--k9a-times"],
-                         ["--k10c-times"], ["--k10d-times"]):
+                         ["--k9b-times"], ["--k9c-times"], ["--k10c-times"], ["--k10d-times"]):
         return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()

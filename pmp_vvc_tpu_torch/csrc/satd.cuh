@@ -1,10 +1,9 @@
 // SATD device code shared by K2 (csrc/intra_rmd.cu), K3 (csrc/mip_rmd.cu),
-// K6a (csrc/cclm.cu), K9 (csrc/rdo_leaf.cu) and K10d (csrc/seq_satd.cu), so
-// that the angular, MIP, CCLM, RDO and sequential costs round the same way.
-// Who uses what: the warp form of square tiles ``warp_tile_satd`` K2, K3,
-// K6a and K9a; the warp form of VTM's tile shapes ``warp_tile_had`` K10d;
-// the one-thread tile form ``tile_satd`` K9b; the block reduction
-// ``block_sum`` K9c.
+// K6a (csrc/cclm.cu), K9a and K9b (csrc/rdo_leaf.cu) and K10d
+// (csrc/seq_satd.cu), so that the angular, MIP, CCLM, RDO and sequential
+// costs round the same way. Who uses what: the warp form of square tiles
+// ``warp_tile_satd`` K2, K3, K6a, K9a and K9b; the warp form of VTM's tile
+// shapes ``warp_tile_had`` K10d.
 //
 // The port of pmp_vvc_tpu/ops/tq_generic.py:satd_generic (160): 8x8
 // Walsh-Hadamard tiles when min(w, h) >= 8, else 4x4, over the CU's (h, w)
@@ -15,52 +14,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-static __device__ int block_sum(int v, int* red) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    int s = 0;
-    if (threadIdx.x == 0)
-        for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
-    return s;                          // valid in thread 0
-}
-
-// SATD of one ts x ts tile (ts 4 or 8) of differences ``d``, row-major,
-// transformed in place: Walsh-Hadamard (Sylvester order) on rows, then
-// columns; the sum of |coefficients| with VTM's DC/4 and rounding.
-static __device__ int tile_satd(int* d, int ts) {
-    for (int i = 0; i < ts; ++i)
-        for (int len = 1; len < ts; len <<= 1)
-            for (int j = 0; j < ts; j += len << 1)
-                for (int k = j; k < j + len; ++k) {
-                    const int a = d[i * ts + k], b = d[i * ts + k + len];
-                    d[i * ts + k] = a + b;
-                    d[i * ts + k + len] = a - b;
-                }
-    for (int j = 0; j < ts; ++j)
-        for (int len = 1; len < ts; len <<= 1)
-            for (int i = 0; i < ts; i += len << 1)
-                for (int k = i; k < i + len; ++k) {
-                    const int a = d[k * ts + j], b = d[(k + len) * ts + j];
-                    d[k * ts + j] = a + b;
-                    d[(k + len) * ts + j] = a - b;
-                }
-    int s = 0;
-    for (int i = 0; i < ts * ts; ++i) s += abs(d[i]);
-    const int dc = abs(d[0]);
-    const int tv = s - dc + (dc >> 2);
-    return ts == 8 ? (tv + 2) >> 2 : (tv + 1) >> 1;
-}
-
 // The warp form: SATD of up to 32 / TS tiles of TS x TS differences (TS 4
 // or 8), held in registers one row per lane: lanes TS*g .. TS*g + TS - 1
 // hold the rows of tile g in ``d``. Every lane of the warp must call it.
 // The row transform runs in registers, the column transform across the
 // tile's lanes with __shfl_xor_sync at distances 1, 2 (and 4); then the sum
-// of |coefficients| with VTM's DC/4 and rounding, as ``tile_satd``. Returns
-// the tile's SATD in each of its lanes (0 for a tile of zero differences).
+// of |coefficients| with VTM's DC/4 and rounding: (s + 2) >> 2 for 8x8,
+// (s + 1) >> 1 for 4x4. Returns the tile's SATD in each of its lanes (0 for
+// a tile of zero differences).
 template <int TS>
 static __device__ __forceinline__ int warp_tile_satd(int (&d)[TS]) {
     static_assert(TS == 4 || TS == 8, "SATD tiles are 4x4 or 8x8");

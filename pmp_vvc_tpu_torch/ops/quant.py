@@ -79,9 +79,19 @@ def quantize_reference(coef: torch.Tensor, *, w: int, h: int, qp: int,
     return torch.where(c < 0, -level, level).clamp(COEFF_MIN, COEFF_MAX).int()
 
 
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values taken to int32 two's complement (their low 32 bits)."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def dequantize_reference(level: torch.Tensor, *, w: int, h: int, qp: int,
                          bit_depth: int = 10) -> torch.Tensor:
-    """Quantized levels -> reconstructed transform coefficients (clip16)."""
+    """Quantized levels -> reconstructed transform coefficients (clip16).
+
+    In int32 arithmetic as the JAX package's ``dequantize``: where the
+    shift is a left shift, the product of a level near the 16-bit limit can
+    pass 2^31 (at 10 bits a 1x2 or 2x1 TU at internal QP 74-75) and wraps
+    before the clip. The right-shift branch stays below 2^31 (32,768 x 102)."""
     t_shift, sqrt2 = _geom(w, h, bit_depth)
     scale = int(INV_QUANT_SCALES[sqrt2][qp % 6])
     right_shift = IQUANT_SHIFT - ((t_shift - sqrt2) + qp // 6)
@@ -89,7 +99,7 @@ def dequantize_reference(level: torch.Tensor, *, w: int, h: int, qp: int,
     if right_shift > 0:
         deq = (lvl * scale + (1 << (right_shift - 1))) >> right_shift
     else:
-        deq = (lvl * scale) << (-right_shift)
+        deq = _wrap32((lvl * scale) << (-right_shift))
     return deq.clamp(COEFF_MIN, COEFF_MAX).int()
 
 

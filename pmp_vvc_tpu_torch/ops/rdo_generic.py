@@ -244,7 +244,10 @@ def rdo_leaf_cost_reference(rows, pad, orgs, lev, rec, lev_c, rec_c, params):
 
 def rdo_leaf_cost(rows, pad, orgs, lev, rec, lev_c, rec_c, params):
     """K9c: see ``rdo_leaf_cost_reference``; CPU tensors take it, CUDA
-    tensors launch ``csrc/rdo_leaf.cu``."""
+    tensors launch ``csrc/rdo_leaf.cu``, whose level and recon tiles must
+    start on a 16-byte boundary. The kernel reads the levels inside each
+    rect only: beyond it they must be zero, as K4's and K5's are, for the
+    plain version's count over the whole tile to be the same."""
     check_rows(rows)
     if rows.device.type == "cpu":
         return rdo_leaf_cost_reference(rows, pad, orgs, lev, rec, lev_c, rec_c, params)
@@ -261,6 +264,9 @@ def rdo_leaf_cost(rows, pad, orgs, lev, rec, lev_c, rec_c, params):
             (luma and (rec.shape != (nqp, B, P, P) or lev.shape != rec.shape)):
         raise ValueError(f"rdo_leaf_cost: tiles do not fit {nqp} QP points, {B} rows "
                          f"of pad {P}")
+    if any(t.data_ptr() % 16 for t in (lev, rec, lev_c, rec_c) if t is not None):
+        raise ValueError("rdo_leaf_cost reads the level and recon tiles as int4: they must "
+                         "be 16-byte aligned")
     cost = torch.empty((nqp, B), dtype=torch.float32, device=rows.device)
     _, Hc, Wc = orgs[1].shape
     ptr = lambda t: t.data_ptr() if t is not None else None

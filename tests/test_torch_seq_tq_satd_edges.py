@@ -6,8 +6,12 @@ transform-quantisation (K10c) with full-scale +-(2^bd - 1) residual patterns
 signs) at every shape of ``chip_smoke.SEQ_TQ_SHAPES`` and every kind at 8
 and 10 bits; levels at the 16-bit limits into the dequantiser and the
 inverse, in the signs that drive both inverse clips; QPs where the
-dequantiser's shift is 0 or negative (down to -9, where its int32 product
-still holds); coefficients on the dead zone's boundaries; negative sums at
+dequantiser's shift is 0 or negative, down to -11, the least at 10 bits (a
+1x1 TU, through the dequantiser alone), where the product of a level at the
+16-bit limit passes 2^31 on the 1x1, 1x2 and 2x1 TUs and wraps in int32 as
+the JAX package's does (the plain dequantiser wraps too:
+``test_dequantize_wraps_as_jax``); coefficients on the dead zone's
+boundaries; negative sums at
 a rounding half in the forward and inverse transforms and the
 dequantiser; and the zero-out at 64 (DCT-2) and 32 (DST-7 / DCT-8).
 ``seq_tq_reference`` must give what the jitted JAX ``forward_transform``,
@@ -104,3 +108,23 @@ def test_k10d_edges_match_jax():
         seen.update(dict(zip(chip_smoke.K10D_EDGE_CASES, chip_smoke.k10d_edge_seen(org, cur))))
     missing = [c for c in chip_smoke.K10D_EDGE_CASES if not seen[c]]
     assert not missing, missing
+
+
+@pytest.mark.parametrize("w, h", ((1, 2), (2, 1), (1, 1)))
+def test_dequantize_wraps_as_jax(w, h):
+    """Levels at the 16-bit limits on a 1x2 and a 2x1 TU at internal QP
+    74-75 (dequantiser shift -10) and on a 1x1 TU at QP 72-75 (-11, the
+    least): the exact product passes 2^31, and the plain dequantiser gives
+    what the jitted JAX ``dequantize`` gives in int32."""
+    lev = np.array([[32767, -32768], [-32768, 32767], [-32767, 32767], [1, -32768]],
+                   np.int32)[:, :w * h].reshape(4, h, w)
+    for qp in chip_smoke.K10C_WRAP_QPS[w, h]:
+        t_shift, sqrt2 = tquant._geom(w, h, 10)
+        shift = tquant.IQUANT_SHIFT - (t_shift - sqrt2 + qp // 6)
+        assert shift == chip_smoke.K10C_MIN_DEQ_SHIFT + (w * h > 1)
+        exact = lev.astype(np.int64) * int(tquant.INV_QUANT_SCALES[sqrt2][qp % 6]) << -shift
+        assert (np.abs(exact) >= 2 ** 31).any(), qp
+        want = np.asarray(jquant.dequantize(jnp.asarray(lev), w=w, h=h, qp=qp, bit_depth=10))
+        got = tquant.dequantize_reference(torch.from_numpy(lev), w=w, h=h, qp=qp).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"{w}x{h} at QP {qp}")
+        assert (got != np.clip(exact, -32768, 32767)).any(), qp   # it did wrap
