@@ -197,18 +197,29 @@ the encode CLI:
     zero-out at 64 and at 32) and K10d on its own (``K10D_EDGE_CASES``: differences of
     +-1023 at every tile shape, DC-only tiles, non-square tile sums that
     float32 rounds onto or next to an integer, one original for all
-    candidates and one each), each case reached; both wrappers refusing
-    inputs off the 16-byte grain; each timed at 16x16 (a CUDA graph of 50
-    calls) beside its plain version and the wrapper's round trip from numpy
-    to numpy.
+    candidates and one each), K10a on its own (``K10A_EDGE_CASES``: rows of
+    0 and the peak in turns and in runs of two, whose 4-tap sums pass the
+    range, flat rows, the wide angles of 4x64, 64x4 and 2x32, the side
+    projection at its clamp, the angular and the planar / DC PDPC, DC of
+    non-square CUs, sides of 2, 64x64, a single mode, repeated modes and
+    modes out of order, U and V in one call, 8 bits) and K10b on its own
+    (``K10B_EDGE_CASES``: every size class, upsampling by 16 both ways, a
+    negative first boundary term, reduced samples clipped at 0 and at the
+    peak, 8 bits), K10a's and K10b's rows at odd offsets of one upload as
+    the encoder passes them, each case reached; K10c's and K10d's wrappers
+    refusing inputs off the 16-byte grain; each timed at 16x16 (a CUDA
+    graph of 50 calls) beside its plain version and the wrapper's round trip
+    from numpy to numpy.
 20. The sequential path: ``FrameEncoder(mode_select="satd")`` with all 67
     RMD modes on 416x240 x 2 frames of natural content, the bench's tools
     without sign-data hiding and with MRL, ISP and dependent quantization,
     dual tree, the QP 22 maps; a cold run of one frame, then a warm run of
-    both with every K10 kernel's launches counted, K10c's by (stage mask,
-    w, h, kinds) and K10d's by (w, h, candidates) (``seq_call_mix``), every entry
-    of both mixes timed with its bound and the kernels' lost time over the
-    mix (``seq_mix_times``); frames/s, stage times,
+    both with every K10 kernel's launches counted, K10a's by (w, h, modes,
+    luma, blocks: a chroma CU's U and V are one call), K10b's by (w, h),
+    K10c's by (stage mask, w, h, kinds) and K10d's by (w, h, candidates)
+    (``seq_call_mix``), every entry of the four mixes timed with its bound
+    and the kernels' lost time over each mix (``seq_mix_times``); frames/s,
+    stage times,
     the MRL and ISP CUs and dependent-quantization TUs (each must occur),
     hash SEI and luma PSNR; one more frame under torch.profiler and
     cProfile (device idle share, the host's costliest functions).
@@ -297,7 +308,13 @@ equal streams); ``--k9b-times PARENT`` the same for K9b (``K9B_VARIANTS``,
 and ``--k9c-times PARENT`` for K9c (``K9C_VARIANTS``, ``k9c_cases``: one
 full chunk of each class in both trees at 1 and at 4 QP points; every
 build held to ``K9C_EDGE_CASES``), each with phase 12's checks and times
-and the L0 pair; ``--k10c-times PARENT`` the same for K10c (``K10C_VARIANTS``,
+and the L0 pair; ``--k10a-times PARENT`` the same for K10a
+(``K10A_VARIANTS``, ``k10a_cases``: 67 modes at 4x4, 16x16, 32x32 and 64x64
+luma, a chroma CU's U and V in one call at 4x4 and 16x16, planar alone at
+16x16; every build also held to ``K10A_EDGE_CASES``) and ``--k10b-times
+PARENT`` for K10b (``K10B_VARIANTS``, ``k10b_cases``: 4x4, 8x8, 16x16,
+4x64, 64x64; every build held to ``K10B_EDGE_CASES``); ``--k10c-times
+PARENT`` the same for K10c (``K10C_VARIANTS``,
 ``k10c_cases``: the 16x16 round trip at QP 37, the forward and the inverse
 transform alone at 32x16, 32x32 and 16x16, a 64x64 and a 1x16 round trip,
 16 TUs of 8x8; every build also held to the plain version on
@@ -307,9 +324,10 @@ and 64x64, 12 at 32x16, 67 of 4x4, 8 of 2x8, 8 of 16x16 with an original
 each; every build held to ``K10D_EDGE_CASES``), with phase 19's checks and
 times, then phase 20's encode (both frames cold, counting the call mix,
 then the first warm with the parent's kernel and this one in turns:
-``code`` time and wall of each, equal streams) and the mix timed for both
-(``phase_k10_seq``); each of them ends
-with the launch floor (K9a-c's, K10c's and K10d's before their path pairs);
+``code`` time and wall of each, equal streams) and the kernel's mix timed
+with both builds (``phase_k10_seq``; K10a's also counts the launches its
+stacked chroma call saves); each of them ends
+with the launch floor (K9a-c's and K10a-d's before their path pairs);
 none prints a result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
@@ -334,6 +352,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -4694,6 +4713,244 @@ def k10d_edge_checks(errs: dict) -> dict:
     return dict(zip(K10D_EDGE_CASES, seen.tolist()))
 
 
+# ---------------------------------------------------------------------------
+# K10a's and K10b's edge cases, held exactly to their plain versions
+# ---------------------------------------------------------------------------
+
+K10A_EDGE_CASES = ("4-tap sums past the range, clipped", "flat references",
+                   "wide angles at 2:1 to 16:1", "the side projection at its clamp",
+                   "angular PDPC", "planar and DC with PDPC", "DC of a non-square CU",
+                   "sides of 2", "64x64", "a single mode", "repeated modes",
+                   "modes out of order", "two CUs with different rows (U and V)", "8 bits")
+K10B_EDGE_CASES = ("sizeId 0 (4x4, 32 candidates)", "sizeId 1 (4xN, Nx4, 8x8; 16 candidates)",
+                   "sizeId 2 (12 candidates)", "upsampling by 16 across (64x4)",
+                   "upsampling by 16 down (4x64)", "a negative first boundary term",
+                   "a reduced sample clipped at 0", "a reduced sample clipped at the peak",
+                   "8 bits")
+# a chroma CU's modes as the sequential encoder lists them: the DM (here
+# VER) and the non-DM {PLANAR, VER, HOR, DC} with VER replaced by VDIA
+CHROMA_MODES = (50, 0, 66, 18, 1)
+ALL_MODES = tuple(range(67))
+# planar, DC and every fourth angular with the wide-angle ends: few modes
+# (the CPU test compiles the JAX predictor for each) that remap at every
+# aspect ratio and cover both orientations, both signs of the angle,
+# integer and fractional slopes
+SOME_MODES = (0, 1, *range(2, 67, 4), 3, 4, 5, 7, 59, 60, 61, 63, 65)
+
+
+def k10a_rows(kind: str, n: int, w: int, h: int, bd: int, luma: bool, rng) -> tuple:
+    """(top_u, left_u, top_f, left_f) int32 numpy rows of n CUs, the corner
+    shared: "random" samples, "alt1" 0 and the peak in turns, "alt2" runs of
+    two of each (the 4-tap filters' overshoot), "flat" one value a CU; the
+    filtered rows by ``filter_reference_samples`` (luma; chroma's equal the
+    unfiltered, which its table never leaves)."""
+    M = (1 << bd) - 1
+    rows, level = [], rng.randint(0, M + 1, (n, 1))
+    for ln in (2 * w + 3, 2 * h + 3):
+        if kind == "random":
+            r = rng.randint(0, M + 1, (n, ln))
+        elif kind == "flat":
+            r = np.repeat(level, ln, 1)
+        else:
+            run = 1 if kind == "alt1" else 2
+            ph = rng.randint(0, 2 * run, (n, 1))
+            r = M * (((np.arange(ln)[None, :] + ph) // run) % 2)
+        rows.append(r.astype(np.int32))
+    tu, lu = rows
+    lu[:, 0] = tu[:, 0]
+    if not luma:
+        return tu, lu, tu.copy(), lu.copy()
+    tf, lf = intra_ops.filter_reference_samples(torch.from_numpy(tu), torch.from_numpy(lu))
+    return tu, lu, tf.int().numpy(), lf.int().numpy()
+
+
+def k10a_edge_inputs(seed: int = 22) -> list:
+    """K10a's edge cases: (case, refs, w, h, modes, luma, bit depth) calls,
+    each case of K10A_EDGE_CASES in the calls it names (and in others); few
+    calls, since the CPU test compiles the JAX package's predictor for each."""
+    rng = np.random.RandomState(seed)
+    specs = [("4-tap sums past the range, clipped", "alt2", 1, 16, 16, ALL_MODES, True, 10),
+             ("4-tap sums past the range, clipped", "alt1", 1, 8, 4, SOME_MODES, True, 8),
+             ("flat references", "flat", 1, 32, 32, SOME_MODES, True, 10),
+             ("wide angles at 2:1 to 16:1", "random", 1, 4, 64, SOME_MODES, True, 10),
+             ("wide angles at 2:1 to 16:1", "alt2", 1, 64, 4, SOME_MODES, True, 10),
+             ("wide angles at 2:1 to 16:1", "random", 1, 2, 32, ALL_MODES, False, 10),
+             ("the side projection at its clamp", "random", 1, 8, 4, (19, 34, 49, 33, 35), True,
+              10),
+             ("angular PDPC", "random", 1, 16, 8, (2, 18, 50, 66, 58, 10), True, 10),
+             ("planar and DC with PDPC", "alt2", 1, 4, 4, (0, 1), True, 10),
+             ("DC of a non-square CU", "random", 1, 16, 4, (1, 0), True, 10),
+             ("sides of 2", "random", 1, 2, 2, ALL_MODES, False, 10),
+             ("64x64", "random", 1, 64, 64, SOME_MODES, True, 10),
+             ("a single mode", "random", 1, 16, 16, (0,), True, 10),
+             ("repeated modes", "random", 1, 8, 16, (66, 0, 66, 1, 34, 2, 0, 1), True, 10),
+             ("modes out of order", "random", 1, 32, 16, (66, 18, 1, 50, 0, 2, 34), True, 10),
+             ("two CUs with different rows (U and V)", "random", 2, 8, 8, CHROMA_MODES, False, 10),
+             ("two CUs with different rows (U and V)", "alt2", 2, 16, 16, CHROMA_MODES, False, 10),
+             ("8 bits", "random", 1, 16, 32, SOME_MODES, True, 8)]
+    return [(case, k10a_rows(kind, n, w, h, bd, luma, rng), w, h, modes, luma, bd)
+            for case, kind, n, w, h, modes, luma, bd in specs]
+
+
+def _angular_facts(refs, w: int, h: int, modes, luma: bool, bd: int) -> tuple[bool, bool]:
+    """(a 4-tap sum past [0, peak], a nonzero tap on a side projection
+    index that its clamp to the side's length cut) over the call's angular
+    modes, restated from ``predict_block``'s extended reference."""
+    tu, lu, tf, lf = (r.astype(np.int64) for r in refs)
+    past = clamp = False
+    for m in sorted(set(modes)):
+        p = intra_ops.mode_params(w, h, m, is_luma=luma)
+        if m < 2:
+            continue
+        main, side = (tf, lf) if p.use_filtered else (tu, lu)
+        if not p.is_ver:
+            main, side = side, main
+        wp, hp = (w, h) if p.is_ver else (h, w)
+        dpos = p.angle * (1 + np.arange(hp))
+        dint, dfrac = dpos >> 5, dpos & 31
+        if luma and p.interpolate_gauss:
+            half = dfrac >> 1
+            f = np.stack([16 - half, 32 - half, 16 + half, half], -1)
+        elif luma:
+            f = intra_ops.CHROMA_FILTER[dfrac].astype(np.int64)
+        else:
+            f = np.stack([0 * dfrac, 64 - 2 * dfrac, 2 * dfrac, 0 * dfrac], -1)
+        raw = (np.arange(1, hp + 1) * p.inv_angle + 256) >> 9
+        ref = np.concatenate([side[:, np.minimum(raw, hp)[::-1]], main], 1)
+        base = hp + dint[:, None] + np.arange(wp)[None, :]
+        acc = 0
+        for k in range(4):
+            idx = np.clip(base + k, 0, ref.shape[1] - 1)
+            acc = acc + f[:, None, k] * ref[:, idx]
+            cut = (idx < hp) & (raw[np.clip(hp - idx - 1, 0, hp - 1)] > hp) & (f[:, None, k] != 0)
+            clamp |= p.angle < 0 and bool(cut.any())
+        v = (acc + 32) >> 6
+        past |= bool(((v < 0) | (v > (1 << bd) - 1)).any())
+    return past, clamp
+
+
+def k10a_edge_seen(refs, w: int, h: int, modes, luma: bool, bd: int) -> np.ndarray:
+    """Which K10A_EDGE_CASES one call shows, as booleans."""
+    params = [intra_ops.mode_params(w, h, m, is_luma=luma) for m in modes]
+    past, clamp = _angular_facts(refs, w, h, modes, luma, bd)
+    flat = all((r == r[:, :1]).all() for r in refs)
+    return np.array([
+        past, flat, w != h and any(p.pred_mode != p.mode for p in params), clamp,
+        any(p.mode >= 2 and p.apply_pdpc for p in params),
+        min(w, h) >= 4 and any(p.mode < 2 for p in params),
+        w != h and 1 in modes, min(w, h) == 2, w == h == 64, len(modes) == 1,
+        len(set(modes)) < len(modes), list(modes) != sorted(modes),
+        len(refs[0]) == 2 and not all((r[0] == r[1]).all() for r in refs), bd == 8])
+
+
+def _mip_reduced_raw(top, left, w: int, h: int, bd: int) -> tuple[np.ndarray, np.ndarray]:
+    """(the first boundary term of t = 0 and 1, every reduced sample of
+    both before its clip at 0 and the peak), restated from
+    ``predict_mip_all_reference``."""
+    sid = mip_ops.size_id(w, h)
+    red_b = 2 if sid == 0 else 4
+    mat = mip_ops._matrices()[sid].astype(np.int64)
+    rt = mip_ops._downsample(top[1:1 + w].astype(np.int64), red_b)
+    rl = mip_ops._downsample(left[1:1 + h].astype(np.int64), red_b)
+    firsts, raws = [], []
+    for bdry in (np.concatenate([rt, rl]), np.concatenate([rl, rt])):
+        off = bdry[0]
+        first = (1 << (bd - 1)) - off if sid < 2 else 0
+        vec = np.concatenate([[first], bdry[1:] - off])
+        add = (1 << (mip_ops.MIP_SHIFT - 1)) - mip_ops.MIP_OFFSET * vec.sum()
+        raws.append(((mat @ (vec[1:] if sid == 2 else vec) + add) >> mip_ops.MIP_SHIFT) + off)
+        firsts.append(first)
+    return np.array(firsts), np.stack(raws)
+
+
+def k10b_edge_inputs(seed: int = 23) -> list:
+    """K10b's edge cases: (top, left, w, h, bit depth) calls at every size
+    class and both 16-fold upsamplings, at 10 and 8 bits in turns, on
+    random rows, rows at the peak and at 0 (the top row at the peak, then
+    the left) and a step from the peak to 0 along each row; few calls,
+    since the CPU test compiles the JAX package's MIP for each."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, (w, h) in enumerate(((4, 4), (8, 8), (4, 16), (16, 4), (4, 64), (64, 4), (16, 16),
+                                (32, 8), (8, 32), (64, 64))):
+        bd = (10, 8)[i % 2]
+        M = (1 << bd) - 1
+        rows = [(rng.randint(0, M + 1, 2 * w + 3), rng.randint(0, M + 1, 2 * h + 3)),
+                (np.full(2 * w + 3, M), np.zeros(2 * h + 3)),
+                (np.zeros(2 * w + 3), np.full(2 * h + 3, M)),
+                (M * (np.arange(2 * w + 3) < w // 2), M * (np.arange(2 * h + 3) >= h // 2))]
+        for top, left in rows:
+            left = left.copy()
+            left[0] = top[0]
+            out.append((np.ascontiguousarray(top, np.int32), np.ascontiguousarray(left, np.int32),
+                        w, h, bd))
+    return out
+
+
+def k10b_edge_seen(top, left, w: int, h: int, bd: int) -> np.ndarray:
+    """Which K10B_EDGE_CASES one call shows, as booleans."""
+    sid = mip_ops.size_id(w, h)
+    firsts, raw = _mip_reduced_raw(top, left, w, h, bd)
+    return np.array([sid == 0, sid == 1, sid == 2, w == 64 and h == 4, w == 4 and h == 64,
+                     bool((firsts < 0).any()), bool((raw < 0).any()),
+                     bool((raw > (1 << bd) - 1).any()), bd == 8])
+
+
+def dev_views(arrays) -> tuple:
+    """Numpy arrays as views of one int32 upload at their offsets in it
+    (odd ones, off the 16-byte grain), as ``FrameEncoder._refs_dev``
+    uploads reference rows."""
+    flat = torch.from_numpy(np.concatenate([np.ravel(a) for a in arrays]).astype(np.int32))
+    flat = flat.to(DEVICE)
+    out, off = [], 0
+    for a in arrays:
+        out.append(flat[off:off + a.size].view(a.shape))
+        off += a.size
+    return tuple(out)
+
+
+def k10a_edge_calls() -> list:
+    """(kernel call, plain outputs) of every ``k10a_edge_inputs`` call on
+    rows uploaded as the encoder uploads them."""
+    calls = []
+    for _, refs, w, h, modes, luma, bd in k10a_edge_inputs():
+        kw = dict(w=w, h=h, modes=modes, is_luma=luma, bit_depth=bd)
+        d = dev_views(refs)
+        calls.append((functools.partial(intra_ops.predict_block, *d, **kw),
+                      intra_ops.predict_block_reference(*d, **kw)))
+    return calls
+
+
+def k10b_edge_calls() -> list:
+    """(kernel call, plain outputs) of every ``k10b_edge_inputs`` call, the
+    rows uploaded as the encoder uploads them."""
+    calls = []
+    for top, left, w, h, bd in k10b_edge_inputs():
+        t, lft = dev_views((top, left))
+        kw = dict(w=w, h=h, bit_depth=bd)
+        calls.append((functools.partial(mip_ops.predict_mip_all, t, lft, **kw),
+                      mip_ops.predict_mip_all_reference(t, lft, **kw)))
+    return calls
+
+
+def k10a_edge_checks(errs: dict) -> dict:
+    """K10a against its plain version on ``k10a_edge_inputs``; {case: calls
+    that show it}."""
+    for call, want in k10a_edge_calls():
+        _cmp("seq_intra", call(), want, errs)
+    seen = sum(k10a_edge_seen(*args[1:]).astype(np.int64) for args in k10a_edge_inputs())
+    return dict(zip(K10A_EDGE_CASES, seen.tolist()))
+
+
+def k10b_edge_checks(errs: dict) -> dict:
+    """K10b against its plain version on ``k10b_edge_inputs``; {case: calls
+    that show it}."""
+    for call, want in k10b_edge_calls():
+        _cmp("seq_mip", call(), want, errs)
+    seen = sum(k10b_edge_seen(*args).astype(np.int64) for args in k10b_edge_inputs())
+    return dict(zip(K10B_EDGE_CASES, seen.tolist()))
+
+
 def seq_refs(n: int, w: int, h: int, bd: int, luma: bool, rng) -> tuple:
     """(top_u, left_u, top_f, left_f) int32 rows of n blocks on the card:
     random samples, the corner shared, the filtered rows from
@@ -4716,9 +4973,11 @@ def seq_tq_input(stages: int, w: int, h: int, n: int, rng) -> torch.Tensor:
 
 
 def seq_bounds(name: str, w: int, h: int, k: int, stages: int = quant_ops.ROUND_TRIP,
-               kinds: tuple = (DCT2, DCT2)) -> tuple[float, str, int, int]:
+               kinds: tuple = (DCT2, DCT2), n: int = 1,
+               luma: bool = True) -> tuple[float, str, int, int]:
     """(bound ms, bound_by, bytes, ops) of one timed K10 call on a w x h
-    block: K10a predicts k modes from four reference rows; K10b all k
+    block: K10a predicts k modes of each of n blocks from their four
+    reference rows (chroma from its two unfiltered ones); K10b all k
     candidates; K10c the stages of ``stages`` on k TUs of ``kinds``
     (horizontal, vertical), every stage's output written: a multiply-add
     for each kept coefficient's forward sum, for each residual's inverse
@@ -4728,7 +4987,9 @@ def seq_bounds(name: str, w: int, h: int, k: int, stages: int = quant_ops.ROUND_
     |difference| or its square. Inputs read once, outputs written once."""
     hw = w * h
     if name == "seq_intra":
-        nbytes, ops = 4 * (2 * (2 * w + 3) + 2 * (2 * h + 3)) + 4 * k * hw, k * hw * OPS_PRED
+        rows = 2 if luma else 1
+        nbytes = n * (4 * rows * (2 * w + 3 + 2 * h + 3) + 4 * k * hw)
+        ops = n * k * hw * OPS_PRED
     elif name == "seq_mip":
         rp = 4 if mip_ops.size_id(w, h) < 2 else 8
         nbytes = 4 * (2 * w + 3 + 2 * h + 3) + 4 * k * hw
@@ -4792,7 +5053,9 @@ def phase_seq_kernels() -> tuple[dict, dict]:
     included) at 8 and 10 bits; K10b at every size class; K10c on every MTS
     pair, DCT-2 at 64 and the ISP shapes at QP 0/22/37/51 (the fused round
     trip) and with every stage mask, and on ``K10C_EDGE_CASES``; K10d on
-    every tile shape and on ``K10D_EDGE_CASES``; both wrappers refusing
+    every tile shape and on ``K10D_EDGE_CASES``; K10a and K10b on
+    ``K10A_EDGE_CASES`` / ``K10B_EDGE_CASES`` with their rows at odd
+    offsets of one upload; K10c's and K10d's wrappers refusing
     inputs off the 16-byte grain; K10e on ``k10e_inputs``. Then each
     kernel's device time per call at 16x16 (a CUDA graph of 50 calls), its
     plain version's and the wrapper's round trip from numpy to numpy."""
@@ -4837,8 +5100,12 @@ def phase_seq_kernels() -> tuple[dict, dict]:
         n_checked["seq_satd"] += 1
     check(tiles == {(8, 16), (16, 8), (4, 8), (8, 4), (8, 8), (4, 4), (2, 2)},
           f"K10d tile shapes checked: {sorted(tiles)}")
+    # K10a's and K10b's edge calls pass their rows as the encoder does,
+    # views at odd offsets of one upload, which both wrappers must take
     for kernel, cases, seen in (("K10c", K10C_EDGE_CASES, k10c_edge_checks(errs)),
-                                ("K10d", K10D_EDGE_CASES, k10d_edge_checks(errs))):
+                                ("K10d", K10D_EDGE_CASES, k10d_edge_checks(errs)),
+                                ("K10a", K10A_EDGE_CASES, k10a_edge_checks(errs)),
+                                ("K10b", K10B_EDGE_CASES, k10b_edge_checks(errs))):
         missing = [c for c in cases if not seen[c]]
         check(not missing, f"{kernel}'s edge cases not reached: {missing}")
         log(f"[seq-kernels] {kernel} equal to its plain version on its edge cases "
@@ -4925,14 +5192,35 @@ SEQ_TQ_NAMES = {"seq_tq": None, "forward_transform": quant_ops.FWD,
                 "inverse_transform": quant_ops.INV}
 
 
+def _counted_module(module, name: str, key, mix: collections.Counter):
+    """``module`` as a namespace whose ``name`` adds ``key(*args, **kw)``
+    to ``mix`` and then calls the module's function; every other name is
+    the module's. The function itself is untouched, so its launch count,
+    which it keeps through its own module's name, still counts."""
+    fn = getattr(module, name)
+
+    def call(*args, **kw):
+        mix[key(*args, **kw)] += 1
+        return fn(*args, **kw)
+    return types.SimpleNamespace(**{**vars(module), name: call})
+
+
+def _k10a_key(tu, *args, w, h, modes, is_luma=True, **kw):
+    return (w, h, len(modes), is_luma, tu.shape[0])
+
+
 @contextlib.contextmanager
 def seq_call_mix():
-    """The sequential encoder's K10c calls counted by (stage mask, w, h,
-    kind_h, kind_v) and its K10d calls by (w, h, candidates), through the
-    names that ``codec/encoder.py`` imported from the wrappers' modules (the
-    wrappers and their launch counts unchanged); yields the two Counters.
-    The quantiser and dequantiser alone take no kind: DCT-2 stands for it."""
-    tq_mix, satd_mix = collections.Counter(), collections.Counter()
+    """The sequential encoder's K10 calls counted through the names that
+    ``codec/encoder.py`` calls them by, the wrappers and their launch
+    counts unchanged: K10a's by (w, h, modes, luma, blocks), K10b's by (w,
+    h), K10c's by (stage mask, w, h, kind_h, kind_v), K10d's by (w, h,
+    candidates); yields {"k10a": Counter, ...}. The encoder reaches K10a
+    and K10b through their modules, which it then sees as
+    ``_counted_module`` namespaces. The quantiser and dequantiser alone
+    take no kind: DCT-2 stands for it."""
+    mixes = {k: collections.Counter() for k in ("k10a", "k10b", "k10c", "k10d")}
+    tq_mix, satd_mix = mixes["k10c"], mixes["k10d"]
 
     def tq_counted(fn, mask):
         sig = inspect.signature(fn)
@@ -4949,15 +5237,26 @@ def seq_call_mix():
         satd_mix[(w, h, cur.numel() // (h * w))] += 1
         return saved["satd"](org, cur, **kw)
 
-    saved = {name: getattr(seq_enc, name) for name in [*SEQ_TQ_NAMES, "satd"]}
+    saved = {name: getattr(seq_enc, name) for name in [*SEQ_TQ_NAMES, "satd", "intra_ops",
+                                                       "mip_ops"]}
     for name, mask in SEQ_TQ_NAMES.items():
         setattr(seq_enc, name, tq_counted(saved[name], mask))
     seq_enc.satd = satd_counted
+    seq_enc.intra_ops = _counted_module(intra_ops, "predict_block", _k10a_key, mixes["k10a"])
+    seq_enc.mip_ops = _counted_module(mip_ops, "predict_mip_all",
+                                      lambda *a, w, h, **kw: (w, h), mixes["k10b"])
     try:
-        yield tq_mix, satd_mix
+        yield mixes
     finally:
         for name, fn in saved.items():
             setattr(seq_enc, name, fn)
+
+
+def k10a_pair_calls(mix: collections.Counter) -> int:
+    """K10a's calls in ``mix`` that predicted two blocks (a chroma CU's U and
+    V): each stands for two launches of a caller that predicts a plane a
+    call."""
+    return sum(n for key, n in mix.items() if key[4] == 2)
 
 
 def seq_encode(enc, frames, maps_l, maps_c) -> list:
@@ -4994,7 +5293,7 @@ def phase_seq_encode(preds: dict) -> dict:
     counts = collections.Counter()
     t0 = time.perf_counter()
     outs = []
-    with seq_call_mix() as (tq_mix, satd_mix):
+    with seq_call_mix() as mixes:
         for f, (y, u, v) in enumerate(frames):
             outs.append(enc.encode_frame(y, u, v, maps=maps_l[f], chroma_maps=maps_c[f], poc=f))
             counts.update(seq_counts(enc))
@@ -5018,18 +5317,40 @@ def phase_seq_encode(preds: dict) -> dict:
         check(psnr > 30, f"frame {f}: luma PSNR {psnr:.2f} dB")
         log(f"[seq-encode] frame {f}: {len(bs)} bytes, luma PSNR {psnr:.3f} dB, hash SEI "
             f"equal to the recon's MD5")
-    check(sum(tq_mix.values()) == launches["seq_tq"] and
-          sum(satd_mix.values()) == launches["seq_satd"],
-          f"the call mix ({sum(tq_mix.values())}, {sum(satd_mix.values())}) is not the launches")
-    seq_mix_times(tq_mix, satd_mix, "[seq-encode]", {"new": None})
+    counted = {TIMED_KERNELS[k][0]: sum(mix.values()) for k, mix in mixes.items()}
+    check(all(counted[name] == launches[name] for name in counted),
+          f"the call mix ({counted}) is not the launches")
+    pairs = k10a_pair_calls(mixes["k10a"])
+    log(f"[seq-encode] K10a: {launches['seq_intra']} launches, {pairs} of them a chroma CU's U "
+        f"and V in one call ({launches['seq_intra'] + pairs} a call a plane)")
+    seq_mix_times(mixes, "[seq-encode]", {"new": None})
     phase_seq_profile(enc, frames[0], maps_l[0], maps_c[0])
     return launches
 
 
+def mix_modes(m: int) -> tuple:
+    """m modes spread over 0..66 (planar first, VDIA last), standing for a
+    K10a call's list of that length in the call mix."""
+    return tuple(int(v) for v in np.linspace(0, 66, m))
+
+
 def seq_mix_inputs(key: tuple, name: str, rng):
     """(call, bound ms) of one entry of the sequential path's call mix:
-    K10c's (stage mask, w, h, kind_h, kind_v) on one TU at QP 37, K10d's
-    (w, h, candidates) against one original."""
+    K10a's (w, h, modes, luma, blocks) on ``mix_modes`` and K10b's (w, h)
+    on random rows uploaded as the encoder uploads them, K10c's (stage
+    mask, w, h, kind_h, kind_v) on one TU at QP 37, K10d's (w, h,
+    candidates) against one original."""
+    if name == "seq_intra":
+        w, h, m, luma, n = key
+        refs, modes = dev_views(k10a_rows("random", n, w, h, BD, luma, rng)), mix_modes(m)
+        return ((lambda: intra_ops.predict_block(*refs, w=w, h=h, modes=modes, is_luma=luma,
+                                                 bit_depth=BD)),
+                seq_bounds(name, w, h, m, n=n, luma=luma)[0])
+    if name == "seq_mip":
+        w, h = key
+        top, left = dev_views([r[0] for r in k10a_rows("random", 1, w, h, BD, False, rng)[:2]])
+        return ((lambda: mip_ops.predict_mip_all(top, left, w=w, h=h, bit_depth=BD)),
+                seq_bounds(name, w, h, 2 * mip_ops.num_modes(w, h))[0])
     if name == "seq_tq":
         stages, w, h, kh, kv = key
         x = seq_tq_input(stages, w, h, 1, rng)[0]
@@ -5042,18 +5363,18 @@ def seq_mix_inputs(key: tuple, name: str, rng):
     return (lambda: dist_ops.satd(org, cur)), seq_bounds(name, w, h, k)[0]
 
 
-def seq_mix_times(tq_mix, satd_mix, tag: str, libs: dict, kernels=("k10c", "k10d")) -> dict:
-    """Every entry of the sequential path's K10c and K10d call mixes timed
-    (CUDA graph of 50) with each of ``libs`` ({label: library, None for the
-    port's own build} of the ``kernels`` they replace) in turns; the top
-    entries logged with their bounds, and each label's lost time, launches
-    x (time - bound) summed over the mix. {kernel: {label: lost ms}}."""
+def seq_mix_times(mixes: dict, tag: str, libs: dict,
+                  kernels=("k10a", "k10b", "k10c", "k10d")) -> dict:
+    """Every entry of the sequential path's call mixes (``seq_call_mix``)
+    of ``kernels`` timed (CUDA graph of 50) with each of ``libs`` ({label:
+    library, None for the port's own build} of the kernels they replace) in
+    turns; the top entries logged with their bounds, and each label's lost
+    time, launches x (time - bound) summed over the mix. {kernel: {label:
+    lost ms}}."""
     rng = np.random.RandomState(30)
     out = {}
-    for kernel, mix in (("k10c", tq_mix), ("k10d", satd_mix)):
-        if kernel not in kernels:
-            continue
-        name = TIMED_KERNELS[kernel][0]
+    for kernel in kernels:
+        mix, name = mixes[kernel], TIMED_KERNELS[kernel][0]
         lost = collections.Counter()
         rows = []
         for key, n in mix.most_common():
@@ -5836,7 +6157,7 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A redesigned kernel (K1-K7, K9a-c, K10c, K10d) beside the parent commit's and
+# A redesigned kernel (K1-K7, K9a-c, K10a-d) beside the parent commit's and
 # its other shapes
 # ---------------------------------------------------------------------------
 
@@ -6314,6 +6635,66 @@ def k10d_edge_variant_checks() -> list:
     return [("K10D_EDGE_CASES", make)]
 
 
+def k10a_call(w: int, h: int, modes: tuple, luma: bool, n: int = 1):
+    """(K10a on n CUs of w x h for ``modes``, its plain version's outputs),
+    the rows uploaded as the encoder uploads them."""
+    rng = np.random.RandomState(w * 131 + h * 7 + len(modes) + n)
+    refs = dev_views(k10a_rows("random", n, w, h, BD, luma, rng))
+    kw = dict(w=w, h=h, modes=modes, is_luma=luma, bit_depth=BD)
+    return ((lambda: [intra_ops.predict_block(*refs, **kw)]),
+            [intra_ops.predict_block_reference(*refs, **kw)])
+
+
+def k10a_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K10a: the 67 RMD modes at 4x4,
+    16x16, 32x32 and 64x64 luma, a chroma CU's U and V in one call (its
+    DM and the four others) at 4x4 and 16x16, planar alone at 16x16 luma
+    (``mode_select="planar"``); ``width`` and ``height`` unused."""
+    cases = [(f"67 modes, {s}x{s} luma", s, s, ALL_MODES, True, 1) for s in (4, 16, 32, 64)]
+    cases += [(f"U and V, {s}x{s} chroma, 5 modes", s, s, CHROMA_MODES, False, 2)
+              for s in (4, 16)]
+    cases += [("planar alone, 16x16 luma", 16, 16, (0,), True, 1)]
+    return [(label, functools.partial(k10a_call, w, h, modes, luma, n))
+            for label, w, h, modes, luma, n in cases]
+
+
+def k10b_call(w: int, h: int):
+    """(K10b on one w x h block, its plain version's outputs), the rows
+    uploaded as the encoder uploads them."""
+    rng = np.random.RandomState(w * 131 + h)
+    top, left = dev_views([r[0] for r in k10a_rows("random", 1, w, h, BD, False, rng)[:2]])
+    kw = dict(w=w, h=h, bit_depth=BD)
+    return ((lambda: [mip_ops.predict_mip_all(top, left, **kw)]),
+            [mip_ops.predict_mip_all_reference(top, left, **kw)])
+
+
+def k10b_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K10b: every size class (4x4,
+    8x8, 16x16), both 16-fold upsamplings' shape 4x64 and 64x64;
+    ``width`` and ``height`` unused."""
+    return [(f"{w}x{h}, {2 * mip_ops.num_modes(w, h)} candidates",
+             functools.partial(k10b_call, w, h))
+            for w, h in ((4, 4), (8, 8), (16, 16), (4, 64), (64, 64))]
+
+
+def k10a_edge_variant_checks() -> list:
+    """K10a's edge cases (``k10a_edge_inputs``) as one ``VARIANT_CHECKS``
+    entry."""
+    def make():
+        calls = k10a_edge_calls()
+        return (lambda: [call() for call, _ in calls]), [want for _, want in calls]
+    return [("K10A_EDGE_CASES", make)]
+
+
+def k10b_edge_variant_checks() -> list:
+    """K10b's edge cases (``k10b_edge_inputs``) as one ``VARIANT_CHECKS``
+    entry."""
+    def make():
+        calls = k10b_edge_calls()
+        return (lambda: [call() for call, _ in calls]), [want for _, want in calls]
+    return [("K10B_EDGE_CASES", make)]
+
+
 LAUNCH_FLOOR_SRC = _build.CSRC / "probes" / "launch_floor.cu"
 LAUNCH_FLOOR_ARGS = (_build.INT, _build.INT, _build.PTR)   # blocks, threads, stream
 
@@ -6432,6 +6813,15 @@ K10C_VARIANTS = {"4 outputs a thread, a warp up to 256 samples, 8 samples a thre
                  "a warp up to 256 samples (16x16 on a warp)": ("-DK10C_WARP_MAX=256",),
                  "a warp up to 32 samples (8x8 and 16x8 on blocks)": ("-DK10C_WARP_MAX=32",),
                  "4 samples a thread above a warp": ("-DK10C_EPT=4",)}
+K10A_VARIANTS = {"8 warps a block": ("-DK10A_WARPS=8",),
+                 "4 samples a thread at every size": ("-DK10A_SMALL=0",),
+                 "one sample a thread up to 32x32": ("-DK10A_SMALL=1024",),
+                 "small modes sharing warps in lane groups": ("-DK10A_LANE_GROUPS=1",)}
+K10B_VARIANTS = {"one thread block per CU at every size": ("-DK10B_SAMPLES=65536",),
+                 "a block per CU up to 16x16, 8 warps": ("-DK10B_SAMPLES=4096",
+                                                         "-DK10B_WARPS=8"),
+                 "one candidate a block at 4x4 too": ("-DK10B_SAMPLES=16",),
+                 "8 warps a block": ("-DK10B_WARPS=8",)}
 K10D_VARIANTS = {"one candidate a warp": ("-DK10D_CPW_MAX=1",),
                  "4 warps a block": ("-DK10D_WARPS=4",),
                  "8 warps a block": ("-DK10D_WARPS=8",),
@@ -6439,7 +6829,8 @@ K10D_VARIANTS = {"one candidate a warp": ("-DK10D_CPW_MAX=1",),
                  "8 warps a candidate above a warp": ("-DK10D_WARPS_LARGE=8",)}
 # ``--k1-times`` / ``--k2-times`` / ``--k3-times`` / ``--k4-times`` /
 # ``--k5-times`` / ``--k6a-times`` / ``--k7-times`` / ``--k9a-times`` /
-# ``--k9b-times`` / ``--k9c-times`` / ``--k10c-times`` / ``--k10d-times``:
+# ``--k9b-times`` / ``--k9c-times`` / ``--k10a-times`` / ``--k10b-times`` /
+# ``--k10c-times`` / ``--k10d-times``:
 # (library, wrapper module,
 # variants, the function that gives the timed cases: (label, the function
 # that makes the call, its plain outputs and, for a kernel that writes in
@@ -6455,12 +6846,15 @@ TIMED_KERNELS = {"k1": ("ref_gather", ig, K1_VARIANTS, k1_cases),
                  "k9a": ("rdo_leaf", rg, K9A_VARIANTS, k9a_cases),
                  "k9b": ("rdo_leaf", rg, K9B_VARIANTS, k9b_cases),
                  "k9c": ("rdo_leaf", rg, K9C_VARIANTS, k9c_cases),
+                 "k10a": ("seq_intra", intra_ops, K10A_VARIANTS, k10a_cases),
+                 "k10b": ("seq_mip", mip_ops, K10B_VARIANTS, k10b_cases),
                  "k10c": ("seq_tq", quant_ops, K10C_VARIANTS, k10c_cases),
                  "k10d": ("seq_satd", dist_ops, K10D_VARIANTS, k10d_cases)}
 # untimed inputs on which every build of ``phase_variant_times`` must equal
 # the plain version too: (label, the function that makes the call and its
 # plain outputs)
 VARIANT_CHECKS = {"k9a": k9a_tie_cases, "k9b": k9b_tie_cases, "k9c": k9c_edge_cases,
+                  "k10a": k10a_edge_variant_checks, "k10b": k10b_edge_variant_checks,
                   "k10c": k10c_edge_variant_checks,
                   "k10d": k10d_edge_variant_checks}
 
@@ -6546,7 +6940,7 @@ def phase_rdo_l0(kernel: str, parent: pathlib.Path) -> None:
 def phase_k10_seq(kernel: str, parent: pathlib.Path) -> None:
     """Phase 20's sequential encode: both 416x240 frames cold, counting the
     path's call mix, then the first frame warm with the parent commit's
-    K10c or K10d (``parent``'s source) and this one in turns (parent, new,
+    K10a, K10b, K10c or K10d (``parent``'s source) and this one in turns (parent, new,
     new, parent): each run's ``code`` time and wall; the four streams
     byte-identical, each hash SEI its recon's MD5; the mix's every entry
     timed for both kernels, and each one's lost time (``seq_mix_times``)."""
@@ -6578,25 +6972,32 @@ def phase_k10_seq(kernel: str, parent: pathlib.Path) -> None:
                                   f"and this one")
     log(f"[{kernel}-times] sequential path: the four streams byte-identical "
         f"({len(streams[0])} bytes), every hash SEI its recon's MD5")
-    seq_mix_times(*mixes, f"[{kernel}-times]", {"parent": lib, "new": None}, (kernel,))
+    if kernel == "k10a":
+        pairs = k10a_pair_calls(mixes["k10a"])
+        log(f"[k10a-times] sequential path (2 frames): {sum(mixes['k10a'].values())} K10a "
+            f"launches, {pairs} of them a chroma CU's U and V in one call: "
+            f"{sum(mixes['k10a'].values()) + pairs} with a call a plane")
+    seq_mix_times(mixes, f"[{kernel}-times]", {"parent": lib, "new": None}, (kernel,))
 
 
 def times_only(kernel: str, parent: pathlib.Path) -> int:
     """``--k1-times PARENT`` / ``--k2-times PARENT`` / ``--k3-times PARENT``
     / ``--k4-times PARENT`` / ``--k5-times PARENT`` / ``--k6a-times PARENT``
     / ``--k7-times PARENT`` / ``--k9a-times PARENT`` / ``--k9b-times
-    PARENT`` / ``--k9c-times PARENT`` / ``--k10c-times PARENT`` /
-    ``--k10d-times PARENT``: the build, the encode
+    PARENT`` / ``--k9c-times PARENT`` / ``--k10a-times PARENT`` /
+    ``--k10b-times PARENT`` / ``--k10c-times PARENT`` / ``--k10d-times
+    PARENT``: the build, the encode
     kernels' checks and times (the K2, K3, K4, K5 and K6a tie cases and K1's
     and K7's edge cases among them, and the launch floor; K5's time shows
     what K4's shared ``csrc/tq_team.cuh`` left of it), for K1, K4, K6a and
     K9a-c the device RDO's kernel checks and times (all on the RDO's path,
     K9a and K9b with their tie cases, K9c with its edge cases; K9 shares
-    ``csrc/satd.cuh``), K10a-e's checks and times (K10b shares K3's
-    ``csrc/mip.cuh``, K10c ``csrc/tq.cuh``, K10d ``csrc/satd.cuh``),
+    ``csrc/satd.cuh``), K10a-e's checks and times (K10a shares K2's and
+    K9's ``csrc/intra_pred.cuh``, K10b K3's ``csrc/mip.cuh``, K10c
+    ``csrc/tq.cuh``, K10d ``csrc/satd.cuh``),
     ``phase_variant_times`` against the parent checkout, for K9a-c the L0
     path with the parent's K9 library and this one (``phase_rdo_l0``), for
-    K10c and K10d the sequential path with the parent's kernel and this one
+    K10a-d the sequential path with the parent's kernel and this one
     (``phase_k10_seq``); prints no result line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
@@ -6607,7 +7008,7 @@ def times_only(kernel: str, parent: pathlib.Path) -> int:
     phase_variant_times(kernel, parent)
     if kernel in ("k9a", "k9b", "k9c"):
         phase_rdo_l0(kernel, parent)
-    if kernel in ("k10c", "k10d"):
+    if kernel in ("k10a", "k10b", "k10c", "k10d"):
         phase_k10_seq(kernel, parent)
     log(card_line())
     log(f"[{kernel}-times] partial run: no result line")
@@ -6676,7 +7077,8 @@ def main() -> int:
         return md_only()
     if sys.argv[1:2] in (["--k1-times"], ["--k2-times"], ["--k3-times"], ["--k4-times"],
                          ["--k5-times"], ["--k6a-times"], ["--k7-times"], ["--k9a-times"],
-                         ["--k9b-times"], ["--k9c-times"], ["--k10c-times"], ["--k10d-times"]):
+                         ["--k9b-times"], ["--k9c-times"], ["--k10a-times"], ["--k10b-times"],
+                         ["--k10c-times"], ["--k10d-times"]):
         return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()

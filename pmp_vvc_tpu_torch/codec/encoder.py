@@ -17,7 +17,8 @@ CC-ALF, NAL units with the LMCS and ALF APS, decoded-picture-hash SEI).
 
 Each block's device work goes through the K10 kernels on ``device`` (the
 card unless the caller passes ``device="cpu"``, which runs their plain
-versions): K10a ``ops/intra.py:predict_block``, K10b
+versions): K10a ``ops/intra.py:predict_block`` (a chroma CU's U and V
+rows stacked into one call), K10b
 ``ops/mip.py:predict_mip_all``, K10c ``ops/quant.py:seq_tq`` (with its
 one-stage forms) and K10d ``ops/distortion.py:satd``. The host reads every
 result back: the RD decisions are host Python, as in the JAX package.
@@ -258,20 +259,19 @@ class FrameEncoder:
         return t.cpu().numpy()
 
     def _refs_dev(self, refs):
-        """(top_u, left_u, top_f, left_f) (1, 2W+3) / (1, 2H+3) host rows
+        """(top_u, left_u, top_f, left_f) (N, 2W+3) / (N, 2H+3) host rows
         as views of one upload; device tensors pass through."""
         if isinstance(refs[0], torch.Tensor):
             return refs
-        flat = self._dev(np.concatenate([r[0] for r in refs]))
+        flat = self._dev(np.concatenate([np.ravel(r) for r in refs]))
         out, off = [], 0
         for r in refs:
-            n = r.shape[-1]
-            out.append(flat[off:off + n][None])
-            off += n
+            out.append(flat[off:off + r.size].view(r.shape))
+            off += r.size
         return tuple(out)
 
     def _predict(self, refs, w, h, modes, is_luma):
-        """K10a: (1, M, h, w) predictions of ``modes`` on the device."""
+        """K10a: (N, M, h, w) predictions of ``modes`` on the device."""
         return intra_ops.predict_block(*self._refs_dev(refs), w=w, h=h,
                                        modes=tuple(modes), is_luma=is_luma,
                                        bit_depth=self.cfg.bit_depth)
@@ -607,8 +607,9 @@ class FrameEncoder:
         full = self.mode_select != "planar"
         modes = [dm_mode] + (self._chroma_cand_list(dm_mode)
                              if full else [])
-        pu_all = self._host(self._predict(refs_u, cw, chh, modes, False)[0])
-        pv_all = self._host(self._predict(refs_v, cw, chh, modes, False)[0])
+        # U's and V's rows stacked: one K10a launch and one read-back
+        refs_uv = tuple(np.concatenate(pair) for pair in zip(refs_u, refs_v))
+        pu_all, pv_all = self._host(self._predict(refs_uv, cw, chh, modes, False))
         if not full and not cclm_ok:
             cu.cclm, cu.lm_symbol, cu.chroma_mode = False, 0, None
             return pu_all[0].astype(np.int32), pv_all[0].astype(np.int32)

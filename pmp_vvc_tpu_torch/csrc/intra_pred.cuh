@@ -10,6 +10,12 @@
 // reference (the side projection below the corner, then the main row),
 // clamped to the replicated tail; horizontal modes in transposed space;
 // planar and DC with their PDPC; chroma with the 2-tap filter.
+//
+// Who uses what: K2 and K9 read a mode's parameters with mode_table, K10a
+// with mode_entries from its block's copy of the size's entries; every
+// kernel takes DC's value from warp_dc; planar and DC samples come from
+// predict_sample (K2, K9, K10a), angular lines from predict_line (K2, K10a;
+// K9's k9a_line is its copy without lane-divergent branches).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -18,15 +24,22 @@
 
 #define NTAB (6 * 6 * 67)
 
-__constant__ int CHROMA_FILTER[32][4] = {
-    {0, 64, 0, 0}, {-1, 63, 2, 0}, {-2, 62, 4, 0}, {-2, 60, 7, -1},
-    {-2, 58, 10, -2}, {-3, 57, 12, -2}, {-4, 56, 14, -2}, {-4, 55, 15, -2},
-    {-4, 54, 16, -2}, {-5, 53, 18, -2}, {-6, 52, 20, -2}, {-6, 49, 24, -3},
-    {-6, 46, 28, -4}, {-5, 44, 29, -4}, {-4, 42, 30, -4}, {-4, 39, 33, -4},
-    {-4, 36, 36, -4}, {-4, 33, 39, -4}, {-4, 30, 42, -4}, {-4, 29, 44, -5},
-    {-4, 28, 46, -6}, {-3, 24, 49, -6}, {-2, 20, 52, -6}, {-2, 18, 53, -5},
-    {-2, 16, 54, -4}, {-2, 15, 55, -4}, {-2, 14, 56, -4}, {-2, 12, 57, -3},
-    {-2, 10, 58, -2}, {-1, 7, 60, -2}, {0, 4, 62, -2}, {0, 2, 63, -1}};
+// The luma cubic (DCT-IF) taps by fraction. CHROMA_FILTER is their copy in
+// constant memory, which serves the lanes of one line at one address; a
+// kernel whose lanes hold many lines stages a copy from CUBIC_TAPS_INIT in
+// device memory into shared memory instead (the constant cache serialises
+// different addresses).
+#define CUBIC_TAPS_INIT                                                          \
+    {{0, 64, 0, 0}, {-1, 63, 2, 0}, {-2, 62, 4, 0}, {-2, 60, 7, -1},             \
+     {-2, 58, 10, -2}, {-3, 57, 12, -2}, {-4, 56, 14, -2}, {-4, 55, 15, -2},     \
+     {-4, 54, 16, -2}, {-5, 53, 18, -2}, {-6, 52, 20, -2}, {-6, 49, 24, -3},     \
+     {-6, 46, 28, -4}, {-5, 44, 29, -4}, {-4, 42, 30, -4}, {-4, 39, 33, -4},     \
+     {-4, 36, 36, -4}, {-4, 33, 39, -4}, {-4, 30, 42, -4}, {-4, 29, 44, -5},     \
+     {-4, 28, 46, -6}, {-3, 24, 49, -6}, {-2, 20, 52, -6}, {-2, 18, 53, -5},     \
+     {-2, 16, 54, -4}, {-2, 15, 55, -4}, {-2, 14, 56, -4}, {-2, 12, 57, -3},     \
+     {-2, 10, 58, -2}, {-1, 7, 60, -2}, {0, 4, 62, -2}, {0, 2, 63, -1}}
+
+__constant__ int CHROMA_FILTER[32][4] = CUBIC_TAPS_INIT;
 
 struct Cu {
     int w, h, lw, lh, P, L, pel_max, luma;
@@ -38,49 +51,44 @@ struct Mode {
     int mode, angle, inv, ver, filt, gauss, pdpc, scale, dc;
 };
 
-// mode_params without DC's reference sum (p.dc stays 0): the table reads.
-static __device__ __forceinline__ Mode mode_table(const Cu& c, int m) {
+// A mode's parameters from its size's table entries: ``t`` points at mode
+// 0's entry of the first table, entry (k, mode) at t[k * stride + mode]
+// (p.dc stays 0: warp_dc gives DC's value).
+static __device__ __forceinline__ Mode mode_entries(const int32_t* t, int stride, int m) {
     Mode p;
     p.mode = clampi(m, 0, 66);
-    const int f = ((c.lw - 1) * 6 + (c.lh - 1)) * 67;
-    const int fm = f + p.mode;
-    p.angle = c.tabs[0 * NTAB + fm];
-    p.inv = c.tabs[1 * NTAB + fm];
-    p.ver = c.tabs[2 * NTAB + fm];
-    p.filt = c.tabs[3 * NTAB + fm];
-    p.gauss = c.tabs[4 * NTAB + fm];
-    p.pdpc = c.tabs[5 * NTAB + fm];
-    p.scale = c.tabs[6 * NTAB + fm];
+    p.angle = t[0 * stride + p.mode];
+    p.inv = t[1 * stride + p.mode];
+    p.ver = t[2 * stride + p.mode];
+    p.filt = t[3 * stride + p.mode];
+    p.gauss = t[4 * stride + p.mode];
+    p.pdpc = t[5 * stride + p.mode];
+    p.scale = t[6 * stride + p.mode];
     if (p.mode <= 1) {                 // planar / DC: mode 0's filter + PDPC
-        p.filt = c.tabs[3 * NTAB + f];
-        p.pdpc = c.tabs[5 * NTAB + f];
+        p.filt = t[3 * stride];
+        p.pdpc = t[5 * stride];
     }
     p.dc = 0;
     return p;
 }
 
-static __device__ Mode mode_params(const Cu& c, int m) {
-    Mode p = mode_table(c, m);
-    if (p.mode == 1) {                 // DC on the unfiltered references
-        int st = 0, sl = 0;
-        for (int x = 0; x < c.w; ++x) st += c.tu[1 + x];
-        for (int y = 0; y < c.h; ++y) sl += c.lu[1 + y];
-        const int s = (c.w >= c.h ? st : 0) + (c.w <= c.h ? sl : 0);
-        const int denom = c.w == c.h ? c.w << 1 : max(c.w, c.h);
-        p.dc = (s + (denom >> 1)) >> ilog2(denom);
-    }
-    return p;
+// A mode's parameters read from the (7, NTAB) tables in device memory.
+static __device__ __forceinline__ Mode mode_table(const Cu& c, int m) {
+    return mode_entries(c.tabs + ((c.lw - 1) * 6 + (c.lh - 1)) * 67, NTAB, m);
 }
 
-// DC's value (Mode.dc) with the reference sum taken by the whole warp;
-// every lane calls it. Equal to mode_params(c, 1).dc.
+// DC's value (Mode.dc), the rounded mean of the unfiltered references of
+// the longer side (of both sides of a square CU), summed by the whole warp;
+// every lane calls it. The rows may lie in shared or in device memory.
 static __device__ int warp_dc(const Cu& c) {
     const int lane = threadIdx.x & 31;
     int s = 0;
-    if (c.w >= c.h)
-        for (int x = lane; x < c.w; x += 32) s += c.tu[1 + x];
-    if (c.w <= c.h)
-        for (int y = lane; y < c.h; y += 32) s += c.lu[1 + y];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {      // sides up to 64: every load issued at once
+        const int i = lane + 32 * q;
+        if (c.w >= c.h && i < c.w) s += c.tu[1 + i];
+        if (c.w <= c.h && i < c.h) s += c.lu[1 + i];
+    }
     s = __reduce_add_sync(0xffffffffu, s);
     const int denom = c.w == c.h ? c.w << 1 : max(c.w, c.h);
     return (s + (denom >> 1)) >> ilog2(denom);
@@ -164,9 +172,12 @@ static __device__ int predict_sample(const Cu& c, const Mode& p, int r, int col)
 // column, transposed), from one window of TS + 3 reference samples and the
 // line's one set of filter taps. out[j] equals predict_sample at that
 // sample: (y, x0 + j) for a vertical mode, (x0 + j, y) for a horizontal one.
+// ``cf`` holds the luma cubic taps (CHROMA_FILTER, or a copy in shared
+// memory).
 template <int TS>
 static __device__ __forceinline__ void predict_line(const Cu& c, const Mode& p, int y, int x0,
-                                                    int (&out)[TS]) {
+                                                    int (&out)[TS],
+                                                    const int (*cf)[4] = CHROMA_FILTER) {
     const int32_t* main = p.ver ? (p.filt ? c.tf : c.tu) : (p.filt ? c.lf : c.lu);
     const int32_t* side = p.ver ? (p.filt ? c.lf : c.lu) : (p.filt ? c.tf : c.tu);
     const int wp = p.ver ? c.w : c.h, hp = p.ver ? c.h : c.w;
@@ -179,8 +190,7 @@ static __device__ __forceinline__ void predict_line(const Cu& c, const Mode& p, 
         const int half = dfrac >> 1;
         f[0] = 16 - half; f[1] = 32 - half; f[2] = 16 + half; f[3] = half;
     } else if (c.luma) {
-        f[0] = CHROMA_FILTER[dfrac][0]; f[1] = CHROMA_FILTER[dfrac][1];
-        f[2] = CHROMA_FILTER[dfrac][2]; f[3] = CHROMA_FILTER[dfrac][3];
+        f[0] = cf[dfrac][0]; f[1] = cf[dfrac][1]; f[2] = cf[dfrac][2]; f[3] = cf[dfrac][3];
     } else {
         f[0] = 0; f[1] = 64 - 2 * dfrac; f[2] = 2 * dfrac; f[3] = 0;
     }
@@ -216,12 +226,5 @@ static __device__ __forceinline__ void predict_line(const Cu& c, const Mode& p, 
             }
         }
         out[j] = pred;
-    }
-}
-
-static __device__ void predict_tile(const Cu& c, const Mode& p, int32_t* out) {
-    for (int i = threadIdx.x; i < c.h * c.w; i += blockDim.x) {
-        const int r = i / c.w, col = i % c.w;
-        out[r * c.P + col] = predict_sample(c, p, r, col);
     }
 }

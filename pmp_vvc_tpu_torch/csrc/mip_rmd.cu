@@ -177,7 +177,6 @@ mip_rmd_kernel(const int32_t* __restrict__ refs, const int32_t* __restrict__ org
     mip_size_class(c, r[3], r[4]);
     c.P = P; c.bd = bd;
     c.top = stop; c.left = sleft; c.mats = mats; c.bdry = sbdry;
-    c.sred = nullptr; c.sh = nullptr;
     u.ncand = 2 * c.n_modes;
     u.lrp = ilog2(c.red_p); u.lw = ilog2(c.w); u.lf_v = ilog2(c.h / c.red_p);
     u.shor = shor;

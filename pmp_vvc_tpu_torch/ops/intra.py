@@ -13,9 +13,10 @@ The tables and ``mode_params`` are host numpy/Python, copied from the JAX
 package's ``ops/intra.py``; ``fill_reference_samples`` and
 ``filter_reference_samples`` are plain PyTorch versions of its functions.
 
-**K10a** ``predict_block`` (``csrc/seq_intra.cu``) predicts one block for a
-tuple of modes, for the sequential encoder: the JAX package's
-``predict_block`` (which its ``codec/encoder.py:_jit_predict`` jits).
+**K10a** ``predict_block`` (``csrc/seq_intra.cu``) predicts N blocks of one
+size for a tuple of modes, for the sequential encoder (a chroma CU's U and
+V rows as N = 2): the JAX package's ``predict_block`` (which its
+``codec/encoder.py:_jit_predict`` jits, one plane a call).
 ``predict_block_reference`` is its plain version, used for CPU tensors; a
 CUDA tensor launches the kernel or raises; ``predict_block.launches``
 counts the launches. MRL and ISP predictions (``predict_mrl``,
@@ -371,7 +372,8 @@ def predict_block(top_u, left_u, top_f, left_f, *, w: int, h: int, modes: tuple,
                   is_luma: bool = True, bit_depth: int = 10):
     """K10a: see ``predict_block_reference``; CPU tensors take it, CUDA
     tensors launch ``csrc/seq_intra.cu`` (one launch for every block and
-    mode)."""
+    mode). The rows may be views at any int32 offset: the kernel reads
+    them with scalar loads."""
     if top_u.device.type == "cpu":
         return predict_block_reference(top_u, left_u, top_f, left_f, w=w, h=h,
                                        modes=modes, is_luma=is_luma, bit_depth=bit_depth)

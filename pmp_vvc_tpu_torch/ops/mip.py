@@ -123,7 +123,9 @@ def _lib(name: str):
 
 def predict_mip_all(top, left, *, w: int, h: int, bit_depth: int = 10):
     """K10b: see ``predict_mip_all_reference``; CPU tensors take it, CUDA
-    tensors launch ``csrc/seq_mip.cu`` (one launch for every candidate)."""
+    tensors launch ``csrc/seq_mip.cu`` (one launch for every candidate).
+    The rows may be views at any int32 offset: the kernel reads them with
+    scalar loads."""
     if top.device.type == "cpu":
         return predict_mip_all_reference(top, left, w=w, h=h, bit_depth=bit_depth)
     from .mip_generic import _device_table
