@@ -163,9 +163,13 @@ in ``csrc/adam.cu``):
     their labels exactly at a quarter of the positions, against its plain
     version (the autograd of ``train/losses.py``) on the card: the loss
     within 1e-6 relative, each gradient within 2 ulps of its largest
-    element, two runs bit-equal; K11b on the luma Q + BD pair's 92 tensors
-    at counts 1 and 1,000 and with zero gradients, exactly; both timed at
-    the training path's shapes, K11b beside ``torch.optim.Adam(fused=True)``.
+    element, two runs bit-equal; the same on ``K11A_EDGE_CASES`` (branch
+    outputs as views off the 16-byte grain, one block, two calls back to
+    back that must be bit-equal with the ticket counter back at 0); K11b on
+    the luma Q + BD pair's 92 tensors at counts 1 and 1,000 and with zero
+    gradients, exactly; both timed at the training path's shapes, K11b
+    beside ``torch.optim.Adam(fused=True)``; K11a's launch beside
+    ``_QBDLoss.backward``'s scalings under torch.profiler.
 18. The training path: ``tools/gen_dataset.py`` labels 512x512 natural
     content with the device RDO (4 frames to train on, 1 to validate; luma
     QP 22/27/32/37, chroma QP 22), ``tools/train_bd.py`` trains the bd and
@@ -235,14 +239,18 @@ scan's halo pack and unpack in ``csrc/halo.cu``), over torch.distributed:
 
 23. K12b against its plain version on the card, exactly, on seeded planes
     at every rank of meshes of 1, 2 and 4 stripes (both edges, the interior
-    ranks) at the spatial paths' shapes; both kernels timed per step (a CUDA
-    graph of 50 calls) at the two-rank path's rank 0, with their byte bound.
+    ranks) at the spatial paths' shapes, and on ``K12B_EDGE_CASES`` (the
+    scalar instantiation at strd 130 and on planes off the 16-byte grain, H
+    2, every (has_left, has_right) pair, quads by division); both kernels
+    timed per step (a CUDA graph of 50 calls) at the two-rank path's rank
+    0, with their byte bound.
 24. ``multidevice-nccl1``: a one-rank NCCL group (``file://`` store in a
     temp dir). The bench's configuration exactly (``bench.py:186-197``, L3
     with ``rdo_fallback``) at 416x240 x 2 with the QP 22 maps under the mesh
     and without it, cold then warm: byte-identical streams and equal K1-K7
     launches; the one-stripe spatial encode at 256x128 with the JAX
-    package's spatial tools, equal to the meshless stream, K12b launched;
+    package's spatial tools, equal to the meshless stream, K12b's pack
+    launched every step and its unpack (no neighbour) never;
     the all-gather of a 32-pad luma class-step and the (neighbourless)
     exchange timed; the group torn down.
 25. ``multidevice-2rank``: two children (``chip_smoke.py --md-rank R DIR``)
@@ -328,7 +336,18 @@ then the first warm with the parent's kernel and this one in turns:
 with both builds (``phase_k10_seq``; K10a's also counts the launches its
 stacked chroma call saves); each of them ends
 with the launch floor (K9a-c's and K10a-d's before their path pairs);
-none prints a result line.
+``--k11a-times PARENT`` the same for K11a (``K11A_VARIANTS``,
+``k11a_cases``: mode qbd luma at batch 32 and 64, bd chroma at QP 37 and q
+at batch 64, qbd at batch 7 and 257; every build held to
+``K11A_EDGE_CASES``), with phase 17's checks and times, then the luma joint
+training step with the parent's K11a and this one in turns (steps/s of
+each, equal losses and parameters; ``phase_k11a_train``); ``--k12b-times
+PARENT`` for K12b (``K12B_VARIANTS``, ``k12b_cases``: the pack and the
+unpack at 512x256 over 2 stripes at ranks 0 and 1, over 4 at an interior
+rank, 3840x2160 over 2, 1920x1080 over 3 at the interior rank, the pack of
+256x128 on one stripe; every build held to ``K12B_EDGE_CASES``), with phase
+23's checks and times; K11a's and K12b's cases log the share of their
+bounds and end with the launch floor; none prints a result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -4073,16 +4092,18 @@ def adam_case(params: list, seed: int, count: int, zero: bool) -> tuple:
     return grads, mu, mu * mu * torch.rand(n, generator=gen, device=DEVICE) * 4
 
 
-def train_bounds(name: str, n_items: int) -> tuple[float, str, int, int]:
-    """(bound ms, bound_by, bytes, ops). K11a in mode qbd on a batch of
-    ``n_items``: reads qt_out and its label (64 values each per CTU), the
-    three branch outputs (512 each) and bt and dire (768 each) once, writes
-    the gradients of qt_out and the branches and the loss; about 60
-    operations per label position. K11b on ``n_items`` parameters: reads p,
-    g, mu, nu and writes p, mu, nu (28 B each); 13 operations each."""
+def train_bounds(name: str, n_items: int, mode: str = "qbd") -> tuple[float, str, int, int]:
+    """(bound ms, bound_by, bytes, ops). K11a in ``mode`` on a batch of
+    ``n_items``: reads qt_out and its label (64 values each per CTU; modes
+    q, qbd), the three branch outputs (512 each) and bt and dire (768 each;
+    modes bd, qbd) once, writes the gradients of what it read of qt_out and
+    the branches and the loss; about 60 operations per label position of
+    the branches, 3 of qt_out. K11b on ``n_items`` parameters: reads p, g,
+    mu, nu and writes p, mu, nu (28 B each); 13 operations each."""
     if name == "qbd_loss":
-        nbytes = n_items * (2 * 64 + 3 * 512 + 2 * 768 + 64 + 3 * 512) * 4 + 4
-        ops = n_items * (256 * 60 + 64 * 3)
+        q, bd = mode != "bd", mode != "q"
+        nbytes = n_items * (q * 3 * 64 + bd * (3 * 512 + 2 * 768 + 3 * 512)) * 4 + 4
+        ops = n_items * (bd * 256 * 60 + q * 64 * 3)
     else:
         nbytes, ops = 28 * n_items, 13 * n_items
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -4090,12 +4111,124 @@ def train_bounds(name: str, n_items: int) -> tuple[float, str, int, int]:
             nbytes, ops)
 
 
+def k11a_cmp(name: str, got, want, errs: dict) -> None:
+    """K11a's outputs ([loss, gradients]) against its plain version's: the
+    loss (the 0-d tensor) within TRAIN_LOSS_REL, each gradient within
+    TRAIN_GRAD_ULPS of its largest element; the largest absolute error
+    into ``errs``."""
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        if g.dim() == 0:
+            rel = err / float(w.abs())
+            check(rel <= TRAIN_LOSS_REL, f"{name}: loss off by {rel:.3g} relative")
+        else:
+            bound = TRAIN_GRAD_ULPS * float(np.spacing(np.float32(w.abs().max().item())))
+            check(err <= bound, f"{name}: gradient off by {err} (bound {bound})")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+
+def k11a_outputs(mode: str, params, qt_out, bd0, bd1, bd2, qt_lab, bt, dire) -> list:
+    """One K11a launch through its wrapper, without autograd: [loss, d/d
+    qt_out (modes q, qbd), d/d bd_i (modes bd, qbd)]."""
+    loss, g_qt, g_bd = tg._launch_loss(mode, qt_out, (bd0, bd1, bd2), qt_lab, bt, dire, params)
+    return [loss] + ([g_qt] if mode != "bd" else []) + (g_bd if mode != "q" else [])
+
+
+def k11a_call(mode: str, qp: int, is_luma: bool, n: int, seed: int, case=None):
+    """(K11a on ``loss_case(n, seed)`` or ``case``, its plain version's
+    outputs)."""
+    case = loss_case(n, seed) if case is None else case
+    params = tg.loss_params(mode, n, qp, is_luma)
+    return ((lambda: k11a_outputs(mode, params, *case)),
+            loss_and_grads(tg.qbd_loss_reference, mode, qp, is_luma, *case))
+
+
+K11A_EDGE_CASES = ("TRAIN_LOSS_CASES",
+                   "the branch outputs as views off 16 bytes (the scalar instantiation)",
+                   "mode q at batch 1: one block in every build", "mode qbd at batch 1",
+                   "two calls back to back: the counter back at 0, the second call equal "
+                   "to the first bit for bit")
+
+
+def k11a_edge_calls() -> list:
+    """``K11A_EDGE_CASES`` as (call, plain outputs) pairs."""
+    calls = [k11a_call(mode, qp, is_luma, n, seed=40 + k)
+             for k, (mode, qp, is_luma, n) in enumerate(TRAIN_LOSS_CASES)]
+    case = loss_case(TRAIN_BATCH, seed=80)
+    views = []
+    for b in case[1:4]:
+        flat = torch.empty(b.numel() + 1, device=DEVICE)
+        views.append(flat[1:].view(b.shape).copy_(b))
+    check(all(v.data_ptr() % 16 for v in views), "K11a's edge views are 16-byte aligned")
+    calls.append(k11a_call("qbd", 32, False, TRAIN_BATCH, 0, [case[0], *views, *case[4:]]))
+    calls.append(k11a_call("q", 22, True, 1, seed=81))
+    calls.append(k11a_call("qbd", 37, True, 1, seed=82))
+    call, want = k11a_call("qbd", 22, True, 64, seed=83)
+
+    def twice():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              "K11a: two calls back to back differ")
+        check(all(int(t) == 0 for t in tg._TICKETS.values()),
+              "K11a: a ticket counter is not back at 0")
+        return first
+    calls.append((twice, want))
+    return calls
+
+
+def k11a_edge_variant_checks() -> list:
+    """``K11A_EDGE_CASES`` as one ``VARIANT_CHECKS`` entry."""
+    def make():
+        calls = k11a_edge_calls()
+        return (lambda: [t for c, _ in calls for t in c()]), [t for _, w in calls for t in w]
+    return [("K11A_EDGE_CASES", make)]
+
+
+def profile_k11a_backward(n: int = TRAIN_BATCH, calls: int = 20) -> None:
+    """K11a's forward (one launch) and ``_QBDLoss.backward``'s scalings of
+    the saved gradients by the incoming one, mode qbd at batch ``n``: device
+    time per call of each from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    qt_out, bd0, bd1, bd2, qt_lab, bt, dire = loss_case(n, seed=84)
+    q = qt_out.clone().requires_grad_(True)
+    b = [x.clone().requires_grad_(True) for x in (bd0, bd1, bd2)]
+    step = lambda: torch.autograd.grad(
+        tg.qbd_loss("qbd", q, b, qt_lab, bt, dire, qp=22, is_luma=True), [q, *b])
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not rows:
+        log("[train-kernels] the profiler recorded no device time: K11a's backward scalings "
+            "not measured")
+        return
+    k11a = [(ms, c) for key, ms, c in rows if "qbd_" in key]
+    scale = [(ms, c) for key, ms, c in rows if "mul" in key.lower()]
+    other = [(key[:60], ms, c) for key, ms, c in rows
+             if "qbd_" not in key and "mul" not in key.lower()]
+    per = lambda xs: (sum(ms for ms, _ in xs) / calls * 1e3, sum(c for _, c in xs) / calls)
+    log(f"[train-kernels] K11a mode qbd, batch {n}, under torch.profiler ({calls} calls): "
+        f"forward {per(k11a)[0]:.3f} us in {per(k11a)[1]:g} launch(es) a call; "
+        f"_QBDLoss.backward's scalings {per(scale)[0]:.3f} us in {per(scale)[1]:g} "
+        f"launch(es) a call; other device work {other}")
+
+
 def phase_train_kernels() -> tuple[dict, dict]:
-    """K11a on ``TRAIN_LOSS_CASES`` and K11b at counts 1 and 1,000 and with
-    zero gradients on the luma Q + BD pair's 92 tensors, against their plain
-    versions on the card; K11a twice on the same inputs, bit for bit; then
-    each timed at the training path's shapes beside its plain version, and
-    K11b beside ``torch.optim.Adam(fused=True)``."""
+    """K11a on ``K11A_EDGE_CASES`` (``TRAIN_LOSS_CASES`` among them) and
+    K11b at counts 1 and 1,000 and with zero gradients on the luma Q + BD
+    pair's 92 tensors, against their plain versions on the card; K11a twice
+    through autograd on ``TRAIN_LOSS_CASES``, bit for bit; then each timed
+    at the training path's shapes beside its plain version, K11b beside
+    ``torch.optim.Adam(fused=True)``, and K11a's forward beside its
+    backward's scalings under the profiler."""
     errs = {"qbd_loss": 0.0, "adam_update": 0.0}
     for k, (mode, qp, is_luma, n) in enumerate(TRAIN_LOSS_CASES):
         case = loss_case(n, seed=40 + k)
@@ -4105,17 +4238,16 @@ def phase_train_kernels() -> tuple[dict, dict]:
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"K11a {mode} QP{qp}: two runs differ")
+        k11a_cmp("qbd_loss", got, want, errs)
         rel = float((got[0] - want[0]).abs() / want[0].abs())
-        check(rel <= TRAIN_LOSS_REL, f"K11a {mode} QP{qp}: loss off by {rel:.3g} relative")
-        for g, w in zip(got[1:], want[1:]):
-            err = float((g - w).abs().max())
-            bound = TRAIN_GRAD_ULPS * float(np.spacing(np.float32(w.abs().max().item())))
-            check(err <= bound, f"K11a {mode} QP{qp}: gradient off by {err} (bound {bound})")
-            errs["qbd_loss"] = max(errs["qbd_loss"], err)
-        errs["qbd_loss"] = max(errs["qbd_loss"], float((got[0] - want[0]).abs()))
         log(f"[train-kernels] K11a {mode}, QP {qp}, {'luma' if is_luma else 'chroma'}, "
             f"batch {n}: loss {float(want[0]):.6f}, relative error {rel:.3g}; gradients "
             f"within {TRAIN_GRAD_ULPS} ulps; two runs bit-equal")
+    for call, want in k11a_edge_calls():
+        k11a_cmp("qbd_loss", call(), want, errs)
+    torch.cuda.synchronize()
+    log(f"[train-kernels] K11a on K11A_EDGE_CASES {K11A_EDGE_CASES}: within "
+        f"{TRAIN_LOSS_REL} relative and {TRAIN_GRAD_ULPS} ulps of the plain version")
     params = luma_pair_params(seed=1)
     for count, zero, lr in ((1, False, 1e-3), (1000, False, 2e-4), (2, True, 5e-4)):
         grads, mu, nu = adam_case(params, seed=count, count=count, zero=zero)
@@ -4164,6 +4296,7 @@ def phase_train_kernels() -> tuple[dict, dict]:
         log(f"[train-kernels] {name}: device time per call (CUDA graph) {ms:.6f} ms; plain "
             f"version from Python {plain_ms:.6f} ms{lib_txt}; bound {bound:.6f} ms by {by} "
             f"({nbytes} B, {ops} ops)")
+    profile_k11a_backward()
     return errs, times
 
 
@@ -5517,9 +5650,9 @@ def bench_encoder(mesh=None) -> wf.WavefrontEncoder:
                                rdo_fallback=True, mesh=mesh, device=DEVICE)
 
 
-def halo_planes(H: int, strd: int, seed: int) -> list:
+def halo_planes(H: int, strd: int, seed: int, hl: int = sp.HL, hr: int = sp.HR) -> list:
     rng = np.random.RandomState(seed)
-    we = sp.HL + strd + sp.HR
+    we = hl + strd + hr
     return [torch.from_numpy(rng.randint(-(1 << 31), (1 << 31) - 1, s, dtype=np.int64)
                              .astype(np.int32)).to(DEVICE)
             for s in ((1, H, we), (1, H // 2, we // 2), (1, H // 2, we // 2))]
@@ -5533,14 +5666,83 @@ def halo_bounds(H: int, has_left: bool, has_right: bool) -> dict:
     return {k: (8 * n / HBM_BYTES_PER_S * 1e3, 8 * n) for k, n in moved.items()}
 
 
+def halo_view_planes(H: int, strd: int, seed: int, hl: int = sp.HL, hr: int = sp.HR) -> list:
+    """``halo_planes`` as views 4 bytes off the 16-byte grain."""
+    out = []
+    for p in halo_planes(H, strd, seed, hl, hr):
+        flat = torch.empty(p.numel() + 1, dtype=torch.int32, device=DEVICE)
+        out.append(flat[1:].view(p.shape).copy_(p))
+    check(all(p.data_ptr() % 16 for p in out), "K12b's edge views are 16-byte aligned")
+    return out
+
+
+def halo_call(what: str, H: int, strd: int, has_left: bool, has_right: bool, seed: int,
+              hl: int = sp.HL, hr: int = sp.HR, views: bool = False):
+    """(the call, its plain outputs, the function that restores what it
+    writes) of K12b's ``what`` ("pack" or "unpack") on seeded stripe planes
+    of height H; the unpack's buffer is a neighbour's pack."""
+    planes = (halo_view_planes if views else halo_planes)(H, strd, seed, hl, hr)
+    if what == "pack":
+        return ((lambda: [sp.halo_pack(planes, hl, hr, strd)]),
+                [sp.halo_pack_reference(planes, hl, hr, strd)], lambda: None)
+    buf = sp.halo_pack_reference([p.roll(1, -1) for p in planes], hl, hr, strd)
+    initial = [p.clone() for p in planes]
+    want = [p.clone() for p in planes]
+    sp.halo_unpack_reference(buf, want, hl, hr, strd, has_left, has_right)
+
+    def clear():
+        for p, q in zip(planes, initial):
+            p.copy_(q)
+
+    def run():
+        sp.halo_unpack(buf, planes, hl, hr, strd, has_left, has_right)
+        return planes
+    return run, want, clear
+
+
+K12B_EDGE_CASES = ("strd 130: the scalar instantiation", "H 2",
+                   "no neighbour: no launch", "left neighbour only", "right neighbour only",
+                   "both neighbours", "hl 24, hr 96: quads by division",
+                   "planes 4 bytes off the 16-byte grain: the scalar instantiation")
+K12B_EDGE_SHAPES = (  # (H, strd, (has_left, has_right) pairs, hl, hr, views)
+    (24, 130, ((True, True), (False, True), (True, False)), sp.HL, sp.HR, False),
+    (2, 128, ((True, True), (False, False)), sp.HL, sp.HR, False),
+    (64, 256, ((False, False), (True, False), (False, True), (True, True)), sp.HL, sp.HR,
+     False),
+    (24, 256, ((True, True), (False, True)), 24, 96, False),
+    (24, 256, ((True, True), (True, False)), sp.HL, sp.HR, True))
+
+
+def k12b_edge_calls() -> list:
+    """``K12B_EDGE_CASES`` as (call, plain outputs) pairs; each unpack call
+    restores its planes first, so that every build writes them anew."""
+    calls = []
+    for k, (H, strd, pairs, hl, hr, views) in enumerate(K12B_EDGE_SHAPES):
+        run, want, _ = halo_call("pack", H, strd, True, True, 300 + k, hl, hr, views)
+        calls.append((run, want))
+        for j, (has_left, has_right) in enumerate(pairs):
+            run, want, clear = halo_call("unpack", H, strd, has_left, has_right,
+                                         310 + 10 * k + j, hl, hr, views)
+            calls.append((lambda run=run, clear=clear: (clear(), run())[1], want))
+    return calls
+
+
+def k12b_edge_variant_checks() -> list:
+    """``K12B_EDGE_CASES`` as one ``VARIANT_CHECKS`` entry."""
+    def make():
+        calls = k12b_edge_calls()
+        return (lambda: [t for c, _ in calls for t in c()]), [t for _, w in calls for t in w]
+    return [("K12B_EDGE_CASES", make)]
+
+
 def phase_halo_kernels() -> tuple[dict, dict]:
     """K12b against its plain version on the card, exactly: seeded planes at
     every position of meshes of 1, 2 and 4 stripes (edge ranks, the
     interior ranks of four) at the two-rank spatial path's shapes (512x256
     over 2 stripes, over 4) and the one-stripe 256x128; unpack on the
-    buffer a neighbour packed. Then both kernels' device time per step (a
-    CUDA graph of 50 calls) at the two-rank path's rank 0, the plain
-    versions' and the byte bound."""
+    buffer a neighbour packed; then ``K12B_EDGE_CASES``. Then both kernels'
+    device time per step (a CUDA graph of 50 calls) at the two-rank path's
+    rank 0, the plain versions' and the byte bound."""
     errs = dict.fromkeys(MD_KERNELS, 0.0)
     cases = 0
     for H, W, D in ((SPATIAL_H, SPATIAL_W, 2), (SPATIAL_H, SPATIAL_W, 4),
@@ -5556,9 +5758,13 @@ def phase_halo_kernels() -> tuple[dict, dict]:
             sp.halo_unpack_reference(got, ref, sp.HL, sp.HR, strd, me > 0, me < D - 1)
             _cmp("halo_unpack", planes, ref, errs)
             cases += 1
+    for call, want in k12b_edge_calls():
+        got = call()
+        _cmp("halo_pack" if len(got) == 1 else "halo_unpack", got, want, errs)
     torch.cuda.synchronize()
     log(f"[multidevice-kernels] K12b pack and unpack equal to their plain versions on the card at "
-        f"{cases} (mesh, rank) positions, edge and interior ranks (max_abs_err {errs})")
+        f"{cases} (mesh, rank) positions, edge and interior ranks, and on K12B_EDGE_CASES "
+        f"{K12B_EDGE_CASES} (max_abs_err {errs})")
 
     H, strd = SPATIAL_H, SPATIAL_W // 2
     planes = halo_planes(H, strd, seed=1)
@@ -5658,7 +5864,9 @@ def phase_md_nccl1(preds: dict, tmp: pathlib.Path) -> dict:
     got = spatial_encode(cfg, y, u, v, mesh)
     halo = md_launches()
     check(got == want, "the one-stripe spatial stream differs from the meshless one")
-    check(all(halo[k] > 0 for k in MD_KERNELS), f"K12b was not launched: {halo}")
+    check(halo["halo_pack"] > 0 and halo["halo_unpack"] == 0,
+          f"K12b's launches on one stripe: {halo} (each step packs; with no neighbour the "
+          f"unpack launches nothing)")
     times = collective_ms(mesh)
     log(f"[multidevice-nccl1] one-stripe spatial encode at {STRIPE_W}x{STRIPE_H}: {len(got)} bytes, "
         f"equal to the meshless stream; K12b launches {[halo[k] for k in MD_KERNELS]}; "
@@ -6162,11 +6370,12 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 # ---------------------------------------------------------------------------
 
 def variant_library(kernel: str, src: pathlib.Path, out: pathlib.Path,
-                    defines: tuple = ()) -> ctypes.CDLL:
+                    defines: tuple = (), signatures: dict = None) -> ctypes.CDLL:
     """``src`` (a source of ``kernel``'s library, ``TIMED_KERNELS``, beside
     its headers) built with the port's nvcc flags and ``defines`` into
-    ``out`` and bound as its wrapper module binds it; ptxas's registers,
-    stack frame and spills are logged."""
+    ``out`` and bound as its wrapper module binds it (or with
+    ``signatures``); ptxas's registers, stack frame and spills are
+    logged."""
     name, module = TIMED_KERNELS[kernel][:2]
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(out),
@@ -6175,7 +6384,7 @@ def variant_library(kernel: str, src: pathlib.Path, out: pathlib.Path,
     for line in ptxas_lines(proc.stdout + proc.stderr):
         log(f"[{kernel}-times] {out.name}: {line}")
     lib = ctypes.CDLL(str(out))
-    for fn, args in module.SIGNATURES[name].items():
+    for fn, args in (signatures or module.SIGNATURES[name]).items():
         getattr(lib, fn).argtypes = list(args)
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -6827,10 +7036,61 @@ K10D_VARIANTS = {"one candidate a warp": ("-DK10D_CPW_MAX=1",),
                  "8 warps a block": ("-DK10D_WARPS=8",),
                  "2 warps a candidate above a warp": ("-DK10D_WARPS_LARGE=2",),
                  "8 warps a candidate above a warp": ("-DK10D_WARPS_LARGE=8",)}
+# K11a's build parameters (4 positions a thread, 64 threads a block
+# shipped) and K12b's (1 quad a thread, 256 threads a block shipped)
+K11A_VARIANTS = {"1 position a thread": ("-DK11A_PPT=1",),
+                 "2 positions a thread": ("-DK11A_PPT=2",),
+                 "32 threads a block": ("-DK11A_THREADS=32",),
+                 "128 threads a block": ("-DK11A_THREADS=128",),
+                 "256 threads a block": ("-DK11A_THREADS=256",)}
+K12B_VARIANTS = {"2 quads a thread": ("-DK12B_QPT=2",),
+                 "4 quads a thread": ("-DK12B_QPT=4",),
+                 "128 threads a block": ("-DK12B_THREADS=128",),
+                 "512 threads a block": ("-DK12B_THREADS=512",)}
+# (label, bound ms) of the timed cases that carry one, by (kernel, label)
+CASE_BOUNDS: dict = {}
+K11A_CASES = (("qbd", 22, True, 32), ("qbd", 22, True, 64), ("bd", 37, False, 64),
+              ("q", 22, True, 64), ("qbd", 27, True, 7), ("qbd", 27, True, 257))
+
+
+def k11a_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K11a: mode qbd, luma, at batch 32
+    (the training path's) and 64 (``cli/train.py``'s default), bd chroma at
+    QP 37 and q at batch 64, qbd at batch 7 and 257, whose positions fill no
+    whole block or thread group; ``width`` and ``height`` unused."""
+    out = []
+    for k, (mode, qp, is_luma, n) in enumerate(K11A_CASES):
+        label = f"mode {mode}, QP {qp}, {'luma' if is_luma else 'chroma'}, batch {n}"
+        CASE_BOUNDS[("k11a", label)] = train_bounds("qbd_loss", n, mode)[:2]
+        out.append((label, functools.partial(k11a_call, mode, qp, is_luma, n, 90 + k)))
+    return out
+
+
+K12B_SHAPES = ((256, 512, 2, 0), (256, 512, 2, 1), (256, 512, 4, 1), (128, 256, 1, 0),
+               (2160, 3840, 2, 0), (1080, 1920, 3, 1))   # (H, W, stripes, rank)
+
+
+def k12b_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K12b: the pack and the unpack of
+    one step at 512x256 over 2 stripes (ranks 0 and 1), over 4 (an interior
+    rank), 256x128 on one stripe (its unpack launches nothing: pack only),
+    3840x2160 over 2 stripes (rank 0) and 1920x1080 over 3 (rank 1, both
+    neighbours); ``width`` and ``height`` unused."""
+    out = []
+    for k, (H, W, D, me) in enumerate(K12B_SHAPES):
+        has = (me > 0, me < D - 1)
+        for what in ("pack", "unpack") if D > 1 else ("pack",):
+            label = f"{what}, {W}x{H} over {D} stripe{'s' if D > 1 else ''}, rank {me}"
+            bound_ms = halo_bounds(H, *has)[f"halo_{what}"][0]
+            CASE_BOUNDS[("k12b", label)] = (bound_ms, "bytes")
+            out.append((label, functools.partial(halo_call, what, H, W // D, *has, 200 + k)))
+    return out
+
+
 # ``--k1-times`` / ``--k2-times`` / ``--k3-times`` / ``--k4-times`` /
 # ``--k5-times`` / ``--k6a-times`` / ``--k7-times`` / ``--k9a-times`` /
 # ``--k9b-times`` / ``--k9c-times`` / ``--k10a-times`` / ``--k10b-times`` /
-# ``--k10c-times`` / ``--k10d-times``:
+# ``--k10c-times`` / ``--k10d-times`` / ``--k11a-times`` / ``--k12b-times``:
 # (library, wrapper module,
 # variants, the function that gives the timed cases: (label, the function
 # that makes the call, its plain outputs and, for a kernel that writes in
@@ -6849,14 +7109,50 @@ TIMED_KERNELS = {"k1": ("ref_gather", ig, K1_VARIANTS, k1_cases),
                  "k10a": ("seq_intra", intra_ops, K10A_VARIANTS, k10a_cases),
                  "k10b": ("seq_mip", mip_ops, K10B_VARIANTS, k10b_cases),
                  "k10c": ("seq_tq", quant_ops, K10C_VARIANTS, k10c_cases),
-                 "k10d": ("seq_satd", dist_ops, K10D_VARIANTS, k10d_cases)}
+                 "k10d": ("seq_satd", dist_ops, K10D_VARIANTS, k10d_cases),
+                 "k11a": ("qbd_loss", tg, K11A_VARIANTS, k11a_cases),
+                 "k12b": ("halo", sp, K12B_VARIANTS, k12b_cases)}
 # untimed inputs on which every build of ``phase_variant_times`` must equal
 # the plain version too: (label, the function that makes the call and its
 # plain outputs)
 VARIANT_CHECKS = {"k9a": k9a_tie_cases, "k9b": k9b_tie_cases, "k9c": k9c_edge_cases,
                   "k10a": k10a_edge_variant_checks, "k10b": k10b_edge_variant_checks,
                   "k10c": k10c_edge_variant_checks,
-                  "k10d": k10d_edge_variant_checks}
+                  "k10d": k10d_edge_variant_checks, "k11a": k11a_edge_variant_checks,
+                  "k12b": k12b_edge_variant_checks}
+# the comparison with the plain version where it is not exact equality
+VARIANT_CMP = {"k11a": k11a_cmp}
+
+
+class ParentK11a:
+    """The parent commit's K11a library behind this tree's entry points: its
+    ``pmp_qbd_loss`` (two kernels) takes no ticket counter, and its grid is
+    a block per 256 label positions."""
+    SIGNATURES = {"pmp_qbd_loss": (_build.INT, _build.INT) + (_build.PTR,) * 15}
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    @staticmethod
+    def pmp_qbd_loss_blocks(mode: int, n: int) -> int:
+        return -(-n * (64 if mode == 0 else 256) // 256)
+
+    def pmp_qbd_loss(self, *args):
+        return self.lib.pmp_qbd_loss(*args[:15], *args[16:])    # the counter is args[15]
+
+
+# a parent library whose entry points differ: (its signatures, the adapter)
+PARENT_FORMS = {"k11a": (ParentK11a.SIGNATURES, ParentK11a)}
+
+
+def parent_library(kernel: str, parent: pathlib.Path):
+    """``kernel``'s library built from the parent checkout ``parent``,
+    behind this tree's entry points."""
+    name = TIMED_KERNELS[kernel][0]
+    signatures, adapt = PARENT_FORMS.get(kernel, (None, lambda lib: lib))
+    return adapt(variant_library(kernel, parent / "pmp_vvc_tpu_torch" / "csrc" / f"{name}.cu",
+                                 parent / "build" / "kernels" / f"lib{name}-parent.so",
+                                 signatures=signatures))
 
 
 def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
@@ -6870,37 +7166,43 @@ def phase_variant_times(kernel: str, parent: pathlib.Path, width: int = 256,
     plain version on those inputs and on ``VARIANT_CHECKS``' ones."""
     name, _, variants, make_cases = TIMED_KERNELS[kernel]
     tag = f"[{kernel}-times]"
-    jobs = {"parent": (parent / "pmp_vvc_tpu_torch" / "csrc" / f"{name}.cu",
-                       parent / "build" / "kernels" / f"lib{name}-parent.so", ())}
-    for i, (label, defines) in enumerate(variants.items()):
-        jobs[label] = (_build.CSRC / f"{name}.cu", _build.BUILD_DIR / f"lib{name}-variant{i}.so",
-                       defines)
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+    jobs = {label: (_build.CSRC / f"{name}.cu", _build.BUILD_DIR / f"lib{name}-variant{i}.so",
+                    defines) for i, (label, defines) in enumerate(variants.items())}
+    with ThreadPoolExecutor(max_workers=len(jobs) + 1) as pool:
+        parent_lib = pool.submit(parent_library, kernel, parent)
         built = dict(zip(jobs, pool.map(lambda j: variant_library(kernel, *j), jobs.values())))
-    libs = {"parent": built["parent"], "new": None, **{k: built[k] for k in variants}}
+        libs = {"parent": parent_lib.result(), "new": None, **built}
     order = ("parent", "new", *variants, *reversed(variants), "new", "parent")
+    cmp = VARIANT_CMP.get(kernel, _cmp)
     errs: dict = {}
     for cls, make in VARIANT_CHECKS.get(kernel, list)():
         call, want = make()
         for label, lib in libs.items():
             with launching(kernel, lib):
-                _cmp(f"{name} ({label})", list(call()), want, errs)
+                cmp(f"{name} ({label})", list(call()), want, errs)
         log(f"{tag} {cls}: every build equal to the plain version")
     res = {}
-    for cls, make in make_cases(width, height):
+    cases = make_cases(width, height)
+    graph_ms(cases[0][1]()[0])      # untimed: the card's first replays run at another clock
+    for cls, make in cases:
         call, want, *reset = make()
         times = collections.defaultdict(list)
         for label in order:
             with launching(kernel, libs[label]):
                 for clear in reset:
                     clear()
-                _cmp(f"{name} ({label})", list(call()), want, errs)
+                cmp(f"{name} ({label})", list(call()), want, errs)
                 times[label].append(graph_ms(call))
         res[cls] = {label: t for label, t in times.items()}
+        new, old = min(times["new"]), min(times["parent"])
+        bound = CASE_BOUNDS.get((kernel, cls))
+        share = "" if bound is None else (
+            f"; bound {bound[0] * 1e3:.4f} us by {bound[1]}, share new "
+            f"{100 * bound[0] / new:.1f}%, parent {100 * bound[0] / old:.1f}%")
         log(f"{tag} {cls}: device time per call (CUDA graph of 50) "
             + "; ".join(f"{label} " + " / ".join(f"{t * 1e3:.3f}" for t in ts) + " us"
                         for label, ts in times.items())
-            + f"; parent / new {min(times['parent']) / min(times['new']):.1f}x")
+            + f"; parent / new {old / new:.2f}x{share}")
     log(f"{tag} every variant equal to the plain version (max_abs_err {errs})")
     launch_floor_times(tag)
     return res
@@ -6980,13 +7282,39 @@ def phase_k10_seq(kernel: str, parent: pathlib.Path) -> None:
     seq_mix_times(mixes, f"[{kernel}-times]", {"parent": lib, "new": None}, (kernel,))
 
 
+def phase_k11a_train(parent: pathlib.Path, steps: int = 4, timed: int = 20) -> None:
+    """The training path's luma joint step (``dp_train``: the committed QP
+    22 nets, batch 32, seeded float samples) under cuDNN's deterministic
+    algorithms with the parent commit's K11a library and this one in turns
+    (parent, new, new, parent): ``steps`` steps' losses and parameters,
+    equal in every run, then the warm steps/s of ``timed`` more."""
+    lib = parent_library("k11a", parent)
+    batches = dp_batches(steps)
+    runs = []
+    with cudnn_deterministic():
+        for label in ("parent", "new", "new", "parent"):
+            with launching("k11a", lib if label == "parent" else None):
+                out = dp_train(batches, timed=timed)
+            runs.append(out)
+            log(f"[k11a-times] luma joint step, batch {TRAIN_BATCH}, K11a {label}: "
+                f"{out['steps_per_s']:.2f} warm steps/s; losses {out['losses']}")
+    check(all(r["losses"] == runs[0]["losses"] for r in runs),
+          "the joint step's losses differ between the parent's K11a and this one")
+    check(all(np.array_equal(r["params"][steps], runs[0]["params"][steps]) for r in runs),
+          "the joint step's parameters differ between the parent's K11a and this one")
+    log(f"[k11a-times] luma joint step: the four runs' losses and parameters after {steps} "
+        f"steps bit-equal")
+
+
 def times_only(kernel: str, parent: pathlib.Path) -> int:
     """``--k1-times PARENT`` / ``--k2-times PARENT`` / ``--k3-times PARENT``
     / ``--k4-times PARENT`` / ``--k5-times PARENT`` / ``--k6a-times PARENT``
     / ``--k7-times PARENT`` / ``--k9a-times PARENT`` / ``--k9b-times
     PARENT`` / ``--k9c-times PARENT`` / ``--k10a-times PARENT`` /
     ``--k10b-times PARENT`` / ``--k10c-times PARENT`` / ``--k10d-times
-    PARENT``: the build, the encode
+    PARENT`` / ``--k11a-times PARENT`` / ``--k12b-times PARENT``: the
+    build; for K11a phase 17's checks and times (``phase_train_kernels``),
+    for K12b phase 23's (``phase_halo_kernels``); for the others the encode
     kernels' checks and times (the K2, K3, K4, K5 and K6a tie cases and K1's
     and K7's edge cases among them, and the launch floor; K5's time shows
     what K4's shared ``csrc/tq_team.cuh`` left of it), for K1, K4, K6a and
@@ -6998,14 +7326,22 @@ def times_only(kernel: str, parent: pathlib.Path) -> int:
     ``phase_variant_times`` against the parent checkout, for K9a-c the L0
     path with the parent's K9 library and this one (``phase_rdo_l0``), for
     K10a-d the sequential path with the parent's kernel and this one
-    (``phase_k10_seq``); prints no result line."""
+    (``phase_k10_seq``), for K11a the training step with the parent's
+    library and this one (``phase_k11a_train``); prints no result line."""
     phase_build()
     log(f"[{kernel}-times] int32 rate {int32_ops_per_s():.6e} ops/s")
-    phase_encode_kernels()
-    if kernel in ("k1", "k4", "k6a", "k9a", "k9b", "k9c"):
-        phase_rdo_kernels()
-    phase_seq_kernels()
+    if kernel == "k11a":
+        phase_train_kernels()
+    elif kernel == "k12b":
+        phase_halo_kernels()
+    else:
+        phase_encode_kernels()
+        if kernel in ("k1", "k4", "k6a", "k9a", "k9b", "k9c"):
+            phase_rdo_kernels()
+        phase_seq_kernels()
     phase_variant_times(kernel, parent)
+    if kernel == "k11a":
+        phase_k11a_train(parent)
     if kernel in ("k9a", "k9b", "k9c"):
         phase_rdo_l0(kernel, parent)
     if kernel in ("k10a", "k10b", "k10c", "k10d"):
@@ -7078,7 +7414,8 @@ def main() -> int:
     if sys.argv[1:2] in (["--k1-times"], ["--k2-times"], ["--k3-times"], ["--k4-times"],
                          ["--k5-times"], ["--k6a-times"], ["--k7-times"], ["--k9a-times"],
                          ["--k9b-times"], ["--k9c-times"], ["--k10a-times"], ["--k10b-times"],
-                         ["--k10c-times"], ["--k10d-times"]):
+                         ["--k10c-times"], ["--k10d-times"], ["--k11a-times"],
+                         ["--k12b-times"]):
         return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()

@@ -8,7 +8,9 @@ cuDNN through ``torch.nn`` here; the loss and the update are kernels:
 
 - ``qbd_loss`` (K11a, ``csrc/qbd_loss.cu``): the loss of one of three modes
   and its gradient with respect to ``qt_out`` and each branch output, in one
-  call that the autograd function ``_QBDLoss`` wraps; ``backward`` scales
+  launch that the autograd function ``_QBDLoss`` wraps (the blocks' partial
+  sums meet in the last block through a ticket counter the wrapper keeps
+  per device and stream); ``backward`` scales
   the saved gradients by the incoming one. Modes: ``"q"``, the QT net's
   plain L1 (``trainer.py:77-79``); ``"bd"``, ``msbd_loss``; ``"qbd"``,
   ``qbd_loss``. The plain version is ``qbd_loss_reference``, the autograd of
@@ -92,7 +94,8 @@ def loss_params(mode, n, qp, is_luma, w=LossWeights()) -> np.ndarray:
 
 
 SIGNATURES = {
-    "qbd_loss": {"pmp_qbd_loss": (_build.INT, _build.INT) + (_build.PTR,) * 15},
+    "qbd_loss": {"pmp_qbd_loss": (_build.INT, _build.INT) + (_build.PTR,) * 16,
+                 "pmp_qbd_loss_blocks": (_build.INT, _build.INT)},
     "adam": {"pmp_adam_update": (_build.INT,) + (_build.PTR,) * 7},
 }
 
@@ -102,7 +105,16 @@ def _lib(name: str):
     return _build.bind(name, SIGNATURES[name])
 
 
-_THREADS = 256
+# K11a's ticket counters, one a (device, stream): zeroed once, and 0 again
+# after every launch (the last block's atomicInc wraps it)
+_TICKETS: dict = {}
+
+
+def _ticket(dev, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((), dtype=torch.int32, device=dev)
+    return _TICKETS[key]
 
 
 def _launch_loss(mode, qt_out, bd_outs, qt_label, bt_label, dire_label, params):
@@ -113,16 +125,17 @@ def _launch_loss(mode, qt_out, bd_outs, qt_label, bt_label, dire_label, params):
     _build.check_cuda("qbd_loss", *tensors)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("qbd_loss takes float32 tensors")
-    n, dev = tensors[0].shape[0], tensors[0].device
-    blocks = max(1, -(-n * (256 if has_bd else 64) // _THREADS))
-    partials = torch.empty(blocks * 10, dtype=torch.float64, device=dev)
+    n, dev, stream = tensors[0].shape[0], tensors[0].device, _build.stream(tensors[0])
+    lib, m = _lib("qbd_loss"), MODES.index(mode)
+    partials = torch.empty(lib.pmp_qbd_loss_blocks(m, n) * 10, dtype=torch.float64, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     g_qt = torch.empty_like(qt_out) if has_q else None
     g_bd = [torch.empty_like(b) for b in bd_outs] if has_bd else [None] * 3
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _lib("qbd_loss").pmp_qbd_loss(
-        MODES.index(mode), n, *map(ptr, q_in + bd_in), params.ctypes.data,
-        *map(ptr, [g_qt, *g_bd]), partials.data_ptr(), loss.data_ptr(), _build.stream(tensors[0]))
+    err = lib.pmp_qbd_loss(
+        m, n, *map(ptr, q_in + bd_in), params.ctypes.data,
+        *map(ptr, [g_qt, *g_bd]), partials.data_ptr(), _ticket(dev, stream).data_ptr(),
+        loss.data_ptr(), stream)
     _build.count_launch(qbd_loss, err)
     return loss, g_qt, g_bd
 

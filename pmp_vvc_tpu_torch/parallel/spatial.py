@@ -135,13 +135,16 @@ def halo_pack(planes, hl, hr, strd):
 
 def halo_unpack(buf, planes, hl, hr, strd, has_left, has_right):
     """K12b unpack: see ``halo_unpack_reference``; CPU tensors take it,
-    CUDA tensors launch ``csrc/halo.cu``."""
+    CUDA tensors launch ``csrc/halo.cu`` over the bands received, and
+    nothing (no launch counted) where neither neighbour exists."""
     if planes[0].device.type == "cpu":
         return halo_unpack_reference(buf, planes, hl, hr, strd, has_left, has_right)
     H = _check_planes(planes, hl, hr, strd)
     _build.check_cuda("halo_unpack", buf, *planes)
     if buf.dtype != torch.int32 or buf.numel() != band_size(H, hl) + band_size(H, hr):
         raise ValueError("the halo buffer must be int32 and hold both bands")
+    if not (has_left or has_right):
+        return
     err = _lib("halo").pmp_halo_unpack(buf.data_ptr(), *(p.data_ptr() for p in planes),
                                        H, hl, hr, strd, int(bool(has_left)),
                                        int(bool(has_right)), _build.stream(buf))

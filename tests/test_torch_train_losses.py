@@ -104,14 +104,11 @@ LOSS_CASES = [("q", 22, True)] + [(mode, qp, is_luma) for mode in ("bd", "qbd")
                                    for qp in QPS for is_luma in (True, False)]
 
 
-@pytest.mark.parametrize("mode,qp,is_luma", LOSS_CASES)
-def test_loss_and_gradient_match_jax(mode, qp, is_luma):
-    """Every QP and both components (the q loss takes neither)."""
-    args = loss_inputs(seed=qp + 100 * is_luma)
-    want = jax_loss_and_grads(mode, qp, is_luma, *args)
-    got = port_loss_and_grads(tg.qbd_loss, mode, qp, is_luma, *args)
+def assert_matches_jax(got, want, mode, qp, is_luma, qt_out, bd, qt_lab, bt, dire):
+    """(loss, grad qt_out, [grad bd_i]) held to JAX's: the loss within
+    LOSS_RTOL, the gradients within GRAD_ATOL but for one flipped sign of a
+    residual term at an FMA tie, and +1 as |x|'s gradient at 0."""
     np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
-    qt_out, bd, qt_lab, bt, dire = args
     if mode != "bd":
         np.testing.assert_allclose(got[1], want[1], rtol=0, atol=GRAD_ATOL)
         # |x|'s gradient at 0 is JAX's +1, not torch's 0
@@ -121,7 +118,7 @@ def test_loss_and_gradient_match_jax(mode, qp, is_luma):
         # at an FMA tie of branch i, the depth gradients of branches i and
         # i-1 may differ from JAX's by one flipped sign of that term
         ties = fma_ties(bd, bt, dire, qp, is_luma)
-        scale = tg.loss_params(mode, N, qp, is_luma)[21:24]
+        scale = tg.loss_params(mode, bt.shape[0], qp, is_luma)[21:24]
         flip = [np.zeros(bt[:, 0].shape) for _ in range(3)]
         for i, tie in enumerate(ties):
             wd = 2 * scale[i] * (dire[:, i] ** 2 + tl.weight_row(qp, is_luma)[i])
@@ -139,6 +136,15 @@ def test_loss_and_gradient_match_jax(mode, qp, is_luma):
             assert hit.any() and (g[:, 1][hit] > 0).all()
 
 
+@pytest.mark.parametrize("mode,qp,is_luma", LOSS_CASES)
+def test_loss_and_gradient_match_jax(mode, qp, is_luma):
+    """Every QP and both components (the q loss takes neither)."""
+    args = loss_inputs(seed=qp + 100 * is_luma)
+    want = jax_loss_and_grads(mode, qp, is_luma, *args)
+    got = port_loss_and_grads(tg.qbd_loss, mode, qp, is_luma, *args)
+    assert_matches_jax(got, want, mode, qp, is_luma, *args)
+
+
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     args = loss_inputs(seed=3)
     a = port_loss_and_grads(tg.qbd_loss, "qbd", 27, True, *args)
@@ -148,20 +154,30 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     assert tg.qbd_loss.launches == 0
 
 
-def kernel_mirror(mode, qp, is_luma, qt_out, bd, qt_lab, bt, dire):
+def plain_total(values, positions):
+    """A term's float64 sum over the label positions, in numpy's order."""
+    return values.astype(np.float64).sum()
+
+
+def kernel_mirror(mode, qp, is_luma, qt_out, bd, qt_lab, bt, dire, total=plain_total):
     """The arithmetic of csrc/qbd_loss.cu in numpy float32: every element in
     the JAX order, the term gradients from ``loss_params``, the depth
-    gradient summed as the kernel sums it, the means in float64."""
+    gradient summed as the kernel sums it, the means in float64.
+    ``total(values, positions)`` sums one term's |x| (float32, in position
+    order) over a grid of ``positions`` label positions (n * 64 in mode "q",
+    else n * 256)."""
     f = np.float32
     n = bt.shape[0] if mode != "q" else qt_out.shape[0]
     p = tg.loss_params(mode, n, qp, is_luma)
     m, qp22, c, g = p[:3], p[3], p[4:14], p[14:24]
     sgn = lambda x: np.where(x >= 0, f(1), f(-1))
+    positions = n * (64 if mode == "q" else 256)
+    term = lambda x: total(np.abs(x).ravel(), positions)
     sums = np.zeros(10)
     gq, gb = None, None
     if mode != "bd":
         d = qt_out - qt_lab
-        sums[0] = np.abs(d).astype(np.float64).sum()
+        sums[0] = term(d)
         gq = g[0] * sgn(d)
     if mode != "q":
         dep = [b[:, 0] for b in bd]
@@ -177,9 +193,9 @@ def kernel_mirror(mode, qp, is_luma, qt_out, bd, qt_lab, bt, dire):
             bdir = wd[i] * dirp[i] - wd[i] * r[i]
             cc = wd[0] * dep[0] - wd[0] * t[0] if i == 0 else \
                 wd[i] * (dep[i] - dep[i - 1]) - wd[i] * (t[i] - t[i - 1])
-            sums[1 + i] = np.abs(a).astype(np.float64).sum()
-            sums[4 + i] = np.abs(bdir).astype(np.float64).sum()
-            sums[7 + i] = np.abs(cc).astype(np.float64).sum()
+            sums[1 + i] = term(a)
+            sums[4 + i] = term(bdir)
+            sums[7 + i] = term(cc)
             gres.append((g[7 + i] * sgn(cc)) * wd[i])
             gb[i][:, 1] = (g[4 + i] * sgn(bdir)) * wd[i]
         for i in range(3):
