@@ -7,7 +7,9 @@ Phases, each of which fails the run on error (nothing is caught):
 1. Build every CUDA kernel of ``pmp_vvc_tpu_torch/csrc`` with nvcc (sm_90a).
 2. Hold the structural-vote kernel (K8) against its plain PyTorch version on
    the card, exactly, on 65,536 seeded maps that include rounding ties and
-   every zero-count band; time both at the prediction path's batch (512)
+   every zero-count band, and on ``K8_EDGE_CASES`` (counts that leave a
+   warp's second CTU empty, a view 16 bytes past a 256-byte boundary, the
+   (N, 8, 8, 1) layout); time both at the prediction path's batch (512)
    and at 65,536.
 3. The main path: ``predict_sequence`` on a 1920x1080, 2-frame synthetic
    sequence with the trained Luma QP22/27/32/37 and Chroma QP22 predictors
@@ -191,9 +193,11 @@ the encode CLI:
     K10b at every size class, K10c on every MTS pair, DCT-2 at 64 and the
     ISP shapes at QP 0/22/37/51 with every stage mask, K10d on every tile
     shape, K10e at every side 2-64 against one original and one per block,
-    on a block whose int32 SSE wraps and on differences at the int32
-    limits; K10c on its edge cases (``K10C_EDGE_CASES``: full-scale
-    +-(2^bd - 1) residual patterns at every shape of ``SEQ_TQ_SHAPES`` and
+    on a block whose int32 SSE wraps, on differences at the int32 limits
+    and, for its scalar instantiation, on views off the 16-byte grain and
+    3x5 blocks (``K10E_EDGE_CASES``); K10c on its edge cases
+    (``K10C_EDGE_CASES``: full-scale +-(2^bd - 1) residual patterns at
+    every shape of ``SEQ_TQ_SHAPES`` and
     every kind at 8 and 10 bits, levels at the 16-bit limits through both
     inverse clips, dequantiser shifts of 0, -9, -10 and -11 (the least at 10
     bits, a 1x1 TU) with products past 2^31 that wrap in int32, coefficients
@@ -346,8 +350,16 @@ PARENT`` for K12b (``K12B_VARIANTS``, ``k12b_cases``: the pack and the
 unpack at 512x256 over 2 stripes at ranks 0 and 1, over 4 at an interior
 rank, 3840x2160 over 2, 1920x1080 over 3 at the interior rank, the pack of
 256x128 on one stripe; every build held to ``K12B_EDGE_CASES``), with phase
-23's checks and times; K11a's and K12b's cases log the share of their
-bounds and end with the launch floor; none prints a result line.
+23's checks and times; ``--k8-times PARENT`` for K8 (``K8_VARIANTS``,
+``k8_cases``: N = 512 and 508, the prediction path's chunks, 8, 65,536
+and 524,288; every build held to ``K8_EDGE_CASES``), with phase 2's checks
+and times; ``--k10e-times PARENT`` for K10e (``K10E_VARIANTS``, ``k10e_cases``: ``sad``
+and ``sse`` on 67 blocks of 16x16 and of 4x4 against one original, on 16
+of 32x32 and 8 of 64x64 with an original each; every build held to
+``K10E_EDGE_CASES``), with phase 19's checks and times (``torch.cdist``'s
+time for ``sad`` among them); K8's, K10e's, K11a's and K12b's cases log
+the share of their bounds; all end with the launch floor; none prints a
+result line.
 
 Prints the kernels' numbers as one JSON line (K12b's and K12c's rows among
 them; under "k12a" the sharded scan's K1-K7 launches and collective times
@@ -419,6 +431,7 @@ from pmp_vvc_tpu_torch.parallel.dryrun import spatial_encode
 from pmp_vvc_tpu_torch.pmp.map2partition import blocks_to_frame_partition
 from pmp_vvc_tpu_torch.pmp.pipeline import predict_sequence
 from pmp_vvc_tpu_torch.pmp.predict import CompPredictor
+from pmp_vvc_tpu_torch.pmp import structural as vote_mod
 from pmp_vvc_tpu_torch.pmp.structural import (
     structural_vote, structural_vote_reference)
 from pmp_vvc_tpu_torch.models import (ChromaMSBDNet, ChromaQNet, LumaMSBDNet, LumaQNet,
@@ -592,6 +605,44 @@ def phase_build() -> None:
             log(f"[build] {name}: {line}")
 
 
+def vote_bound(x: torch.Tensor) -> tuple[float, str, int, int]:
+    """(bound ms, bound_by, bytes, ops) of one K8 call on the maps ``x``:
+    each map read and written once, ``vote_ops`` at the float32 rate."""
+    nbytes, ops = 2 * x.numel() * 4, vote_ops(x)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+# K8's untimed edge cases, held exactly to the plain version on every build:
+# counts that leave a warp's second CTU empty, a view 16-byte aligned but not
+# 256-byte aligned, and the trailing channel layout
+K8_EDGE_CASES = ("N 1", "N 2", "N 3", "N 31", "N 33", "N 507",
+                 "N 33 as a view 4 floats into a buffer", "N 33 as (N, 8, 8, 1)")
+
+
+def k8_edge_calls() -> list:
+    """``K8_EDGE_CASES`` as (call, plain outputs) pairs."""
+    maps = torch.from_numpy(vote_inputs(4096, seed=6)).to(DEVICE)
+    spread = lambda n: maps[torch.linspace(0, len(maps) - 1, n).long()]  # noqa: E731
+    xs = [spread(n) for n in (1, 2, 3, 31, 33, 507)]
+    buf = torch.zeros(33 * 64 + 4, device=DEVICE)
+    buf[4:] = spread(33).flatten()
+    xs.append(buf[4:].view(33, 8, 8))
+    xs.append(spread(33)[..., None].contiguous())
+    check(xs[-2].data_ptr() % 16 == 0 and xs[-2].data_ptr() % 256 == 16,
+          "K8's view edge case is not 16 bytes past a 256-byte boundary")
+    return [((lambda x=x: structural_vote(x)), structural_vote_reference(x)) for x in xs]
+
+
+def k8_edge_variant_checks() -> list:
+    """``K8_EDGE_CASES`` as one ``VARIANT_CHECKS`` entry."""
+    def make():
+        calls = k8_edge_calls()
+        return (lambda: [call() for call, _ in calls]), [want for _, want in calls]
+    return [("K8_EDGE_CASES", make)]
+
+
 def phase_vote() -> dict:
     x = torch.from_numpy(vote_inputs(VOTE_N, seed=0)).cuda()
     got = structural_vote(x)
@@ -601,13 +652,15 @@ def phase_vote() -> dict:
     check(torch.equal(got, want), f"K8 differs from its plain version (max {err})")
     log(f"[K8] {VOTE_N} maps equal to the plain version on the card "
         f"(max_abs_err {err})")
+    edge_errs: dict = {}
+    for call, want in k8_edge_calls():
+        _cmp("structural_vote", call(), want, edge_errs)
+    log(f"[K8] equal to the plain version on K8_EDGE_CASES {K8_EDGE_CASES} "
+        f"(max_abs_err {edge_errs})")
     res = {}
     for n in (BATCH, VOTE_N):
         xn = x[:n].contiguous()
-        nbytes = 2 * xn.numel() * 4
-        ops = vote_ops(xn)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S else "operations"
+        bound, by, nbytes, ops = vote_bound(xn)
         kernel, plain = (lambda: structural_vote(xn)), (lambda: structural_vote_reference(xn))
         ms, plain_ms = graph_ms(kernel), graph_ms(plain)
         call, plain_call = call_ms(kernel, 2000), call_ms(plain, 200)
@@ -5117,7 +5170,8 @@ def seq_bounds(name: str, w: int, h: int, k: int, stages: int = quant_ops.ROUND_
     sum over the whole side, OPS_SEQ_QUANT operations a quantised or
     dequantised coefficient; K10d k SATDs of the block's tiles (log2 of the
     tile's samples butterfly stages, abs and sum a sample); K10e k sums of
-    |difference| or its square. Inputs read once, outputs written once."""
+    |difference| or its square against n originals (1 or k). Inputs read
+    once, outputs written once."""
     hw = w * h
     if name == "seq_intra":
         rows = 2 if luma else 1
@@ -5144,7 +5198,7 @@ def seq_bounds(name: str, w: int, h: int, k: int, stages: int = quant_ops.ROUND_
         nbytes = 4 * hw + 4 * k * hw + 4 * k
         ops = k * hw * ((th * tw).bit_length() - 1 + 2)
     else:
-        nbytes, ops = 4 * hw + 4 * k * hw + 4 * k, k * hw * OPS_DIST
+        nbytes, ops = 4 * n * hw + 4 * k * hw + 4 * k, k * hw * OPS_DIST
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate(name)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
@@ -5167,8 +5221,19 @@ def k10e_inputs(rng) -> list:
     """(org, cur) int32 pairs on the card for K10e: a 64x64 block of
     differences of 1023 (its int32 sse wraps) first; random samples at
     every side 2..64 against one original and against one per block;
-    differences at the int32 limits, which wrap."""
+    differences at the int32 limits, which wrap; then inputs for the scalar
+    instantiation: views 4 bytes past the 16-byte grain (67 blocks of 16x16
+    against one original, 64x64 in two rounds of a 32-warp thread block,
+    64x32, an aligned original against an unaligned block, the int32
+    limits), and 3x5 blocks on a warp, whose 15 samples are no multiple of
+    4."""
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)  # noqa: E731
+
+    def off_grain(a):
+        flat = torch.zeros(a.size + 1, dtype=torch.int32, device=DEVICE)
+        flat[1:] = dev(a).flatten()
+        return flat[1:].view(a.shape)
+
     pairs = [(dev(np.full((64, 64), 1023)), dev(np.zeros((1, 64, 64))))]
     for w, h in itertools.product((2, 4, 8, 16, 32, 64), repeat=2):
         cur = rng.randint(0, 1024, (3, h, w))
@@ -5177,6 +5242,16 @@ def k10e_inputs(rng) -> list:
     lim = np.iinfo(np.int32)
     pairs.append((dev(rng.choice([lim.max, lim.min, 0, 1], (2, 8, 8))),
                   dev(rng.choice([lim.max, lim.min, -1, 5], (2, 8, 8)))))
+    block = lambda *shape: rng.randint(0, 1024, shape)  # noqa: E731
+    pairs += [(off_grain(block(16, 16)), off_grain(block(67, 16, 16))),
+              (off_grain(block(2, 64, 64)), off_grain(block(2, 64, 64))),
+              (off_grain(np.full((64, 32), 1023)), off_grain(np.zeros((3, 64, 32)))),
+              (dev(block(32, 32)), off_grain(block(5, 32, 32))),
+              (dev(block(5, 3)), dev(block(4, 5, 3))),
+              (off_grain(rng.choice([lim.max, lim.min, 0, 1], (2, 8, 8))),
+               off_grain(rng.choice([lim.max, lim.min, -1, 5], (2, 8, 8))))]
+    check(all(c.data_ptr() % 16 for _, c in pairs[-6:-2]),
+          "K10e's scalar inputs lie on the 16-byte grain")
     return pairs
 
 
@@ -5191,7 +5266,8 @@ def phase_seq_kernels() -> tuple[dict, dict]:
     offsets of one upload; K10c's and K10d's wrappers refusing
     inputs off the 16-byte grain; K10e on ``k10e_inputs``. Then each
     kernel's device time per call at 16x16 (a CUDA graph of 50 calls), its
-    plain version's and the wrapper's round trip from numpy to numpy."""
+    plain version's and the wrapper's round trip from numpy to numpy, and
+    ``sad``'s library yardstick (``sad_cdist_ms``)."""
     rng = np.random.RandomState(10)
     errs = dict.fromkeys([*SEQ_KERNELS, *K10E_KERNELS], 0.0)
     n_checked = dict.fromkeys(errs, 0)
@@ -5315,7 +5391,27 @@ def phase_seq_kernels() -> tuple[dict, dict]:
             f"graph of 50) {ms:.6f} ms; plain version from Python {plain_ms:.6f} ms; wrapper "
             f"round trip numpy to numpy {host_ms:.6f} ms; bound {bound:.6f} ms by {by} "
             f"({nbytes} B, {ops} ops)")
+    times["seq_sad"]["library_ms"] = sad_cdist_ms(org, cur)
     return errs, times
+
+
+def sad_cdist_ms(org: torch.Tensor, cur: torch.Tensor) -> float:
+    """K10e's library yardstick: ``torch.cdist(p=1)`` on float32 copies of
+    the blocks (made outside the timed calls) computes the same SADs
+    exactly, every term and partial sum an integer below 2^24; its device
+    time per call (CUDA graph of 50). ``sse`` has no such call (``cdist``
+    with p=2 takes a square root)."""
+    cur_f = cur.reshape(cur.shape[0], -1).float()
+    org_f = org.reshape(1, -1).float()
+    lib = lambda: torch.cdist(cur_f, org_f, p=1)  # noqa: E731
+    got = lib()[:, 0]
+    check(org_f.shape[1] * 1023 < 1 << 24 and
+          torch.equal(got.int(), dist_ops.sad(org, cur)), "cdist(p=1) differs from K10e's sad")
+    ms = graph_ms(lib)
+    log(f"[seq-kernels] seq_sad's library yardstick, torch.cdist(p=1) on float32 copies of "
+        f"{cur.shape[0]} blocks of {cur.shape[-1]}x{cur.shape[-2]}: equal SADs, device time per "
+        f"call (CUDA graph of 50) {ms:.6f} ms")
+    return ms
 
 
 # the stage mask of each name under which codec/encoder.py calls K10c (None:
@@ -6365,8 +6461,8 @@ def phase_dp_2rank(nccl1: dict, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A redesigned kernel (K1-K7, K9a-c, K10a-d) beside the parent commit's and
-# its other shapes
+# A redesigned kernel (K1-K7, K8, K9a-c, K10a-e, K11a, K12b) beside the
+# parent commit's and its other shapes
 # ---------------------------------------------------------------------------
 
 def variant_library(kernel: str, src: pathlib.Path, out: pathlib.Path,
@@ -7047,6 +7143,16 @@ K12B_VARIANTS = {"2 quads a thread": ("-DK12B_QPT=2",),
                  "4 quads a thread": ("-DK12B_QPT=4",),
                  "128 threads a block": ("-DK12B_THREADS=128",),
                  "512 threads a block": ("-DK12B_THREADS=512",)}
+# K8's (16 lanes a CTU, 256 threads a block shipped) and K10e's (teams of
+# one warp 4 a block up to 64 int4s, 16x16, at up to 2 a lane; above, 1 a
+# lane: 8 warps at 32x32, 32 at 64x64)
+K8_VARIANTS = {"8 lanes a CTU, both rows a lane": ("-DK8_LANES=8",),
+               "128 threads a block": ("-DK8_THREADS=128",),
+               "8 lanes a CTU, 128 threads a block": ("-DK8_LANES=8", "-DK8_THREADS=128")}
+K10E_VARIANTS = {"8 warps a block": ("-DK10E_WARPS=8",),
+                 "2 warps a block": ("-DK10E_WARPS=2",),
+                 "1 int4 a lane at 16x16 (2 warps)": ("-DK10E_WARP_UNITS=32",),
+                 "2 int4s a lane in teams (32x32 on 4 warps, 64x64 on 16)": ("-DK10E_LPL=2",)}
 # (label, bound ms) of the timed cases that carry one, by (kernel, label)
 CASE_BOUNDS: dict = {}
 K11A_CASES = (("qbd", 22, True, 32), ("qbd", 22, True, 64), ("bd", 37, False, 64),
@@ -7087,11 +7193,81 @@ def k12b_cases(width: int, height: int) -> list:
     return out
 
 
+K8_CASES = ((BATCH, "the prediction path's chunk"), (508, "the path's last chunk of a frame"),
+            (8, "entry()'s example"), (VOTE_N, "phase 2's maps, 33.5 MB: held in the 50 MB L2"),
+            (8 * VOTE_N, "268 MB, beyond L2"))
+
+
+def k8_call(n: int):
+    """(K8 on ``vote_inputs(n)`` on the card, its plain version's outputs)."""
+    x = torch.from_numpy(vote_inputs(n, seed=n)).to(DEVICE)
+    return (lambda: [structural_vote(x)]), [structural_vote_reference(x)]
+
+
+def k8_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K8: N = 512 and 508 (the
+    prediction path's two chunk sizes at 1920x1080), 8 (``entry()``'s),
+    65,536 (its maps stay in L2 between the graph's calls) and 524,288
+    (streaming from device memory); ``width`` and ``height`` unused."""
+    out = []
+    for n, what in K8_CASES:
+        label = f"N = {n} ({what})"
+        x = torch.from_numpy(vote_inputs(n, seed=n)).to(DEVICE)
+        CASE_BOUNDS[("k8", label)] = vote_bound(x)[:2]
+        out.append((label, functools.partial(k8_call, n)))
+    return out
+
+
+K10E_CASES = ((16, 16, 67, False), (4, 4, 67, False), (32, 32, 16, True), (64, 64, 8, True))
+
+
+def k10e_call(fn, w: int, h: int, k: int, per_block: bool):
+    """(``fn`` (K10e's sad or sse) on k random blocks of w x h against one
+    original or one each, its plain version's outputs)."""
+    rng = np.random.RandomState(w * 131 + h + k)
+    org = torch.from_numpy(rng.randint(0, 1024, (k if per_block else 1, h, w))
+                           .astype(np.int32)).to(DEVICE)
+    cur = torch.from_numpy(rng.randint(0, 1024, (k, h, w)).astype(np.int32)).to(DEVICE)
+    plain = dist_ops.sad_reference if fn is dist_ops.sad else dist_ops.sse_reference
+    return (lambda: [fn(org, cur)]), [plain(org, cur)]
+
+
+def k10e_cases(width: int, height: int) -> list:
+    """``phase_variant_times``' cases of K10e: ``sad`` and ``sse`` on 67
+    blocks of 16x16 and of 4x4 against one original (RMD's count), on 16 of
+    32x32 and 8 of 64x64 with an original each (the block form); ``width``
+    and ``height`` unused."""
+    out = []
+    for fn, (w, h, k, per) in itertools.product((dist_ops.sad, dist_ops.sse), K10E_CASES):
+        label = f"{fn.__name__}, {k} of {w}x{h}" + (", an original each" if per else "")
+        CASE_BOUNDS[("k10e", label)] = seq_bounds(f"seq_{fn.__name__}", w, h, k,
+                                                  n=k if per else 1)[:2]
+        out.append((label, functools.partial(k10e_call, fn, w, h, k, per)))
+    return out
+
+
+# K10e's untimed edge cases, held exactly to the plain versions on every build
+K10E_EDGE_CASES = ("k10e_inputs: every side 2..64 against one original and one each, the "
+                   "wrapping sums, the int32 limits",
+                   "views off the 16-byte grain and 3x5 blocks: the scalar instantiation")
+
+
+def k10e_edge_variant_checks() -> list:
+    """``K10E_EDGE_CASES`` (``k10e_inputs``) as one ``VARIANT_CHECKS``
+    entry: ``sad`` and ``sse`` of every pair."""
+    def make():
+        pairs = k10e_inputs(np.random.RandomState(11))
+        fns = ((dist_ops.sad, dist_ops.sad_reference), (dist_ops.sse, dist_ops.sse_reference))
+        return ((lambda: [fn(o, c) for o, c in pairs for fn, _ in fns]),
+                [plain(o, c) for o, c in pairs for _, plain in fns])
+    return [("K10E_EDGE_CASES", make)]
+
+
 # ``--k1-times`` / ``--k2-times`` / ``--k3-times`` / ``--k4-times`` /
 # ``--k5-times`` / ``--k6a-times`` / ``--k7-times`` / ``--k9a-times`` /
 # ``--k9b-times`` / ``--k9c-times`` / ``--k10a-times`` / ``--k10b-times`` /
-# ``--k10c-times`` / ``--k10d-times`` / ``--k11a-times`` / ``--k12b-times``:
-# (library, wrapper module,
+# ``--k10c-times`` / ``--k10d-times`` / ``--k11a-times`` / ``--k12b-times`` /
+# ``--k8-times`` / ``--k10e-times``: (library, wrapper module,
 # variants, the function that gives the timed cases: (label, the function
 # that makes the call, its plain outputs and, for a kernel that writes in
 # place, the function that clears what it writes))
@@ -7111,7 +7287,9 @@ TIMED_KERNELS = {"k1": ("ref_gather", ig, K1_VARIANTS, k1_cases),
                  "k10c": ("seq_tq", quant_ops, K10C_VARIANTS, k10c_cases),
                  "k10d": ("seq_satd", dist_ops, K10D_VARIANTS, k10d_cases),
                  "k11a": ("qbd_loss", tg, K11A_VARIANTS, k11a_cases),
-                 "k12b": ("halo", sp, K12B_VARIANTS, k12b_cases)}
+                 "k12b": ("halo", sp, K12B_VARIANTS, k12b_cases),
+                 "k8": ("structural_vote", vote_mod, K8_VARIANTS, k8_cases),
+                 "k10e": ("seq_dist", dist_ops, K10E_VARIANTS, k10e_cases)}
 # untimed inputs on which every build of ``phase_variant_times`` must equal
 # the plain version too: (label, the function that makes the call and its
 # plain outputs)
@@ -7119,7 +7297,8 @@ VARIANT_CHECKS = {"k9a": k9a_tie_cases, "k9b": k9b_tie_cases, "k9c": k9c_edge_ca
                   "k10a": k10a_edge_variant_checks, "k10b": k10b_edge_variant_checks,
                   "k10c": k10c_edge_variant_checks,
                   "k10d": k10d_edge_variant_checks, "k11a": k11a_edge_variant_checks,
-                  "k12b": k12b_edge_variant_checks}
+                  "k12b": k12b_edge_variant_checks, "k8": k8_edge_variant_checks,
+                  "k10e": k10e_edge_variant_checks}
 # the comparison with the plain version where it is not exact equality
 VARIANT_CMP = {"k11a": k11a_cmp}
 
@@ -7312,9 +7491,11 @@ def times_only(kernel: str, parent: pathlib.Path) -> int:
     / ``--k7-times PARENT`` / ``--k9a-times PARENT`` / ``--k9b-times
     PARENT`` / ``--k9c-times PARENT`` / ``--k10a-times PARENT`` /
     ``--k10b-times PARENT`` / ``--k10c-times PARENT`` / ``--k10d-times
-    PARENT`` / ``--k11a-times PARENT`` / ``--k12b-times PARENT``: the
-    build; for K11a phase 17's checks and times (``phase_train_kernels``),
-    for K12b phase 23's (``phase_halo_kernels``); for the others the encode
+    PARENT`` / ``--k11a-times PARENT`` / ``--k12b-times PARENT`` /
+    ``--k8-times PARENT`` / ``--k10e-times PARENT``: the build; for K11a
+    phase 17's checks and times (``phase_train_kernels``), for K12b phase
+    23's (``phase_halo_kernels``), for K8 phase 2's (``phase_vote``), for
+    K10e phase 19's (``phase_seq_kernels``); for the others the encode
     kernels' checks and times (the K2, K3, K4, K5 and K6a tie cases and K1's
     and K7's edge cases among them, and the launch floor; K5's time shows
     what K4's shared ``csrc/tq_team.cuh`` left of it), for K1, K4, K6a and
@@ -7334,6 +7515,10 @@ def times_only(kernel: str, parent: pathlib.Path) -> int:
         phase_train_kernels()
     elif kernel == "k12b":
         phase_halo_kernels()
+    elif kernel == "k8":
+        phase_vote()
+    elif kernel == "k10e":
+        phase_seq_kernels()
     else:
         phase_encode_kernels()
         if kernel in ("k1", "k4", "k6a", "k9a", "k9b", "k9c"):
@@ -7415,7 +7600,7 @@ def main() -> int:
                          ["--k5-times"], ["--k6a-times"], ["--k7-times"], ["--k9a-times"],
                          ["--k9b-times"], ["--k9c-times"], ["--k10a-times"], ["--k10b-times"],
                          ["--k10c-times"], ["--k10d-times"], ["--k11a-times"],
-                         ["--k12b-times"]):
+                         ["--k12b-times"], ["--k8-times"], ["--k10e-times"]):
         return times_only(sys.argv[1][2:].removesuffix("-times"), pathlib.Path(sys.argv[2]))
     phase_build()
     vote = phase_vote()
@@ -7495,12 +7680,13 @@ def main() -> int:
     # stages, the tiled Hadamard SATD, or a block's int32 sum of |org - cur|
     # or its square that wraps (PyTorch's integer sums promote to int64, and
     # its distance calls take floats); launches are the sequential path's
-    # warm run (phase_seq_encode), 0 for K10e, which no path calls
+    # warm run (phase_seq_encode), 0 for K10e, which no path calls; K10e's
+    # sad has torch.cdist(p=1) on float32 copies as its library yardstick
     for name, (_, source, replaces) in [*SEQ_KERNELS.items(), *K10E_KERNELS.items()]:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": seq_launches[name], "max_abs_err": seq_errs[name],
-            **seq_times[name], "library_ms": None})
+            "library_ms": None, **seq_times[name]})
     # K12b: no PyTorch call computes a masked pack of six plane bands;
     # launches are the two-rank spatial path's (rank 0)
     for name, (_, source, replaces) in MD_KERNELS.items():

@@ -27,7 +27,14 @@ path (square tiles only) is ``ops/tq_generic.py:satd_generic``.
 (org - cur)^2 over the last two axes, in int32 as the JAX package sums with
 x64 off, where the sum wraps (a 64x64 block of differences of 1023 has
 ``sse`` -8,384,512); ``sad_reference`` / ``sse_reference`` wrap the same
-way. No path of either package calls them.
+way. No path of either package calls them. The kernel sums each block as
+one flat run of samples, in whatever order loads best (sums modulo 2^32
+are exact in any order): a warp per block of up to 256 samples (16x16),
+at most two int4s a lane, and above that a thread block per block of
+samples at one int4 a lane (8 warps at 32x32, 32 at 64x64), on int4 loads
+where the samples' count is a multiple of 4 and both tensors start on a
+16-byte boundary (a scalar instantiation of the same kernels otherwise),
+each warp's sum one ``__reduce_add_sync``.
 """
 from __future__ import annotations
 
