@@ -219,10 +219,10 @@ the encode CLI:
     graph of 50 calls) beside its plain version and the wrapper's round trip
     from numpy to numpy.
 20. The sequential path: ``FrameEncoder(mode_select="satd")`` with all 67
-    RMD modes on 416x240 x 2 frames of natural content, the bench's tools
-    without sign-data hiding and with MRL, ISP and dependent quantization,
-    dual tree, the QP 22 maps; a cold run of one frame, then a warm run of
-    both with every K10 kernel's launches counted, K10a's by (w, h, modes,
+    RMD modes on one 416x240 frame of natural content (two until phases
+    29-31 joined), the bench's tools without sign-data hiding and with MRL,
+    ISP and dependent quantization, dual tree, the QP 22 maps; a cold run,
+    then a warm one with every K10 kernel's launches counted, K10a's by (w, h, modes,
     luma, blocks: a chroma CU's U and V are one call), K10b's by (w, h),
     K10c's by (stage mask, w, h, kinds) and K10d's by (w, h, candidates)
     (``seq_call_mix``), every entry of the four mixes timed with its bound
@@ -235,7 +235,13 @@ the encode CLI:
     card: byte-identical.
 22. ``cli.encode.main`` on a 2-frame 8-bit 256x128 YUV with the QP 22
     predictors' maps, ``--engine sequential`` and ``--engine wavefront``,
-    on the card: each frame's hash SEI equals its recon's MD5.
+    on the card: each frame's hash SEI equals its recon's MD5;
+    ``cli.decode.main`` on the sequential stream, on the card, writes the
+    encode's recon file with every hash verified.
+
+Phases 29-31 (the sequential RDO split search and the decoder) are listed
+after phase 28: 29 and 30 run in worker processes beside phases 10, 16,
+21 and 22, 31 right after phase 22.
 
 Multi-device encoding (K12a, the CU-batch-sharded wave scan: K1-K7 on each
 rank's block of a step and one all-gather per pass; K12b, the spatial-stripe
@@ -290,7 +296,38 @@ training step, ``entry`` and ``dryrun_multichip``):
     bit-equal on both ranks and within the CPU tests' bounds of the
     single-process card run; ``dryrun_multichip``; the all-reduce via host.
 
-``python3 chip_smoke.py --seq-only`` runs the build and phases 19-22 alone,
+The sequential encoder's RDO split search (``FrameEncoder._rd_search``,
+host Python over K10a-d in its trials) and the decoder
+(``codec/decoder.py``, K10a-c: predictions, MIP, a TU's dequantisation and
+inverse transform in one K10c launch); 29 and 30 run in three spawned
+worker processes (``rdo=True``, maps-rd-fb, 30's four runs in turn) while
+phases 10, 16, 21 and 22 run, and 31 after phase 22:
+
+29. ``seq-rdo``: ``natural_frame(192, 128, seed=21)`` at QP 32 in
+    ``tools/rdcheck.py:ctc_cfg``'s configuration (``ctc_cfg``: dual tree,
+    MTS, LFNST, MIP, MRL, ISP, CCLM, joint Cb-Cr, dependent quantization,
+    LMCS with chroma scaling, SAO, ALF, CC-ALF, deblocking, the CTC chroma
+    QP table) with ``mode_select="rd"`` over every fourth RMD mode (the
+    phase's one cut), on the card: ``encode_frame(rdo=True)``, then the QP
+    22 predictors' maps with ``rdo_fallback`` at accel level 0; each with
+    its host seconds and ``code`` time, K10a-d's launches (each must
+    launch) and call mix, the deferred nodes and their winning splits, bits,
+    luma PSNR and the hash SEI against the recon's MD5. At rdcheck's L3,
+    and at L2 and L1, those maps defer no node of this frame, so the
+    fallback runs at L0.
+30. ``seq-rdo-cpu-vs-card``: ``encode_frame(rdo=True)`` and the QP 22 maps
+    with ``rdo_fallback`` at accel level 0 on a 64x64 frame of phase 29's
+    configuration (``mode_select="satd"``), with ``device="cpu"`` and on
+    the card: byte-identical streams.
+31. ``seq-decode``: the port's ``decode_stream(verify_hash=True)`` on the
+    card on the streams of phases 20, 21, 22 (both engines), 29, 30 and 9
+    (the wave path's bench configuration): every hash verified, every recon the
+    encoder's; each decode's time per frame, K10a-c's launches and call mix
+    (K10d none; K10c's DEQUANT | INV entries must occur) and the coded
+    tree's split decisions.
+
+``python3 chip_smoke.py --seq-only`` runs the build and phases 19-22 and
+29-31 alone (phase 31 without phase 9's stream),
 ``--md-only`` the build and phases 23-28, ``--k2-times PARENT`` the build,
 phases 6 and 19 and K2's time beside the parent commit's K2 (``PARENT``:
 a directory holding that commit's ``pmp_vvc_tpu_torch/csrc``, e.g. from
@@ -384,14 +421,17 @@ import sys
 import tempfile
 import time
 import types
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from pmp_vvc_tpu_torch import _build
+from pmp_vvc_tpu_torch.cli import decode as cli_decode
 from pmp_vvc_tpu_torch.cli import encode as cli_encode
 from pmp_vvc_tpu_torch.codec import rdo_device as trd
+from pmp_vvc_tpu_torch.codec import decoder as seq_dec
 from pmp_vvc_tpu_torch.codec import encoder as seq_enc
 from pmp_vvc_tpu_torch.codec import wavefront as wf
 from pmp_vvc_tpu_torch.codec.encoder import FrameEncoder
@@ -501,7 +541,14 @@ def ops_rate(name: str) -> float:
     return int32_ops_per_s() if name in INT32_KERNELS else FP32_OPS_PER_S
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's line (``[phase] ...``) after the seconds
+    since the script started."""
+    if msg.startswith("["):
+        msg = f"{time.perf_counter() - _T0:7.1f} s {msg}"
     print(msg, flush=True)
 
 
@@ -2789,6 +2836,12 @@ def frame_maps(preds: dict, frames, w: int, h: int):
     return out["Luma"], out["Chroma"]
 
 
+def stream_of(outs) -> tuple:
+    """(the frames' bitstreams joined, their recons) of ``encode_frame`` /
+    ``encode_frames`` outputs."""
+    return b"".join(bs for bs, _ in outs), [recon for _, recon in outs]
+
+
 def sei_md5s(bitstream: bytes) -> list[bytes]:
     """The three MD5 digests of each decoded-picture-hash suffix SEI."""
     digests = []
@@ -2977,11 +3030,12 @@ def phase_encode_first_steps(frames, maps_l, maps_c, n_steps: int = 48,
     return errs
 
 
-def phase_encode_bench_tools(preds: dict) -> None:
+def phase_encode_bench_tools(preds: dict) -> tuple:
     """The bench's configuration at 416x240 x 2 frames of natural content with
     the QP 22 maps (the only QP with chroma checkpoints): a cold run, then a
     warm one with its stage times; hash SEI against the recon's MD5, some CTU
-    with luma ALF on, and the CTUs with each ALF and CC-ALF filter on."""
+    with luma ALF on, and the CTUs with each ALF and CC-ALF filter on.
+    Returns the warm run's (stream, recons)."""
     frames = natural_sequence(SMALL_W, SMALL_H, 2, seed0=7, bit_depth=BD)
     maps_l, maps_c = frame_maps(preds, frames, SMALL_W, SMALL_H)
     enc = wf.WavefrontEncoder(enc_cfg(SMALL_W, SMALL_H, BENCH), accel_level=3, device=DEVICE)
@@ -2999,6 +3053,7 @@ def phase_encode_bench_tools(preds: dict) -> None:
     log(f"[bench-tools] {[len(o[0]) for o in outs]} bytes, {enc.steps} wave steps; CTUs "
         f"with each ALF filter over both frames {alf_ctus}; hash SEI equal to the recon's "
         f"MD5")
+    return stream_of(outs)
 
 
 # Phase 10's encodes, CPU against card: (tools, dual tree, width, height,
@@ -4558,7 +4613,9 @@ K10E_KERNELS = {
 # the three tools only this engine codes
 SEQ = "sequential tools"
 TOOLS[SEQ] = dict(TOOLS[BENCH], sign_hiding=False, mrl=True, isp=True, dep_quant=True)
-SEQ_W, SEQ_H, SEQ_FRAMES = SMALL_W, SMALL_H, 2           # class D, as the bench
+# class D, as the bench; one frame (two until phases 29-31 joined the
+# script, within the same time limit)
+SEQ_W, SEQ_H, SEQ_FRAMES = SMALL_W, SMALL_H, 1
 SEQ_LUMA_SIDES = (4, 8, 16, 32, 64)
 SEQ_CHROMA_SIDES = (2, 4, 8, 16, 32)
 SEQ_QPS = (0, 22, 37, 51)
@@ -5439,15 +5496,17 @@ def _k10a_key(tu, *args, w, h, modes, is_luma=True, **kw):
 
 
 @contextlib.contextmanager
-def seq_call_mix():
-    """The sequential encoder's K10 calls counted through the names that
-    ``codec/encoder.py`` calls them by, the wrappers and their launch
-    counts unchanged: K10a's by (w, h, modes, luma, blocks), K10b's by (w,
-    h), K10c's by (stage mask, w, h, kind_h, kind_v), K10d's by (w, h,
-    candidates); yields {"k10a": Counter, ...}. The encoder reaches K10a
-    and K10b through their modules, which it then sees as
-    ``_counted_module`` namespaces. The quantiser and dequantiser alone
-    take no kind: DCT-2 stands for it."""
+def seq_call_mix(*modules):
+    """The K10 calls of ``modules`` (default: the sequential encoder's,
+    ``codec/encoder.py``; the decoder's ``codec/decoder.py`` beside it)
+    counted through the names they call them by, the wrappers and their
+    launch counts unchanged: K10a's by (w, h, modes, luma, blocks), K10b's
+    by (w, h), K10c's by (stage mask, w, h, kind_h, kind_v), K10d's by (w,
+    h, candidates); yields {"k10a": Counter, ...}. The modules reach K10a
+    and K10b through their ``intra_ops`` and ``mip_ops``, which they then
+    see as ``_counted_module`` namespaces. The quantiser and dequantiser
+    alone take no kind: DCT-2 stands for it."""
+    modules = modules or (seq_enc,)
     mixes = {k: collections.Counter() for k in ("k10a", "k10b", "k10c", "k10d")}
     tq_mix, satd_mix = mixes["k10c"], mixes["k10d"]
 
@@ -5464,21 +5523,24 @@ def seq_call_mix():
     def satd_counted(org, cur, **kw):
         h, w = cur.shape[-2:]
         satd_mix[(w, h, cur.numel() // (h * w))] += 1
-        return saved["satd"](org, cur, **kw)
+        return dist_ops.satd(org, cur, **kw)
 
-    saved = {name: getattr(seq_enc, name) for name in [*SEQ_TQ_NAMES, "satd", "intra_ops",
-                                                       "mip_ops"]}
-    for name, mask in SEQ_TQ_NAMES.items():
-        setattr(seq_enc, name, tq_counted(saved[name], mask))
-    seq_enc.satd = satd_counted
-    seq_enc.intra_ops = _counted_module(intra_ops, "predict_block", _k10a_key, mixes["k10a"])
-    seq_enc.mip_ops = _counted_module(mip_ops, "predict_mip_all",
-                                      lambda *a, w, h, **kw: (w, h), mixes["k10b"])
+    counted = {name: tq_counted(getattr(quant_ops, name), mask)
+               for name, mask in SEQ_TQ_NAMES.items()}
+    counted.update(
+        satd=satd_counted,
+        intra_ops=_counted_module(intra_ops, "predict_block", _k10a_key, mixes["k10a"]),
+        mip_ops=_counted_module(mip_ops, "predict_mip_all",
+                                lambda *a, w, h, **kw: (w, h), mixes["k10b"]))
+    saved = [(module, name, getattr(module, name)) for module in modules
+             for name in counted if hasattr(module, name)]
+    for module, name, _ in saved:
+        setattr(module, name, counted[name])
     try:
         yield mixes
     finally:
-        for name, fn in saved.items():
-            setattr(seq_enc, name, fn)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 def k10a_pair_calls(mix: collections.Counter) -> int:
@@ -5499,16 +5561,16 @@ def seq_counts(enc) -> dict:
                 jccr=enc.n_jccr, lfnst=enc.n_lfnst)
 
 
-def phase_seq_encode(preds: dict) -> dict:
+def phase_seq_encode(preds: dict) -> tuple[dict, tuple]:
     """The sequential engine's main path: ``FrameEncoder(mode_select="satd")``
-    with all 67 RMD modes on 416x240 x 2 frames of natural content, the
+    with all 67 RMD modes on ``SEQ_FRAMES`` 416x240 frames of natural content, the
     sequential configuration (``TOOLS[SEQ]``, dual tree, QP 32) with the
     QP 22 maps, a cold run then a warm one with every K10 kernel's launches
     counted; frames/s and stage times; the MRL and ISP CUs and the
     dependent-quantization TUs (each must occur); hash SEI against the
     recon's MD5 and luma PSNR above 30 dB. The cold run codes the first
-    frame only (it loads every kernel), which keeps the script near half
-    its time limit."""
+    frame only (it loads every kernel). Returns the launches and the warm
+    run's (stream, recons)."""
     frames = natural_sequence(SEQ_W, SEQ_H, SEQ_FRAMES, seed0=7, bit_depth=BD)
     maps_l, maps_c = frame_maps(preds, frames, SEQ_W, SEQ_H)
     enc = FrameEncoder(enc_cfg(SEQ_W, SEQ_H, SEQ), mode_select="satd", device=DEVICE)
@@ -5516,8 +5578,7 @@ def phase_seq_encode(preds: dict) -> dict:
     seq_encode(enc, frames[:1], maps_l, maps_c)
     log(f"[seq-encode] {SEQ_W}x{SEQ_H}, {SEQ}: cold run (1 frame) "
         f"{time.perf_counter() - t0:.3f} s")
-    for fn, _, _ in [*SEQ_KERNELS.values(), *K10E_KERNELS.values()]:
-        fn.launches = 0
+    reset_seq_counts()
     enc.timings = {}
     counts = collections.Counter()
     t0 = time.perf_counter()
@@ -5554,7 +5615,7 @@ def phase_seq_encode(preds: dict) -> dict:
         f"and V in one call ({launches['seq_intra'] + pairs} a call a plane)")
     seq_mix_times(mixes, "[seq-encode]", {"new": None})
     phase_seq_profile(enc, frames[0], maps_l[0], maps_c[0])
-    return launches
+    return launches, stream_of(outs)
 
 
 def mix_modes(m: int) -> tuple:
@@ -5662,9 +5723,10 @@ def phase_seq_profile(enc, frame, maps_l, maps_c) -> None:
         log(f"[seq-profile]   {tt:8.3f} s {100 * tt / total:5.1f}%  x{calls:<8d} {name[:90]}")
 
 
-def phase_seq_cpu_vs_card(preds: dict) -> None:
+def phase_seq_cpu_vs_card(preds: dict) -> tuple:
     """One 208x120 frame of the sequential configuration with
-    ``device="cpu"`` (the plain versions) and on the card: byte-identical."""
+    ``device="cpu"`` (the plain versions) and on the card: byte-identical.
+    Returns the card's (stream, recons)."""
     w, h = SEQ_W // 2, SEQ_H // 2
     frames = natural_sequence(w, h, 1, seed0=7, bit_depth=BD)
     maps_l, maps_c = frame_maps(preds, frames, w, h)
@@ -5672,18 +5734,23 @@ def phase_seq_cpu_vs_card(preds: dict) -> None:
     for device in ("cpu", DEVICE):
         enc = FrameEncoder(enc_cfg(w, h, SEQ), mode_select="satd", device=device)
         t0 = time.perf_counter()
-        out[device] = seq_encode(enc, frames, maps_l, maps_c)[0][0]
+        out[device] = seq_encode(enc, frames, maps_l, maps_c)
         log(f"[seq-cpu-vs-card] {w}x{h}, {SEQ}, on {device}: "
             f"{time.perf_counter() - t0:.3f} s; {seq_counts(enc)}")
-    check(out["cpu"] == out[DEVICE], "sequential encode: CPU and card bitstreams differ")
-    log(f"[seq-cpu-vs-card] bitstreams byte-identical ({len(out[DEVICE])} bytes)")
+    check(out["cpu"][0][0] == out[DEVICE][0][0],
+          "sequential encode: CPU and card bitstreams differ")
+    log(f"[seq-cpu-vs-card] bitstreams byte-identical ({len(out[DEVICE][0][0])} bytes)")
+    return stream_of(out[DEVICE])
 
 
-def phase_cli(tmp: pathlib.Path) -> None:
+def phase_cli(tmp: pathlib.Path) -> dict:
     """``cli.encode.main`` on a 2-frame 8-bit 256x128 YUV with the QP 22
     predictors' MTT maps (``--model-dir``), on the card, with the sequential
     engine (MRL, ISP, dependent quantization among its tools) and the
-    wavefront one; each frame's hash SEI equals the MD5 of its recon."""
+    wavefront one; each frame's hash SEI equals the MD5 of its recon. Then
+    ``cli.decode.main`` on the sequential stream, on the card: exit 0 (every
+    hash verified) and an output file equal to the encode's recon file.
+    Returns each engine's {"encode CLI, <engine>": (stream, recons)}."""
     w, h = 256, 128
     frames = natural_sequence(w, h, 2, seed0=9, bit_depth=8)
     yuv = tmp / "cli_in.yuv"
@@ -5693,6 +5760,7 @@ def phase_cli(tmp: pathlib.Path) -> None:
               "--cclm", "--jccr"]
     engines = {"sequential": ["--mrl", "--isp", "--dep-quant"],
                "wavefront": ["--sign-hiding"]}
+    streams = {}
     for engine, extra in engines.items():
         out, rec = tmp / f"cli_{engine}.bin", tmp / f"cli_{engine}.yuv"
         t0 = time.perf_counter()
@@ -5700,16 +5768,264 @@ def phase_cli(tmp: pathlib.Path) -> None:
                                           "--recon", str(rec)])
         wall = time.perf_counter() - t0
         bs = out.read_bytes()
-        planes = np.fromfile(rec, np.uint16)
+        planes = np.fromfile(rec, np.uint16).astype(np.int32)
         n = w * h * 3 // 2
-        want = []
-        for f in range(2):
-            p = planes[f * n:(f + 1) * n]
-            parts = (p[:w * h], p[w * h:w * h * 5 // 4], p[w * h * 5 // 4:])
-            want.append([hashlib.md5(q.astype("<u2").tobytes()).digest() for q in parts])
+        recons = [(q[:w * h].reshape(h, w), q[w * h:w * h * 5 // 4].reshape(h // 2, w // 2),
+                   q[w * h * 5 // 4:].reshape(h // 2, w // 2))
+                  for q in (planes[f * n:(f + 1) * n] for f in range(2))]
+        want = [[hashlib.md5(q.astype("<u2").tobytes()).digest() for q in r] for r in recons]
         check(sei_md5s(bs) == want, f"CLI {engine}: hash SEI differs from the recon's MD5")
         log(f"[cli] --engine {engine} {' '.join(extra)}: {len(bs)} bytes in {wall:.3f} s, "
             f"hash SEI equal to the recon's MD5")
+        streams[f"encode CLI, {engine}"] = (bs, recons)
+        if engine == "sequential":
+            dec = tmp / "cli_sequential_dec.yuv"
+            t0 = time.perf_counter()
+            rc = cli_decode.main(["-b", str(out), "-o", str(dec)])
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"cli.decode: exit {rc} (a hash mismatched)")
+            check(dec.read_bytes() == rec.read_bytes(),
+                  "cli.decode: the decoded YUV differs from the encode's recon file")
+            log(f"[cli] cli.decode.main on the sequential stream, on the card: {wall:.3f} s, "
+                f"every hash verified, the YUV equal to the recon file")
+    return streams
+
+
+# ---------------------------------------------------------------------------
+# the sequential encoder's RDO split search (K10a-d in its trials) and the
+# decoder (K10a-c), on the card
+# ---------------------------------------------------------------------------
+
+RDO_SEQ_W, RDO_SEQ_H, RDO_SEQ_QP = 192, 128, 32     # tools/rdcheck.py's frame and QP
+# the search phase's one cut: every fourth RMD mode (rdcheck takes all 67)
+RDO_SEQ_RMD = tuple(range(0, 67, 4))
+RDO_SEQ_SMALL = 64                    # the CPU-against-card frame's side
+RDO_SEQ_FB_LEVEL = 0                  # the maps-rd-fb run's accel level (see phase_seq_rdo)
+
+
+def ctc_cfg(w: int, h: int) -> VVCConfig:
+    """``tools/rdcheck.py:ctc_cfg``: dual tree, MTS, LFNST, MIP, MRL, ISP,
+    CCLM, joint Cb-Cr, dependent quantization, no SDH; LMCS with chroma
+    scaling, SAO, ALF, CC-ALF, deblocking; the CTC chroma QP table; QP 32;
+    the other fields ``VVCConfig``'s (luma MTT depth 0, chroma 3)."""
+    return VVCConfig(width=w, height=h, qp=RDO_SEQ_QP, dual_tree=True, mts_intra=True,
+                     lfnst=True, mip=True, mrl=True, isp=True, cclm=True, joint_cbcr=True,
+                     dep_quant=True, sign_hiding=False, lmcs=True, lmcs_chroma_scaling=True,
+                     sao=True, alf=True, alf_chroma=True, ccalf=True,
+                     deblocking_disabled=False, chroma_qp_start_minus26=-9,
+                     chroma_qp_points=((9, 12), (4, 5), (11, 7)))
+
+
+@contextlib.contextmanager
+def rd_searches():
+    """``FrameEncoder._rd_search``'s calls, counted: yields {"deferred": the
+    nodes the coding pass sent to the search (calls outside any trial),
+    "all": every call, the trials' nested ones included, "won": Counter of
+    the deferred nodes' winning splits}."""
+    out = {"deferred": 0, "all": 0, "won": collections.Counter()}
+    search, depth = FrameEncoder._rd_search, [0]
+
+    def counted(self, *args, **kw):
+        out["all"] += 1
+        out["deferred"] += depth[0] == 0
+        depth[0] += 1
+        try:
+            won = search(self, *args, **kw)
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0:
+            out["won"][won.name] += 1
+        return won
+    FrameEncoder._rd_search = counted
+    try:
+        yield out
+    finally:
+        FrameEncoder._rd_search = search
+
+
+@contextlib.contextmanager
+def parsed_splits():
+    """The split decisions each decode parses (``FrameDecoder._parse_split``,
+    implicit ones too), counted by (tree, split): the coded tree."""
+    counts = collections.Counter()
+    parse = seq_dec.FrameDecoder._parse_split
+
+    def counted(self, x, y, w, h, state, chroma=False):
+        split = parse(self, x, y, w, h, state, chroma)
+        counts[("chroma" if chroma else "luma", split.name)] += 1
+        return split
+    seq_dec.FrameDecoder._parse_split = counted
+    try:
+        yield counts
+    finally:
+        seq_dec.FrameDecoder._parse_split = parse
+
+
+def reset_seq_counts() -> None:
+    for fn, _, _ in [*SEQ_KERNELS.values(), *K10E_KERNELS.values()]:
+        fn.launches = 0
+
+
+def k10_launches() -> dict:
+    return {name: fn.launches for name, (fn, _, _) in SEQ_KERNELS.items()}
+
+
+def log_call_mix(tag: str, mixes: dict, top: int = 4) -> None:
+    """Each kernel's calls in ``mixes`` (``seq_call_mix``): the total, the
+    number of shapes and the most frequent entries."""
+    for kernel, mix in mixes.items():
+        log(f"{tag} {TIMED_KERNELS[kernel][0]}: {sum(mix.values())} calls in {len(mix)} shapes; "
+            + ", ".join(f"{key} x{n}" for key, n in mix.most_common(top)))
+
+
+def check_frame(tag: str, bs: bytes, recon, org) -> float:
+    """Hash SEI against the recon's MD5; the luma PSNR (above 27 dB: QP 32
+    in ``ctc_cfg`` gives 28-31 dB on ``natural_frame``)."""
+    want = [hashlib.md5(p.astype("<u2").tobytes()).digest() for p in recon]
+    check(sei_md5s(bs) == [want], f"{tag}: hash SEI differs from the recon's MD5")
+    err = (recon[0].astype(np.int64) - org[0]) ** 2
+    psnr = 10 * np.log10(1023 * 1023 / err.mean())
+    check(psnr > 27, f"{tag}: luma PSNR {psnr:.2f} dB")
+    return psnr
+
+
+def seq_rdo_run(device: str, side: tuple, mode_select: str, enc_kw: dict,
+                frame_kw: dict) -> dict:
+    """One encode of phases 29-30: ``natural_frame(w, h, seed=21)`` (``side``
+    = (w, h)) in ``ctc_cfg`` over ``RDO_SEQ_RMD`` on ``device``, K10a-d's
+    launch counts set to 0 just before it and read just after, with their
+    call mix and the search's counts (``rd_searches``). Top-level, so that a
+    spawned worker process runs it beside the card's other runs."""
+    w, h = side
+    frame = natural_frame(w, h, seed=21, bit_depth=BD)
+    enc = FrameEncoder(ctc_cfg(w, h), mode_select=mode_select, rmd_modes=RDO_SEQ_RMD,
+                       device=device, **enc_kw)
+    reset_seq_counts()
+    with seq_call_mix() as mixes, rd_searches() as searches:
+        t0 = time.perf_counter()
+        bs, recon = enc.encode_frame(*frame, **frame_kw)
+        wall = time.perf_counter() - t0
+    return dict(bs=bs, recon=recon, frame=frame, wall=wall, timings=dict(enc.timings),
+                launches=k10_launches(), mixes=mixes, searches=searches, counts=seq_counts(enc))
+
+
+@contextlib.contextmanager
+def phase_seq_rdo(preds: dict):
+    """Phases 29 and 30, the sequential encoder's RDO split search.
+
+    29: ``natural_frame(192, 128, seed=21)`` (``tools/rdcheck.py``'s size)
+    in ``ctc_cfg`` with ``mode_select="rd"`` over ``RDO_SEQ_RMD``, on the
+    card: ``encode_frame(rdo=True)`` (rdcheck's "rdo") and the QP 22
+    predictors' maps with ``rdo_fallback=True`` ("maps-rd-fb") at accel
+    level ``RDO_SEQ_FB_LEVEL``: 0, since at rdcheck's L3, and at L2 and L1,
+    these maps defer no node of this frame (``ctc_cfg``'s luma tree has MTT
+    depth 0, so every luma node is inside the map gate, and the chroma maps
+    reach MTT depth 2 nowhere). Each run: host seconds and
+    ``timings["code"]``, K10a-d's launches (each must launch) and call mix,
+    the deferred nodes (some must be) with their winning splits and the
+    search's calls in all, bits, luma PSNR, the hash SEI against the
+    recon's MD5.
+
+    30: ``natural_frame(64, 64, seed=21)`` in ``ctc_cfg`` with
+    ``mode_select="satd"``, ``encode_frame(rdo=True)`` and the QP 22 maps
+    with ``rdo_fallback`` at accel level 0, with ``device="cpu"`` (the
+    plain versions) and on the card: byte-identical, nodes deferred.
+
+    The runs are host-bound and the card idles through them, so they go to
+    three spawned worker processes (``rdo=True``, maps-rd-fb, phase 30's
+    four in turn) while the body of the ``with`` runs other phases; each
+    run's host seconds are taken beside the others'. On leaving the block
+    the runs are checked and logged, and the yielded dict gains "streams"
+    ({label: (stream, recons)} of the card's runs) and "launches" ({label:
+    launches} of phase 29's)."""
+    w, h, s = RDO_SEQ_W, RDO_SEQ_H, RDO_SEQ_SMALL
+    maps_l, maps_c = frame_maps(preds, [natural_frame(w, h, seed=21, bit_depth=BD)], w, h)
+    small_l, small_c = frame_maps(preds, [natural_frame(s, s, seed=21, bit_depth=BD)], s, s)
+    runs = {  # label: (device, side, mode_select, enc_kw, frame_kw)
+        "rdo": (DEVICE, (w, h), "rd", {}, dict(rdo=True)),
+        "maps-rd-fb": (DEVICE, (w, h), "rd",
+                       dict(accel_level=RDO_SEQ_FB_LEVEL, rdo_fallback=True),
+                       dict(maps=maps_l[0], chroma_maps=maps_c[0]))}
+    for device in ("cpu", DEVICE):
+        runs[f"{s}x{s} rdo on {device}"] = (device, (s, s), "satd", {}, dict(rdo=True))
+        runs[f"{s}x{s} fallback L0 on {device}"] = (
+            device, (s, s), "satd", dict(accel_level=0, rdo_fallback=True),
+            dict(maps=small_l[0], chroma_maps=small_c[0]))
+    result = {}
+    with ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=torch.set_num_threads, initargs=(2,)) as pool:
+        futures = {label: pool.submit(seq_rdo_run, *run) for label, run in runs.items()}
+        yield result
+        out = {label: f.result() for label, f in futures.items()}
+    streams, launches = {}, {}
+    for label in ("rdo", "maps-rd-fb"):
+        r = out[label]
+        launches[label] = r["launches"]
+        for name, n in r["launches"].items():
+            check(n > 0, f"{label}: {name} was not launched in the RDO split search")
+        check(r["searches"]["deferred"] > 0, f"{label}: no node reached the RDO split search")
+        psnr = check_frame(f"[seq-rdo] {label}", r["bs"], r["recon"], r["frame"])
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in r["timings"].items())
+        log(f"[seq-rdo] {label}: {w}x{h}, rdcheck's ctc_cfg, QP {RDO_SEQ_QP}, mode_select rd, "
+            f"{len(RDO_SEQ_RMD)} RMD modes, in a worker process: host {r['wall']:.3f} s "
+            f"({stages} s); launches {r['launches']}; deferred nodes "
+            f"{r['searches']['deferred']} (won: {dict(r['searches']['won'])}), searches in "
+            f"all {r['searches']['all']}; {8 * len(r['bs'])} bits, luma PSNR {psnr:.3f} dB, "
+            f"hash SEI equal to the recon's MD5; {r['counts']}")
+        log_call_mix(f"[seq-rdo] {label}:", r["mixes"])
+        streams[f"rdo search, {label}"] = (r["bs"], [r["recon"]])
+    for run in ("rdo", "fallback L0"):
+        pair = {device: out[f"{s}x{s} {run} on {device}"] for device in ("cpu", DEVICE)}
+        for device, r in pair.items():
+            log(f"[seq-rdo-cpu-vs-card] {run}, {s}x{s}, on {device}: {r['wall']:.3f} s; "
+                f"deferred nodes {r['searches']['deferred']}, searches in all "
+                f"{r['searches']['all']}; {r['counts']}")
+            check(r["searches"]["deferred"] > 0, f"{run}: no node reached the RDO split search")
+        check(pair["cpu"]["bs"] == pair[DEVICE]["bs"],
+              f"RDO split search ({run}): CPU and card bitstreams differ")
+        log(f"[seq-rdo-cpu-vs-card] {run}: bitstreams byte-identical "
+            f"({len(pair[DEVICE]['bs'])} bytes)")
+        streams[f"rdo search {s}x{s}, {run}"] = (pair[DEVICE]["bs"], [pair[DEVICE]["recon"]])
+    result.update(streams=streams, launches=launches)
+
+
+def phase_seq_decode(streams: dict) -> dict:
+    """The port's ``decode_stream(verify_hash=True)`` on the card on each of
+    ``streams`` ({label: (stream, the encoder's recons)}): every hash
+    verified and every recon equal to the encoder's. For each, the decode
+    time per frame, K10a-c's launches (K10d must not launch) with their
+    call mix (K10c's dequantise-and-inverse entries apart), and the coded
+    tree's split decisions. K10a, K10b and K10c must launch, and K10c's
+    mask DEQUANT | INV too. Returns the launches over all the decodes."""
+    total = collections.Counter()
+    fused = 0
+    for label, (bs, recons) in streams.items():
+        reset_seq_counts()
+        with seq_call_mix(seq_enc, seq_dec) as mixes, parsed_splits() as splits:
+            t0 = time.perf_counter()
+            _, frames = seq_dec.decode_stream(bs, verify_hash=True, device=DEVICE)
+            wall = time.perf_counter() - t0
+        check(len(frames) == len(recons), f"decode {label}: {len(frames)} frames")
+        for f, (got, want) in enumerate(zip(frames, recons)):
+            check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                  f"decode {label}: frame {f}'s recon differs from the encoder's")
+        launches = k10_launches()
+        check(launches["seq_satd"] == 0, f"decode {label}: K10d launched")
+        total.update(launches)
+        deq_inv = sum(n for key, n in mixes["k10c"].items()
+                      if key[0] == quant_ops.DEQUANT | quant_ops.INV)
+        fused += deq_inv
+        log(f"[seq-decode] {label}: {len(frames)} frame(s), {len(bs)} bytes, "
+            f"{1e3 * wall / len(frames):.3f} ms a frame on the card, every hash verified and "
+            f"every recon the encoder's; launches {launches}, {deq_inv} of K10c's with the "
+            f"mask DEQUANT | INV (a TU in one launch); coded splits "
+            f"{dict(sorted(splits.items()))}")
+        log_call_mix(f"[seq-decode] {label}:", {k: mixes[k] for k in ("k10a", "k10b", "k10c")})
+    for name in ("seq_intra", "seq_mip", "seq_tq"):
+        check(total[name] > 0, f"{name} was not launched by the decoder")
+    check(fused > 0, "the decoder never launched K10c with DEQUANT | INV")
+    log(f"[seq-decode] {len(streams)} streams: launches {dict(total)}")
+    return dict(total)
 
 
 # ---------------------------------------------------------------------------
@@ -7435,7 +7751,7 @@ def phase_k10_seq(kernel: str, parent: pathlib.Path) -> None:
     frames = natural_sequence(SEQ_W, SEQ_H, SEQ_FRAMES, seed0=7, bit_depth=BD)
     maps_l, maps_c = frame_maps(preds, frames, SEQ_W, SEQ_H)
     enc = FrameEncoder(enc_cfg(SEQ_W, SEQ_H, SEQ), mode_select="satd", device=DEVICE)
-    with seq_call_mix() as mixes:                               # cold, both frames
+    with seq_call_mix() as mixes:                               # cold, every frame
         seq_encode(enc, frames, maps_l, maps_c)
     streams = []
     for label in ("parent", "new", "new", "parent"):
@@ -7455,7 +7771,7 @@ def phase_k10_seq(kernel: str, parent: pathlib.Path) -> None:
         f"({len(streams[0])} bytes), every hash SEI its recon's MD5")
     if kernel == "k10a":
         pairs = k10a_pair_calls(mixes["k10a"])
-        log(f"[k10a-times] sequential path (2 frames): {sum(mixes['k10a'].values())} K10a "
+        log(f"[k10a-times] sequential path ({SEQ_FRAMES} frame(s)): {sum(mixes['k10a'].values())} K10a "
             f"launches, {pairs} of them a chroma CU's U and V in one call: "
             f"{sum(mixes['k10a'].values()) + pairs} with a call a plane")
     seq_mix_times(mixes, f"[{kernel}-times]", {"parent": lib, "new": None}, (kernel,))
@@ -7574,10 +7890,14 @@ def seq_only() -> int:
              ("Chroma", ENC_QP): CompPredictor.from_trained(
                  False, CKPT / f"Chroma_Q_QP{ENC_QP}.msgpack",
                  CKPT / f"Chroma_BD_QP{ENC_QP}.msgpack", device=DEVICE)}
-    phase_seq_encode(preds)
-    phase_seq_cpu_vs_card(preds)
-    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_cli_") as tmp:
-        phase_cli(pathlib.Path(tmp))
+    seq_streams = {"sequential path": phase_seq_encode(preds)[1]}
+    with phase_seq_rdo(preds) as rdo:
+        seq_streams["sequential, CPU against card"] = phase_seq_cpu_vs_card(preds)
+        with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_cli_") as tmp:
+            seq_streams.update(phase_cli(pathlib.Path(tmp)))
+    seq_streams.update(rdo["streams"])
+    phase_seq_decode(seq_streams)
+    log(card_line())
     log("[seq-only] partial run: no result line")
     return 0
 
@@ -7617,17 +7937,23 @@ def main() -> int:
     enc_l3, frames, maps_l, maps_c, enc_launches = phase_encode(preds)
     step_errs = phase_encode_first_steps(frames, maps_l, maps_c)
     rdo_launches = phase_rdo_encode(frames, maps_l, maps_c, enc_l3)
-    phase_encode_bench_tools(preds)
+    bench_stream = phase_encode_bench_tools(preds)
     phase_rdo_bench(preds)
     phase_rdo_labels()
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_train_") as tmp:
         train_launches = phase_train(pathlib.Path(tmp))
-    seq_launches = phase_seq_encode(preds)
-    phase_encode_cpu_vs_card(preds)
-    phase_rdo_cpu_vs_card()
-    phase_seq_cpu_vs_card(preds)
-    with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_cli_") as tmp:
-        phase_cli(pathlib.Path(tmp))
+    seq_launches, seq_stream = phase_seq_encode(preds)
+    seq_streams = {"sequential path": seq_stream}
+    with phase_seq_rdo(preds) as rdo:       # phases 29-30 in workers beside 10, 16, 21, 22
+        phase_encode_cpu_vs_card(preds)
+        phase_rdo_cpu_vs_card()
+        seq_streams["sequential, CPU against card"] = phase_seq_cpu_vs_card(preds)
+        with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_cli_") as tmp:
+            seq_streams.update(phase_cli(pathlib.Path(tmp)))
+    rdo_seq_launches = rdo["launches"]
+    seq_streams.update(rdo["streams"])
+    seq_streams["wave path, bench configuration"] = bench_stream
+    decode_launches = phase_seq_decode(seq_streams)
     with tempfile.TemporaryDirectory(prefix="pmp_chip_smoke_md_") as tmp:
         nccl1 = phase_md_nccl1(preds, pathlib.Path(tmp))
         two = phase_md_2rank(nccl1, pathlib.Path(tmp))
@@ -7681,12 +8007,19 @@ def main() -> int:
     # or its square that wraps (PyTorch's integer sums promote to int64, and
     # its distance calls take floats); launches are the sequential path's
     # warm run (phase_seq_encode), 0 for K10e, which no path calls; K10e's
-    # sad has torch.cdist(p=1) on float32 copies as its library yardstick
+    # sad has torch.cdist(p=1) on float32 copies as its library yardstick;
+    # K10a-d's launches on the RDO split search's runs and K10a-c's over the
+    # decodes beside them
     for name, (_, source, replaces) in [*SEQ_KERNELS.items(), *K10E_KERNELS.items()]:
+        by_path = {f"rdo search, {label}": n[name] for label, n in rdo_seq_launches.items()
+                   if name in n}
+        if name in decode_launches:
+            by_path["decode"] = decode_launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": seq_launches[name], "max_abs_err": seq_errs[name],
-            "library_ms": None, **seq_times[name]})
+            "library_ms": None, **seq_times[name],
+            **({"launches_by_path": by_path} if by_path else {})})
     # K12b: no PyTorch call computes a masked pack of six plane bands;
     # launches are the two-rank spatial path's (rank 0)
     for name, (_, source, replaces) in MD_KERNELS.items():

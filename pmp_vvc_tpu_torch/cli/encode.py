@@ -7,9 +7,9 @@ checkpoints ``{Luma,Chroma}_{Q,BD}_QP<qp>.msgpack`` of
 ``trained_models/bd``, read by ``CompPredictor.from_trained``), from a
 PartitionMat txt (``--partition-mat``), or a uniform QT depth
 (``--qt-depth``). Both engines run on ``--device`` (default: the card):
-``sequential`` is ``FrameEncoder`` (the K10 kernels per block), whose RDO
-split search (``--rdo``, ``--rdo-fallback``) is not ported and raises;
-``wavefront`` is ``WavefrontEncoder``. ``--jobs`` > 1 encodes frames in
+``sequential`` is ``FrameEncoder`` (the K10 kernels per block; ``--rdo``
+runs its RDO split search on every node with no maps, ``--rdo-fallback``
+on the nodes the maps defer); ``wavefront`` is ``WavefrontEncoder``. ``--jobs`` > 1 encodes frames in
 ``spawn``-started worker processes (CUDA does not survive ``fork``).
 
 Usage:
@@ -179,9 +179,6 @@ def main(argv=None):
     for req in ("input", "width", "height", "output"):
         if getattr(args, req) in (None,):
             ap.error(f"--{req} required (directly or via -c cfg files)")
-
-    if args.engine == "sequential" and (args.rdo or args.rdo_fallback):
-        raise NotImplementedError("RDO split search is not ported")
 
     from ..codec.headers import VVCConfig
     from ..codec.partition import read_partition_txt

@@ -28,8 +28,9 @@ split_cu_mode :567 / coding_unit :660 / intra_luma_pred_modes :1057 /
 intra_chroma_pred_mode :1259 / transform_unit :2406 / cbf_comp :2305;
 MPM list UnitTools.cpp:591; QP derivation Quant.cpp QpParam :54.
 
-Not ported: the RDO split search (``RDO`` nodes raise
-``NotImplementedError``).
+The RDO split search (``_rd_search``: ``encode_frame(rdo=True)`` and the
+``rdo_fallback`` deferrals of the map deciders) is the JAX package's, host
+Python over the same K10 calls, trial by trial.
 """
 from __future__ import annotations
 
@@ -106,7 +107,8 @@ class RecordingEncoder:
         self.ops.append(("rem", value, rice_par, cutoff, max_log2_tr_range))
 
 
-PLANAR, DC, HOR, VER = 0, 1, 18, 50
+PLANAR, DC, HOR, VER, VDIA = 0, 1, 18, 50, 66
+DM_CHROMA = 67
 NUM_MPM = 6
 
 # decide() sentinel: defer this node to the RDO split search
@@ -171,9 +173,11 @@ class FrameEncoder:
     versions). ``mode_select``,
     ``rmd_modes`` and ``rd_effort`` are the JAX package's. The counters
     ``n_mrl``, ``n_isp``, ``n_cclm``, ``n_nondm``, ``n_lfnst``, ``n_jccr``
-    count each frame's choices, ``n_depquant`` the TUs (RD trials included)
+    count each frame's choices in its committed coding tree, ``n_depquant``
+    the TUs (RD trials included, the split search's rolled-back ones too)
     to which the dependent-quantization trellis gave a level; ``bin_stats``
-    holds the bin statistics of ``encode_frame(collect_bin_stats=True)``.
+    holds the bin statistics of ``encode_frame(collect_bin_stats=True)``
+    (the committed stream's bins).
 
     ``timings`` accumulates host seconds per stage of ``encode_frame``:
     ``code`` (the sequential CU coding with its coding-tree walk and CABAC
@@ -297,7 +301,9 @@ class FrameEncoder:
         self.recon_y = np.zeros((cfg.height, cfg.width), np.int32)
         self.recon_u = np.zeros((cfg.height // 2, cfg.width // 2), np.int32)
         self.recon_v = np.zeros((cfg.height // 2, cfg.width // 2), np.int32)
-        # chroma-tree unit grids, filled by the dual-tree chroma pass
+        # chroma-tree unit grids: the dual-tree chroma pass fills them,
+        # and single-tree SCIPU (local dual tree) region chroma CUs
+        # reuse the same bookkeeping on decode
         self.coded_c = np.zeros((r4, c4), bool)
         self.unit_w_c = np.zeros((r4, c4), np.int32)   # luma units
         self.unit_h_c = np.zeros((r4, c4), np.int32)
@@ -311,6 +317,8 @@ class FrameEncoder:
                                     bool)
         self.unit_mip = np.zeros((r4, c4), bool)
         self.unit_isp = np.zeros((r4, c4), bool)
+        self.unit_bdpcm = np.zeros((r4, c4), bool)    # decode-side
+        self.unit_bdpcm_c = np.zeros((r4, c4), bool)
         self.n_cclm = 0                   # CUs that chose CCLM
         self.n_nondm = 0                  # CUs that chose a non-DM chroma mode
         self.n_lfnst = 0                  # CUs that chose LFNST
@@ -1871,6 +1879,170 @@ class FrameEncoder:
             self.leaf_l.append((x, y, w, h))
         self.leaf_c.append((x // 2, y // 2, w // 2, h // 2))
 
+    # ---- RDO split search (EncCu::xCompressCU / xCheckModeSplit) ---------
+    #
+    # A trial codes a node's candidate split (or its leaf) into a recorder
+    # of its own, off a clone of the rate estimator, and is then rolled back
+    # to the snapshot; the winner's post-trial state is re-applied. What a
+    # rolled-back trial leaves behind: the K10 kernels' launch counts and
+    # ``timings["code"]`` (the trials are the search's work), and
+    # ``n_depquant``, which counts every trellis run that gave a level,
+    # the trials' included. The snapshot restores recon, the ``_SNAP_*``
+    # grids, the leaf lists and the six choice counters, so those count the
+    # committed tree only, as in the JAX package; ``bin_stats`` reads the
+    # committed bin ops alone, since only the winner's ops reach the
+    # frame's recorder.
+
+    _SNAP_L = ("coded", "unit_mode", "unit_w", "unit_h", "unit_qt",
+               "unit_mip", "unit_isp", "unit_joint2")
+    _SNAP_C = ("coded_c", "unit_w_c", "unit_h_c", "unit_qt_c")
+
+    def _state_snapshot(self, x, y, w, h):
+        """Copy every per-region mutable coding state for trial rollback."""
+        r, c, nr, nc = y // 4, x // 4, h // 4, w // 4
+        cy_, cx_, chh, cw = y // 2, x // 2, h // 2, w // 2
+        d = {"xywh": (x, y, w, h),
+             "ry": self.recon_y[y:y + h, x:x + w].copy(),
+             "ru": self.recon_u[cy_:cy_ + chh, cx_:cx_ + cw].copy(),
+             "rv": self.recon_v[cy_:cy_ + chh, cx_:cx_ + cw].copy(),
+             "ll": len(self.leaf_l), "lc": len(self.leaf_c),
+             "ctr": (self.n_cclm, self.n_lfnst, self.n_mrl, self.n_jccr,
+                     self.n_isp, self.n_nondm)}
+        names = self._SNAP_L + (self._SNAP_C if self.cfg.dual_tree else ())
+        for name in names:
+            d[name] = getattr(self, name)[r:r + nr, c:c + nc].copy()
+        return d
+
+    def _state_restore(self, d):
+        x, y, w, h = d["xywh"]
+        r, c, nr, nc = y // 4, x // 4, h // 4, w // 4
+        cy_, cx_, chh, cw = y // 2, x // 2, h // 2, w // 2
+        self.recon_y[y:y + h, x:x + w] = d["ry"]
+        self.recon_u[cy_:cy_ + chh, cx_:cx_ + cw] = d["ru"]
+        self.recon_v[cy_:cy_ + chh, cx_:cx_ + cw] = d["rv"]
+        names = self._SNAP_L + (self._SNAP_C if self.cfg.dual_tree else ())
+        for name in names:
+            getattr(self, name)[r:r + nr, c:c + nc] = d[name]
+        del self.leaf_l[d["ll"]:]
+        del self.leaf_c[d["lc"]:]
+        (self.n_cclm, self.n_lfnst, self.n_mrl, self.n_jccr,
+         self.n_isp, self.n_nondm) = d["ctr"]
+
+    def _capture_post(self, snap):
+        """Post-trial state relative to ``snap`` (winner re-application)."""
+        x, y, w, h = snap["xywh"]
+        d = self._state_snapshot(x, y, w, h)
+        d["new_ll"] = self.leaf_l[snap["ll"]:]
+        d["new_lc"] = self.leaf_c[snap["lc"]:]
+        return d
+
+    def _apply_post(self, snap, post):
+        self._state_restore(post)       # truncates to post's recorded lens
+        del self.leaf_l[snap["ll"]:]
+        del self.leaf_c[snap["lc"]:]
+        self.leaf_l.extend(post["new_ll"])
+        self.leaf_c.extend(post["new_lc"])
+
+    def _region_dist(self, org, x, y, w, h, tree) -> float:
+        """Trial distortion: SSE over the node region, chroma weighted
+        (RdCost distortion weights; luma in the coding/mapped domain)."""
+        d = 0.0
+        if tree in ("single", "luma"):
+            e = self.recon_y[y:y + h, x:x + w].astype(np.int64) \
+                - org[0][y:y + h, x:x + w]
+            d += float((e * e).sum())
+        if tree in ("single", "chroma"):
+            cy_, cx_, chh, cw = y // 2, x // 2, h // 2, w // 2
+            for p, o in ((self.recon_u, org[1]), (self.recon_v, org[2])):
+                e = p[cy_:cy_ + chh, cx_:cx_ + cw].astype(np.int64) \
+                    - o[cy_:cy_ + chh, cx_:cx_ + cw]
+                d += self.dw_c * float((e * e).sum())
+        return d
+
+    def _rd_search(self, enc, rc, org, x, y, w, h, state, decide, tree,
+                   depth64=0, path=(None, None)):
+        """Exhaustive split-vs-leaf RD at one tree node, committing the
+        winner's syntax ops, context states, recon and neighbour state
+        (EncCu::xCompressCU: mode loop over ETM_POST_DONT_SPLIT +
+        ETM_SPLIT_*, best-CS commit; EncCu.cpp:531, 1288).
+
+        ``tree``: "single" | "luma" | "chroma".  Trial rate is the live
+        fractional-bit estimate (split bins + full CU syntax); trial
+        distortion is region SSE with chroma weighting. Returns the
+        winning split.
+        """
+        cfg = self.cfg
+        chroma = tree == "chroma"
+        can = can_split_set(w, h, state, cfg, chroma)
+        order = [Split.NONE, Split.QT, Split.BT_H, Split.BT_V,
+                 Split.TT_H, Split.TT_V]
+        cands = [s for s in order if can[s]]
+        if tree == "single":
+            # never explore SCIPU-triggering splits (see _encode_tree)
+            cands = [s for s in cands
+                     if s == Split.NONE or not self._scipu_cond(w, h, s)]
+        base_est = self.est
+        snap = self._state_snapshot(x, y, w, h)
+        best = None
+        split_costs = {}
+        for cand in cands:
+            # TT pruning (EncModeCtrl fast modes in spirit): skip a TT
+            # trial when the parallel BT already lost clearly
+            if self.rd_effort <= 1 and cand in (Split.TT_H, Split.TT_V) \
+                    and best is not None:
+                bt = Split.BT_H if cand == Split.TT_H else Split.BT_V
+                if bt in split_costs and split_costs[bt] > best[0] * 1.1:
+                    continue
+            est2 = base_est.clone()
+            self.est = est2
+            enc2 = RecordingEncoder(self)
+            rc2 = ResidualCoder(enc2, dep_quant=cfg.dep_quant,
+                                sign_hiding=cfg.sign_hiding)
+            self._write_split(enc2, x, y, w, h, state, cand, chroma)
+            if cand == Split.NONE:
+                cu = CuInfo(x, y, w, h, state.qt_depth)
+                if tree == "single":
+                    self._encode_cu(enc2, rc2, org[0], org[1], org[2], cu)
+                elif tree == "luma":
+                    self._encode_luma_cu(enc2, rc2, org[0], cu)
+                else:
+                    npath = (path[0] if depth64 > 0 else None,
+                             path[1] if depth64 > 1 else None)
+                    self._encode_chroma_cu(enc2, rc2, org[1], org[2], cu,
+                                           split_path=npath)
+            else:
+                npath = (cand if depth64 == 0 else path[0],
+                         cand if depth64 == 1 else path[1])
+                for i, (cx, cy, cw, chh) in enumerate(
+                        self._children(x, y, w, h, cand)):
+                    cstate = SplitState(
+                        last_split=cand, part_idx=i,
+                        qt_depth=state.qt_depth
+                        + (1 if cand == Split.QT else 0),
+                        mtt_depth=state.mtt_depth
+                        + (0 if cand == Split.QT else 1),
+                        implicit_bt_depth=state.implicit_bt_depth)
+                    if tree == "single":
+                        self._encode_tree(enc2, rc2, org, cx, cy, cw, chh,
+                                          cstate, decide)
+                    else:
+                        self._encode_tree_ch(enc2, rc2, org, cx, cy, cw,
+                                             chh, cstate, decide, chroma,
+                                             depth64 + 1, npath)
+            cost = self._region_dist(org, x, y, w, h, tree) \
+                + self.lam * (est2.frac - base_est.frac) / 32768.0
+            split_costs[cand] = cost
+            if best is None or cost < best[0]:
+                best = (cost, cand, enc2.ops, est2,
+                        self._capture_post(snap))
+            self.est = base_est
+            self._state_restore(snap)
+        _, cand, ops, est2, post = best
+        self._apply_post(snap, post)
+        self.est = est2
+        enc.ops.extend(ops)
+        return cand
+
     # ---- coding tree -----------------------------------------------------
 
     def _encode_tree_ch(self, enc, rc, org, x, y, w, h, state, decide,
@@ -1889,7 +2061,12 @@ class FrameEncoder:
         else:
             split = decide(x, y, w, h, state)
         if split == RDO:
-            raise NotImplementedError("RDO split search is not ported")
+            split = self._rd_search(enc, rc, org, x, y, w, h, state,
+                                    decide, "chroma" if chroma else "luma",
+                                    depth64, path)
+            if not chroma and depth64 == 0:
+                self._luma_root_split = split
+            return
         if not chroma and depth64 == 0:
             self._luma_root_split = split
         self._write_split(enc, x, y, w, h, state, split, chroma)
@@ -1959,7 +2136,9 @@ class FrameEncoder:
         split = implicit if implicit != Split.NONE \
             else decide(x, y, w, h, state)
         if split == RDO:
-            raise NotImplementedError("RDO split search is not ported")
+            self._rd_search(enc, rc, org, x, y, w, h, state, decide,
+                            "single")
+            return
         if split != Split.NONE and self._scipu_cond(w, h, split):
             # SCIPU (modeTypeCondition != 0): the decoder would switch
             # to a local dual tree here, which this encoder does not
@@ -2153,8 +2332,7 @@ class FrameEncoder:
         split deciders (override maps). ``collect_bin_stats``: keep the
         frame's bin statistics in ``bin_stats`` (``utils/stats.py``).
         ``rdo``: with no maps, every node of 64x64 or less inside the
-        picture goes to the RDO split search, which is not ported: the
-        first such node raises ``NotImplementedError``.
+        picture goes to the RDO split search (``_rd_search``).
         """
         cfg = self.cfg
         if y.shape != (cfg.height, cfg.width):

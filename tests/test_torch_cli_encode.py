@@ -9,8 +9,12 @@ recon files must be byte-identical, and the streams decode hash-verified.
 The port's ``vtmcfg`` maps a cfg stack as the JAX package's does;
 ``--model-dir`` reads the committed msgpack checkpoints and names a missing
 one; ``--jobs 2`` (spawned workers) writes the same stream as ``--jobs 1``;
-the sequential engine's RDO split search (``--rdo``, ``--rdo-fallback``) is
-not ported and raises.
+the sequential engine's RDO split search runs under ``--rdo`` and under
+``--rdo-fallback`` (the PartitionMat maps at accel level 0), writing the
+port's ``FrameEncoder`` stream, which decodes hash-verified. Those two
+streams are not compared with the JAX CLI's: the JAX package's cold search
+takes ~35-45 s a case on a CPU, which this file's time cannot hold, and
+``test_torch_seq_rdo.py`` holds the search to the JAX package's.
 """
 import numpy as np
 import pytest
@@ -20,8 +24,11 @@ from pmp_vvc_tpu.cli import encode as jax_cli
 from pmp_vvc_tpu.codec.decoder import decode_stream
 from pmp_vvc_tpu.utils import vtmcfg as jax_vtmcfg
 from pmp_vvc_tpu_torch.cli import encode as cli
+from pmp_vvc_tpu_torch.codec import encoder as tenc
+from pmp_vvc_tpu_torch.codec.headers import VVCConfig
+from pmp_vvc_tpu_torch.codec.partition import read_partition_txt
 from pmp_vvc_tpu_torch.data.synthcontent import natural_sequence
-from pmp_vvc_tpu_torch.data.yuv import write_yuv420
+from pmp_vvc_tpu_torch.data.yuv import read_yuv420, write_yuv420
 from pmp_vvc_tpu_torch.pmp.map2partition import write_partition_txt
 from pmp_vvc_tpu_torch.utils import vtmcfg
 from test_wavefront import _mtt_maps
@@ -127,8 +134,36 @@ def test_jobs_spawn_matches_one_job(clip):
 
 
 @pytest.mark.parametrize("flag", ["--rdo", "--rdo-fallback"])
-def test_sequential_rdo_search_raises(clip, flag):
-    tmp, yuv, _, _, _ = clip
-    with pytest.raises(NotImplementedError, match="RDO split search"):
-        cli.main(["--input", str(yuv), "--width", str(W), "--height", str(H), "--device", "cpu",
-                  "--output", str(tmp / "x.bin"), flag])
+def test_sequential_rdo_search_raises(clip, flag, monkeypatch):
+    """Kept under its old name: each flag now runs the search on the first
+    frame, and the CLI writes the stream of the port's ``FrameEncoder`` in
+    the same configuration (``--rdo``: no maps; ``--rdo-fallback``: the
+    ``-c`` sequence cfg's tools with the PartitionMat maps at accel level
+    0, where the maps defer nodes), which decodes hash-verified."""
+    tmp, yuv, seq, _, pmat = clip
+    calls = []
+    search = tenc.FrameEncoder._rd_search
+
+    def counted(self, *args, **kw):
+        calls.append(args[3:7])
+        return search(self, *args, **kw)
+    monkeypatch.setattr(tenc.FrameEncoder, "_rd_search", counted)
+    y, u, v = (p[0].astype(np.int32) << 2 for p in read_yuv420(yuv, W, H, 1))
+    if flag == "--rdo":
+        argv = ["--input", str(yuv), "--width", str(W), "--height", str(H), "--frames", "1"]
+        cfg = VVCConfig(width=W, height=H, qp=32, deblocking_disabled=False)
+        kw, enc_kw = dict(rdo=True), {}
+    else:
+        argv = ["-c", str(seq), "--partition-mat", str(pmat), "--mtt", "--accel-level", "0"]
+        cfg = VVCConfig(width=W, height=H, **vtmcfg.to_encoder_args(vtmcfg.merge_cfgs([seq]))[1])
+        kw = dict(maps=read_partition_txt(pmat, H, W)[0])
+        enc_kw = dict(accel_level=0, rdo_fallback=True)
+    out = tmp / "rdo.bin"
+    cli.main(argv + ["--engine", "sequential", "--device", "cpu", "--output", str(out), flag])
+    n = len(calls)
+    assert n > 0
+    want, _ = tenc.FrameEncoder(cfg, device="cpu", **enc_kw).encode_frame(y, u, v, poc=0, **kw)
+    assert len(calls) == 2 * n
+    bs = out.read_bytes()
+    assert bs == want
+    decode_stream(bs, verify_hash=True)

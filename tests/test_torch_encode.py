@@ -8,16 +8,18 @@ chroma MTT maps. The bitstreams and recon must be byte-identical, and the
 port's stream must decode hash-verified with the JAX package's decoder.
 Every K4 and K5 decision keeps a relative margin above MARGIN
 (test_torch_codec_ops.py). Every flag the port does not support (the
-sequential-only tools) raises, and so does the sequential encoder's own
-RDO split search; every coding tool of the bench configuration and the
-device RDO fallback are accepted (the test_torch_encode_*.py files encode
-with them).
+sequential-only tools) raises; every coding tool of the bench
+configuration and the device RDO fallback are accepted (the
+test_torch_encode_*.py files encode with them), and the sequential
+encoder's own RDO split search gives the JAX package's stream.
 """
 import numpy as np
 import pytest
 import torch
 
 from pmp_vvc_tpu.codec.decoder import decode_stream
+from pmp_vvc_tpu.codec.encoder import RDO as JAX_RDO
+from pmp_vvc_tpu.codec.encoder import FrameEncoder as JaxFrameEncoder
 from pmp_vvc_tpu.codec.headers import VVCConfig as JaxConfig
 from pmp_vvc_tpu.codec.wavefront import WavefrontEncoder as JaxEncoder
 from pmp_vvc_tpu_torch.codec import wavefront as twf
@@ -99,17 +101,21 @@ def test_mip_and_sign_hiding_are_accepted():
 
 
 def test_rdo_paths_raise():
-    """The wavefront encoder takes the device RDO (``rdo_fallback``; the
-    test_torch_encode_rdo*.py files encode with it); the sequential
-    ``FrameEncoder``'s own split search, which a deciding node defers to,
-    is not ported and raises."""
+    """Kept under its old name. The wavefront encoder takes the device RDO
+    (``rdo_fallback``; the test_torch_encode_rdo*.py files encode with it);
+    the sequential ``FrameEncoder``'s own split search, which a deciding
+    node defers to, runs and gives the JAX package's stream and recon
+    (``test_torch_seq_rdo.py`` holds it with the coding tools)."""
     enc = twf.WavefrontEncoder(VVCConfig(width=64, height=64), rdo_fallback=True,
                                device="cpu")
     assert enc.rdo_fallback
     y, u, v = _synth(64, 64)
-    with pytest.raises(NotImplementedError, match="RDO split search"):
-        FrameEncoder(VVCConfig(width=64, height=64)).encode_frame(
-            y, u, v, decide_fn=lambda *a: RDO)
+    bs, recon = FrameEncoder(VVCConfig(width=64, height=64), mode_select="planar",
+                             device="cpu").encode_frame(y, u, v, decide_fn=lambda *a: RDO)
+    jbs, jrecon = JaxFrameEncoder(JaxConfig(width=64, height=64),
+                                  mode_select="planar").encode_frame(
+        y, u, v, decide_fn=lambda *a: JAX_RDO)
+    _check(bs, recon, jbs, jrecon)
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -64,6 +64,9 @@ PARALLEL_MODULES = {
 
 # the data-parallel CNN slice's new modules (K12c)
 DP_MODULES = {"pmp_vvc_tpu_torch." + m for m in ("ops.dp_generic", "entry")}
+# the decoder's slice: its new modules
+DECODER_MODULES = {"pmp_vvc_tpu_torch." + m for m in (
+    "codec.decoder", "codec.hlsparse", "codec.nalparse", "cli.decode")}
 
 
 def _blocker_namespace():
@@ -89,10 +92,10 @@ def test_port_imports_every_module_without_jax():
     # data, models, pmp, codec, ops, native, train, cli, tools, utils,
     # parallel and their modules, _build, _device, entry: 46 before the
     # training slice, 58 with it, 64 with the sequential encoder's, 70 with
-    # parallel, 72 with the data-parallel CNN's
+    # parallel, 72 with the data-parallel CNN's, 76 with the decoder's
     assert TRAIN_MODULES <= names and SEQ_MODULES <= names and PARALLEL_MODULES <= names
-    assert DP_MODULES <= names
-    assert len(names) >= 72
+    assert DP_MODULES <= names and DECODER_MODULES <= names
+    assert len(names) >= 76
 
 
 def test_rdo_modules_are_scanned():
@@ -120,6 +123,12 @@ def test_dp_modules_are_scanned():
     """The data-parallel CNN slice's sources are among those scanned below."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {m.replace(".", "/") + ".py" for m in DP_MODULES} <= names
+
+
+def test_decoder_modules_are_scanned():
+    """The decoder slice's sources are among those scanned below."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {m.replace(".", "/") + ".py" for m in DECODER_MODULES} <= names
 
 
 def test_train_modules_are_scanned():
